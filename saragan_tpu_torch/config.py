@@ -1,10 +1,13 @@
-"""Run configuration of the port: the fields the serving slice reads.
+"""Run configuration of the port: the fields the serving and training slices read.
 
 The port keeps its own copy of ``saragan_tpu/config.py``'s ``Config`` (same field
-names, defaults and derived properties), trimmed to what the generator and the
-serving tools use; the training fields arrive with the training slice.  There is no
-``apply_runtime_opts``: the conv engine is an explicit argument of the samplers, never
-a process-wide gate.
+names, defaults and derived properties), trimmed to what the models, the train step and
+the serving tools use.  There is no ``apply_runtime_opts``: the conv engine is an
+explicit argument of the samplers and of ``make_train_step``, never a process-wide gate.
+Fields of options the port does not run yet (``remat``, ``remat_offload``,
+``gradient_accumulation > 1``, ``use_spectral_norm``, other optimizers than Adam) are
+kept so a configuration reads the same in both packages; the code that meets them
+raises and names ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -65,6 +68,40 @@ class Config:
     use_pallas_fusion: bool = False
     # upscale + conv_1 of each generator block as one transposed conv (exact)
     fused_transitions: bool = True
+    # --- training (saragan_tpu/config.py:75,98-141,195,212-274) ---
+    base_batch_size: Optional[int] = None
+    g_lr: Optional[float] = 1e-3
+    d_lr: Optional[float] = 1e-3
+    loss_fn: str = "logistic"
+    gp_weight: float = 1.0
+    use_spectral_norm: bool = False
+    g_clipping: bool = False
+    d_clipping: bool = False
+    optim_strategy: str = "simultaneous"
+    ema_beta: float = 0.99
+    noise_stddev: float = 0.0
+    optimizer: Optional[str] = "Adam"
+    d_use_different_optimizer: bool = False
+    d_optimizer: Optional[str] = "Adam"
+    adam_beta1: Optional[float] = 0.0
+    d_use_different_beta1: bool = False
+    d_adam_beta1: Optional[float] = 0.0
+    adam_beta2: Optional[float] = 0.9
+    d_use_different_beta2: bool = False
+    d_adam_beta2: Optional[float] = 0.9
+    gradient_accumulation: int = 1
+    compute_dtype: str = "float32"  # "bfloat16": bf16 activations, f32 params and state
+    remat: bool = False
+    remat_offload: bool = False
+    lazy_gp: int = 1  # GP every k-th step with k-scaled weight (1 = every step)
+    # reduce the GP norm over all non-batch axes instead of the reference's (1, 2, 3)
+    gp_full_reduction: bool = False
+    # shared-fake-pass WGAN gradients: one D backward over the fake batch instead of two
+    fused_grads: bool = True
+    # algebra of the penalty's parameter gradient: 'revrev' (ported) or 'revfwd'
+    gp_grad_mode: str = "revrev"
+    # fake and real critic passes as one D call over both batches
+    batched_passes: bool = True
 
     @property
     def start_shape_t(self) -> Tuple[int, ...]:
@@ -112,8 +149,15 @@ class Config:
         return default_filter_spec(self.num_phases, self.base_shape, size=size, ndim=self.ndim)
 
     def finalize(self) -> "Config":
-        """Derived defaults and the phase-range checks of the reference's finalize."""
+        """Derived defaults (D's optimizer settings mirror G's unless
+        d_use_different_*) and the phase-range checks of the reference's finalize."""
         c = dataclasses.replace(self)
+        if not c.d_use_different_optimizer:
+            c.d_optimizer = c.optimizer
+        if not c.d_use_different_beta1:
+            c.d_adam_beta1 = c.adam_beta1
+        if not c.d_use_different_beta2:
+            c.d_adam_beta2 = c.adam_beta2
         if c.ending_phase is None:
             c.ending_phase = c.num_phases
         if c.starting_phase > c.num_phases:

@@ -1,22 +1,26 @@
 """Architecture registry: families by name, one calling convention.
 
-    init(rng, *, phase, cfg, device)                       -> flat Params dict
-    generator(params, z, alpha, *, phase, cfg, conv_engine) -> images
+    init(rng, *, phase, cfg, device)                            -> flat G+D Params dict
+    generator(params, z, alpha, *, phase, cfg, conv_engine)     -> images
+    discriminator(params, x, alpha, *, phase, cfg, conv_engine) -> (N, 1) scores
 
-This slice ports the pgan generator; the discriminators and the other families come
-with later slices.
+pgan is ported (generator and discriminator); the other families come with later
+slices.  ``disc_cross_sample`` says whether the discriminator mixes samples (a
+minibatch-stddev layer): the train step's stacked critic pass is one call on the
+concatenated fake and real batches only when it does not.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple
 
 
 class Architecture(NamedTuple):
     name: str
     init: Callable
     generator: Callable
-    discriminator: Optional[Callable] = None
+    discriminator: Callable
+    disc_cross_sample: bool = False
 
 
 _REGISTRY: Dict[str, Architecture] = {}

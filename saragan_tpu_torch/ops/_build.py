@@ -1,9 +1,10 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its own into
-``build/lib<name>_<digest>.so``, where the digest covers the source and the flags, so a
-changed source never loads a stale library.  The build happens at first use, on the
-machine with the card; nothing here runs at import time.
+``build/lib<name>_<digest>.so``, where the digest covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source never loads a stale library.  The
+build happens at first use, on the machine with the card; nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -48,8 +49,11 @@ def sources() -> Dict[str, Path]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

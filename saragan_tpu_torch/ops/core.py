@@ -9,13 +9,20 @@ The conv engine is an explicit argument, never a module global:
 
 * ``direct``: ``F.conv3d`` / ``F.conv2d`` with SAME padding (the reference's serving
   default, a library conv outside any kernel of ours);
-* ``flat``: the hand-written CUDA kernel of ``ops/conv3d_flat.py`` for every 3-D kernel
-  that is not 1x1x1 (the reference's ``pallas`` engine), and for 1x1x1 the mul-sum /
-  channel-GEMM path of the reference's ``_conv3d_shifted_gemm``.
+* ``flat``: the hand-written CUDA kernels of ``ops/conv3d_flat.py`` for every 3-D kernel
+  that is not 1x1x1 (the reference's ``pallas`` engine), through the derivative algebra
+  of ``ops/conv3d_grad.py``, so forward, dgrad and wgrad (and the penalty's second-order
+  terms) all run on them; for 1x1x1 the mul-sum / channel-GEMM path of the reference's
+  ``_conv3d_shifted_gemm``, differentiated by autograd.
+
+bf16: an op rounds where the reference's rounds.  A Python constant that meets an
+activation (a leaky-ReLU slope, an epsilon, a blend factor) is first rounded to the
+activation's dtype, as ``jnp.asarray(c, x.dtype)`` does there.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Optional, Sequence
@@ -25,9 +32,17 @@ import torch
 import torch.nn.functional as F
 
 from saragan_tpu_torch.core import Scope, normal_initializer, zeros_initializer
-from saragan_tpu_torch.ops.conv3d_flat import conv3d_flat
+from saragan_tpu_torch.ops.conv3d_grad import conv3d_c
 
 CONV_ENGINES = ("direct", "flat")
+
+
+@functools.lru_cache(maxsize=None)
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype` (a Python float): multiplying a tensor of that dtype by
+    it then rounds once, as the reference's product of two `dtype` operands does."""
+    return float(torch.tensor(value, dtype=dtype))
+
 
 def calculate_gain(activation: str, param=None) -> float:
     """He-init gain of the activations ``act`` applies."""
@@ -106,7 +121,7 @@ def conv_apply(x: torch.Tensor, w: torch.Tensor, engine: str = "direct") -> torc
     if engine == "flat" and x.ndim == 5:
         if w.shape[0] * w.shape[1] * w.shape[2] == 1:
             return _conv3d_1x1(x, w)
-        return conv3d_flat(x, w.to(x.dtype))
+        return conv3d_c(x, w.to(x.dtype))
     return _conv_direct(x, w)
 
 
@@ -121,7 +136,7 @@ def conv(scope: Scope, x: torch.Tensor, fmaps: int, kernel: Sequence[int], activ
 
 
 def leaky_relu(x: torch.Tensor, alpha_lr: float = 0.2) -> torch.Tensor:
-    return torch.where(x >= 0, x, x * alpha_lr)
+    return torch.where(x >= 0, x, x * in_dtype(alpha_lr, x.dtype))
 
 
 def act(x: torch.Tensor, activation: str, param=None) -> torch.Tensor:
@@ -210,10 +225,37 @@ def upscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def avg_pool(x: torch.Tensor, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
+    """Average pooling of all spatial axes (stride = window = factor), as reshape + mean;
+    the mean accumulates in f32 and rounds once to x.dtype, as the reference's jnp.mean
+    does for bf16."""
+    if gain != 1:
+        x = x * gain
+    if factor == 1:
+        return x
+    spatial = x.shape[2:]
+    if any(s % factor for s in spatial):
+        raise ValueError(f"avg_pool factor {factor} does not divide {tuple(x.shape)}")
+    split = [v for s in spatial for v in (s // factor, factor)]
+    axes = tuple(3 + 2 * i for i in range(len(spatial)))
+    y = x.reshape(*x.shape[:2], *split)
+    if x.dtype == torch.float64:
+        return y.mean(dim=axes)
+    return y.mean(dim=axes, dtype=torch.float32).to(x.dtype)
+
+
+def downscale(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    return avg_pool(x, factor)
+
+
 def pixel_norm(x: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
-    """Per-voxel channel normalization; statistics in f32."""
-    m = torch.mean(torch.square(x.float()), dim=1, keepdim=True)
-    return x * torch.rsqrt(m + epsilon).to(x.dtype)
+    """Per-voxel channel normalization, rounded where the reference rounds
+    (``saragan_tpu/ops/core.py:842-844``): x² in x.dtype, the channel mean accumulated in
+    f32 and returned in x.dtype, epsilon added in x.dtype, the rsqrt taken in x.dtype."""
+    sq = torch.square(x)
+    m = sq.mean(dim=1, keepdim=True) if x.dtype == torch.float64 else \
+        sq.mean(dim=1, keepdim=True, dtype=torch.float32).to(x.dtype)
+    return x * torch.rsqrt(m + in_dtype(epsilon, x.dtype))
 
 
 def to_rgb(scope: Scope, x: torch.Tensor, channels: int = 1,
@@ -222,6 +264,15 @@ def to_rgb(scope: Scope, x: torch.Tensor, channels: int = 1,
     kernel = (1,) * (x.ndim - 2)
     return apply_bias(scope, conv(scope, x, channels, kernel, activation="linear",
                                   engine=engine))
+
+
+def from_rgb(scope: Scope, x: torch.Tensor, filters_out: int, activation: str, param=None,
+             engine: str = "direct") -> torch.Tensor:
+    """1x1(x1) lift from image channels, then bias and activation."""
+    kernel = (1,) * (x.ndim - 2)
+    x = conv(scope, x, filters_out, kernel, activation, param, engine=engine)
+    x = apply_bias(scope, x)
+    return act(x, activation, param=param)
 
 
 def get_kernel(x_shape: Sequence[int], desired_k_shape: Sequence[int]) -> list:

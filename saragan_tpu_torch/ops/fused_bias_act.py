@@ -1,7 +1,8 @@
-"""Fused bias + leaky ReLU + pixel norm: the Triton kernel and its plain version.
+"""Fused bias + leaky ReLU + pixel norm: the Triton kernel, its plain version and the
+``autograd.Function`` the generator calls.
 
 Replaces ``saragan_tpu/ops/pallas_kernels.py::fused_bias_act_pixelnorm`` (Pallas body
-``_fused_kernel``), which follows every generator conv:
+``_fused_kernel``, custom JVP ``_fused_jvp``), which follows every generator conv:
 
     y = lrelu(x + b, alpha);  y = y * rsqrt(mean_c(y^2) + 1e-8)   per voxel
 
@@ -11,16 +12,19 @@ holds every channel of BLOCK_S voxels; the tile strides C by S, so each channel'
 a contiguous, coalesced run of voxels, and the channel reduction stays in registers.
 BLOCK_C * BLOCK_S is kept near 8K elements (C=256 at 4x4 voxels up to C=16 at 524,288).
 
-bf16 caveat (not on the f32 serving path): the reference's unfused oracle
-(``pallas_kernels.py:100-108``, ported here as ``bias_act_pixelnorm_plain``) adds the
-bias and applies the leaky ReLU in ``x.dtype`` and only takes the pixel-norm statistics
-in f32, while its kernel (``:55-65``) and this one do everything in f32 and round once.
-The two agree in f32 and will differ in bf16; the training slice must pick one and test
-it.
+Rounding, as the reference settles it: the primal is the kernel's, everything in f32
+(the f32 bias unrounded) and one rounding to x.dtype at the store;
+``bias_act_pixelnorm_plain`` computes the same in torch ops.  The gradient is the VJP of
+the reference's unfused oracle (``pallas_kernels.py:100-108``, here ``_oracle``), which
+adds the bias and applies the leaky ReLU in x.dtype and takes the pixel-norm statistics
+in f32, recomputed from the inputs.  In f32 the two are the same function.
 
-The dispatcher ``bias_act_pixelnorm`` launches the kernel for a CUDA tensor and runs the
-plain version for a CPU (or shape-only meta) tensor.  Forward only: a CUDA call that
-needs a gradient raises until the training slice adds the ``autograd.Function``.
+``FusedBiasActPixelnorm`` is that pairing.  Its backward is torch ops (as the
+reference's tangent is jnp) and records a graph when the caller asks for one
+(``create_graph``), so the op is differentiable to any order.  The kernel wrapper
+``fused_bias_act_pixelnorm`` builds no graph itself; ``bias_act_pixelnorm`` applies the
+Function, whose forward launches the kernel for a CUDA tensor and runs the plain version
+for a CPU (or shape-only meta) tensor.
 """
 
 from __future__ import annotations
@@ -29,20 +33,34 @@ import functools
 
 import torch
 
+from saragan_tpu_torch.ops.core import in_dtype
+
 _TILE_ELEMS = 8192
 
 
-def bias_act_pixelnorm_plain(x: torch.Tensor, b: torch.Tensor, alpha_lr: float,
-                             pixelnorm: bool, eps: float = 1e-8) -> torch.Tensor:
-    """The reference's unfused math in torch ops; statistics in f32."""
-    bias_act_pixelnorm_plain.calls += 1
+def _oracle(x: torch.Tensor, b: torch.Tensor, alpha_lr: float, pixelnorm: bool,
+            eps: float = 1e-8) -> torch.Tensor:
+    """The reference's unfused math (``_reference_forward``): bias and leaky ReLU in
+    x.dtype, pixel-norm statistics in f32; differentiable torch ops."""
     y = x + b.reshape((1, -1) + (1,) * (x.ndim - 2)).to(x.dtype)
-    y = torch.where(y >= 0, y, y * alpha_lr)
+    y = torch.where(y >= 0, y, y * in_dtype(alpha_lr, x.dtype))
     if pixelnorm:
         y32 = y.float()
         m = torch.mean(torch.square(y32), dim=1, keepdim=True)
         y = (y32 * torch.rsqrt(m + eps)).to(x.dtype)
     return y
+
+
+def bias_act_pixelnorm_plain(x: torch.Tensor, b: torch.Tensor, alpha_lr: float,
+                             pixelnorm: bool, eps: float = 1e-8) -> torch.Tensor:
+    """The kernel's math in torch ops: f32 throughout, one rounding to x.dtype."""
+    bias_act_pixelnorm_plain.calls += 1
+    y = x.float() + b.float().reshape((1, -1) + (1,) * (x.ndim - 2))
+    y = torch.where(y >= 0, y, y * alpha_lr)
+    if pixelnorm:
+        m = torch.mean(torch.square(y), dim=1, keepdim=True)
+        y = y * torch.rsqrt(m + eps)
+    return y.to(x.dtype)
 
 
 bias_act_pixelnorm_plain.calls = 0
@@ -82,7 +100,8 @@ def _next_pow2(v: int) -> int:
 
 def fused_bias_act_pixelnorm(x: torch.Tensor, b: torch.Tensor, alpha_lr: float,
                              pixelnorm: bool, eps: float = 1e-8) -> torch.Tensor:
-    """Launch the Triton kernel: x (N, C, *spatial) contiguous on a CUDA device, b (C,)."""
+    """Launch the Triton kernel: x (N, C, *spatial) contiguous on a CUDA device, b (C,)
+    (read in f32, unrounded, whatever x's dtype)."""
     if not (x.is_cuda and b.is_cuda and x.device == b.device):
         raise ValueError(f"fused_bias_act_pixelnorm needs x and b on one CUDA device; got "
                          f"{x.device} and {b.device}")
@@ -92,11 +111,11 @@ def fused_bias_act_pixelnorm(x: torch.Tensor, b: torch.Tensor, alpha_lr: float,
     if not x.is_contiguous():
         raise ValueError("fused_bias_act_pixelnorm needs a contiguous x")
     if torch.is_grad_enabled() and (x.requires_grad or b.requires_grad):
-        raise NotImplementedError("fused_bias_act_pixelnorm has no backward yet: its "
-                                  "autograd.Function comes with the training slice")
+        raise NotImplementedError("fused_bias_act_pixelnorm builds no autograd graph: "
+                                  "differentiate through FusedBiasActPixelnorm")
     n, c = x.shape[:2]
     s = x[0, 0].numel()
-    b = b.to(x.dtype).contiguous()
+    b = b.to(torch.float32).contiguous()
     y = torch.empty_like(x)
     block_c = _next_pow2(c)
     block_s = max(16, min(_next_pow2(s), _TILE_ELEMS // block_c))
@@ -111,11 +130,41 @@ def fused_bias_act_pixelnorm(x: torch.Tensor, b: torch.Tensor, alpha_lr: float,
 fused_bias_act_pixelnorm.launches = 0
 
 
+class FusedBiasActPixelnorm(torch.autograd.Function):
+    """Primal from the kernel (or, on the CPU, its plain version); gradient from the VJP
+    of the reference's oracle, recomputed from the inputs and differentiable again when
+    the backward runs under ``create_graph``."""
+
+    @staticmethod
+    def forward(ctx, x, b, alpha_lr, pixelnorm):
+        # the inputs themselves are saved, so a graph recorded in the backward reaches
+        # their history; the kernel gets a contiguous copy where needed
+        ctx.save_for_backward(x, b)
+        ctx.alpha_lr, ctx.pixelnorm = alpha_lr, pixelnorm
+        x = x.contiguous()
+        if x.is_cuda:
+            return fused_bias_act_pixelnorm(x, b, alpha_lr, pixelnorm)
+        if x.device.type in ("cpu", "meta"):
+            return bias_act_pixelnorm_plain(x, b, alpha_lr, pixelnorm)
+        raise ValueError(f"bias_act_pixelnorm has no path for device {x.device}")
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, b = ctx.saved_tensors
+        create = torch.is_grad_enabled()
+        with torch.enable_grad():
+            # under create_graph the saved inputs keep their history, so the gradient
+            # stays a function of them; otherwise a local graph is enough
+            xs = x if create and x.requires_grad else x.detach().requires_grad_(True)
+            bs = b if create and b.requires_grad else b.detach().requires_grad_(True)
+            y = _oracle(xs, bs, ctx.alpha_lr, ctx.pixelnorm)
+            gx, gb = torch.autograd.grad(y, (xs, bs), gy, create_graph=create)
+        return (gx if ctx.needs_input_grad[0] else None,
+                gb if ctx.needs_input_grad[1] else None, None, None)
+
+
 def bias_act_pixelnorm(x: torch.Tensor, b: torch.Tensor, alpha_lr: float = 0.2,
                        pixelnorm: bool = True) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU and meta tensors."""
-    if x.is_cuda:
-        return fused_bias_act_pixelnorm(x, b, alpha_lr, pixelnorm)
-    if x.device.type in ("cpu", "meta"):
-        return bias_act_pixelnorm_plain(x, b, alpha_lr, pixelnorm)
-    raise ValueError(f"bias_act_pixelnorm has no path for device {x.device}")
+    """The fused op with its gradient: the kernel for CUDA tensors, the plain version for
+    CPU and meta tensors."""
+    return FusedBiasActPixelnorm.apply(x, b, float(alpha_lr), bool(pixelnorm))

@@ -1,2 +1,2 @@
-"""Training-side modules of the port; this slice has the checkpoint format and the
+"""Training-side modules of the port: the train step, the checkpoint format and the
 image mosaics the serving tools use."""

@@ -12,7 +12,7 @@ from saragan_tpu.models import get_architecture as jax_arch
 from saragan_tpu.train import checkpoint as jax_ckpt
 from saragan_tpu_torch.config import Config
 from saragan_tpu_torch.convert import params_from_numpy, params_to_numpy
-from saragan_tpu_torch.core import param_count
+from saragan_tpu_torch.core import filter_params, param_count
 from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.train import checkpoint as ckpt
 
@@ -31,8 +31,9 @@ def _jax_g_params(kw, phase, seed=0):
 
 
 def _port_g_params(kw, phase, seed=0):
-    return get_architecture("pgan").init(torch.Generator().manual_seed(seed), phase=phase,
-                                         cfg=Config(**kw).finalize(), device="cpu")
+    params = get_architecture("pgan").init(torch.Generator().manual_seed(seed), phase=phase,
+                                           cfg=Config(**kw).finalize(), device="cpu")
+    return filter_params(params, "generator")
 
 
 def test_numpy_round_trip_is_bit_exact():
