@@ -40,7 +40,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 7. one f32 step's gradients under `flat` and `direct` from the same state and the same
    pre-drawn z and gamma: losses within 1e-3 relative, every gradient within
    1e-3 * max|g|;
-8. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+8. the trainer through its CLI (``cli.main`` in process, the slice's main path): the
+   flagship configuration from phase 5 (batch 16) into phase 6 (batch 8), 32 + 32
+   images per phase, `flat`, bf16, the fused op on, on a seeded npy dataset written to a
+   temp dir (16 volumes of 16x64x64 and 16 of 32x128x128).  It must exit normally and
+   write model_5.npz and model_6.npz; phase 6 must hold every phase-5 name of model_5.npz
+   bit for bit through its frozen mixing half (its cadence checkpoint after that half);
+   events.jsonl must hold finite Loss/d_loss, Loss/g_loss and Loss/gp in both phases and
+   a histogram event; kernels #1 (forward and dgrad), #2 and #4 must have run and no
+   plain version.  Prints ms/step per phase and half (CUDA events, median after the
+   first), img/s and the phase's peak memory;
+9. bitwise resume: the same command in a subprocess with --full_state_checkpoints gets
+   a SIGTERM once phase 6 printed its second step line and must exit 75; rerun with
+   --auto_resume it must exit 0 with a model_6.npz equal to the uninterrupted run's,
+   every array bit for bit;
+10. kernel #3 (conv3d_flat_v2, CUDA C++, standalone as in the reference) at every
+   serving-forward shape in f32 and every forward and dgrad shape of the bf16 train step:
+   max|kernel - plain| <= 1e-4 (f32) or 1e-2 (bf16) * max|plain|, within the same limit
+   of kernel #1, bit-identical on a rerun; with its time, kernel #1's, F.conv3d's and the
+   bound;
+11. kernel #5 (minibatch_stddev_stat, Triton, standalone) with group 4 at N 8 and 16,
+   at the per-sample feature counts of the largest and smallest phase-6 D activation, f32
+   and bf16 input: within 1e-5 of max|plain|, bit-identical on a rerun; with its time and
+   bound (bytes / 3.35 TB/s);
+12. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+
+Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -48,6 +73,8 @@ from __future__ import annotations
 import io
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -62,12 +89,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from saragan_tpu_torch import losses
+from saragan_tpu_torch import cli, losses
 from saragan_tpu_torch.config import Config
 from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.ops import _build
 from saragan_tpu_torch.ops import conv3d_flat as cf
 from saragan_tpu_torch.ops import fused_bias_act as fba
+from saragan_tpu_torch.ops import minibatch_stddev as mb
 from saragan_tpu_torch.tools.generate import _load_generator_params, make_keyed_sampler
 from saragan_tpu_torch.tools.profile_serving import BENCH_CFG, time_ms
 from saragan_tpu_torch.tools.profile_training import (HALVES, bench_train_config, real_batch,
@@ -85,7 +113,24 @@ TRAIN_STEPS = 5
 
 PHASE, BATCH = 6, 8
 REQUESTS = [(1, 101), (3, 102), (8, 103), (8, 104)]  # (num_samples, seed)
-OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+
+# the trainer through its CLI: the flagship configuration (bench.py:99-119) from phase 5
+# (batch 16) into phase 6 (batch 8), 32 + 32 images per phase
+TRAINER_ARGS = [
+    "pgan", "<data>", "--start_shape", "(1, 1, 4, 4)", "--final_shape", "(1, 128, 512, 512)",
+    "--starting_phase", "5", "--ending_phase", "6", "--latent_dim", "256",
+    "--network_size", "xs", "--base_batch_size", "256", "--mixing_nimg", "32",
+    "--stabilizing_nimg", "32", "--loss_fn", "wgan", "--gp_weight", "10",
+    "--noise_stddev", "0", "--g_lr", "1e-3", "--d_lr", "1e-3", "--adam_beta1", "0",
+    "--adam_beta2", "0.9", "--compute_dtype", "bfloat16", "--use_pallas_fusion",
+    "--conv_engine", "flat", "--summary_small_every_nsteps", "16",
+    "--summary_large_every_nsteps", "32", "--checkpoint_every_nsteps", "32"]
+PHASE6_START = 64  # global image count at which phase 6 begins (32 + 32 at phase 5)
+STANDALONE_3 = "standalone: no path of the JAX package runs it (saragan_tpu/ops/core.py:553)"
+STANDALONE_5 = ("standalone: no path of the JAX package runs it (the D's minibatch_stddev_layer "
+                "is plain jnp, saragan_tpu/ops/pallas_kernels.py:163-168)")
 
 
 def check(cond, msg):
@@ -289,14 +334,14 @@ def serve_engine(model_path, cfg, engine):
 
 def zero_counts():
     """Every launch and plain-call count to 0."""
-    cf.conv3d_flat_cuda.launches = 0
-    cf.conv3d_flat_cuda.by_shape.clear()
-    cf.conv3d_flat_wgrad_cuda.launches = 0
-    cf.conv3d_flat_wgrad_cuda.by_shape.clear()
+    for fn in (cf.conv3d_flat_cuda, cf.conv3d_flat_wgrad_cuda, cf.conv3d_flat_v2_cuda):
+        fn.launches = 0
+        fn.by_shape.clear()
     fba.fused_bias_act_pixelnorm.launches = 0
-    cf.conv3d_flat_plain.calls = 0
-    cf.conv3d_flat_wgrad_plain.calls = 0
-    fba.bias_act_pixelnorm_plain.calls = 0
+    mb.minibatch_stddev_stat_triton.launches = 0
+    for fn in (cf.conv3d_flat_plain, cf.conv3d_flat_wgrad_plain, cf.conv3d_flat_v2_plain,
+               fba.bias_act_pixelnorm_plain, mb.minibatch_stddev_stat_plain):
+        fn.calls = 0
 
 
 def read_counts():
@@ -306,8 +351,11 @@ def read_counts():
     return dict(forward=by_role["forward"], dgrad=by_role["dgrad"],
                 wgrad=cf.conv3d_flat_wgrad_cuda.launches,
                 fused=fba.fused_bias_act_pixelnorm.launches,
+                v2=cf.conv3d_flat_v2_cuda.launches,
+                mbstd=mb.minibatch_stddev_stat_triton.launches,
                 plain=(cf.conv3d_flat_plain.calls + cf.conv3d_flat_wgrad_plain.calls
-                       + fba.bias_act_pixelnorm_plain.calls))
+                       + fba.bias_act_pixelnorm_plain.calls + cf.conv3d_flat_v2_plain.calls
+                       + mb.minibatch_stddev_stat_plain.calls))
 
 
 def _moved(a, b):
@@ -559,11 +607,239 @@ def compare_engines_f32(state0, real):
     return dict(loss_rel=loss_rel, worst_grad_rel=worst[0], worst_grad=worst[1])
 
 
+def write_dataset(root: Path):
+    """A seeded npy pyramid: 16 volumes of 16x64x64 (phase 5) and 16 of 32x128x128
+    (phase 6), f32, about 36 MB."""
+    rng = np.random.default_rng(0)
+    for size, depth in ((64, 16), (128, 32)):
+        d = root / f"{size}x{size}"
+        d.mkdir(parents=True)
+        for i in range(16):
+            np.save(d / f"{i:03d}.npy",
+                    rng.standard_normal((depth, size, size), dtype=np.float32))
+
+
+def trainer_args(data: Path, logdir: Path, *extra):
+    return [str(data) if a == "<data>" else a for a in TRAINER_ARGS] + [
+        "--logdir", str(logdir), *extra]
+
+
+def _events(logdir: Path):
+    with open(logdir / "events.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def run_trainer(data: Path, logdir: Path):
+    """The main path of this slice: the trainer through ``cli.main``, in process, counts
+    set to 0 just before and read just after.  Returns (report, launches)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    cli.main(trainer_args(data, logdir))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["plain"] == 0, f"trainer: {counts['plain']} plain-version calls on the card")
+    for k in ("forward", "dgrad", "wgrad", "fused"):
+        check(counts[k] > 0, f"trainer: kernel {k} not launched ({counts})")
+    for p in (5, 6):
+        check((logdir / f"model_{p}.npz").is_file(), f"trainer: model_{p}.npz not written")
+    # phase 6 restored every phase-5 name bit for bit, and its mixing half kept them frozen:
+    # the cadence checkpoint after the mixing half still holds model_5's values
+    # (phase 5's own fade-in layers from phase 4, *_rgb_4, are not part of phase 6)
+    p5, _, _ = ckpt.load_params(str(logdir / "model_5.npz"), "cpu")
+    c6, _, _ = ckpt.load_params(str(logdir / "model_6_ckpt_96.npz"), "cpu")
+    shared = [k for k in p5 if k in c6]
+    check(all("_rgb_4/" in k for k in p5 if k not in c6) and len(shared) > 0.9 * len(p5),
+          f"trainer: phase 6 lacks names of model_5: {sorted(set(p5) - set(c6))}")
+    check(all(torch.equal(c6[k], p5[k]) for k in shared),
+          "trainer: phase 6 did not keep model_5's weights through the frozen mixing half")
+
+    events = _events(logdir)
+    report = dict(wall_s=wall_s, launches=counts, phases={})
+    for phase, lo, hi in ((5, 0, PHASE6_START), (6, PHASE6_START, 10 ** 9)):
+        ev = [e for e in events if lo <= e["step"] < hi]
+        for tag in ("Loss/d_loss", "Loss/g_loss", "Loss/gp"):
+            vals = [e["value"] for e in ev if e["tag"] == tag]
+            check(vals and all(math.isfinite(v) for v in vals),
+                  f"trainer phase {phase}: {tag} {vals}")
+        check(any(e.get("hist") for e in ev), f"trainer phase {phase}: no histogram event")
+        row = {}
+        # a summary step (local step % 16 < batch) runs the histogram variant; at batch 16
+        # every phase-5 step is one
+        batch = 16 if phase == 5 else 8
+        for half in ("mixing", "stabilizing"):
+            timed = [e for e in ev if e["tag"] == f"Timing/step_ms_{half}"]
+            check(len(timed) >= 2, f"trainer phase {phase} {half}: {len(timed)} timed steps")
+            ms = [e["value"] for e in timed]
+            row[f"{half}_ms_per_step"] = statistics.median(ms[1:])
+            row[f"{half}_ms_all"] = ms
+            # steps without a summary, to hold against the bare step's same half
+            plain = [e["value"] for e in timed[1:] if (e["step"] - lo) % 16 >= batch]
+            row[f"{half}_plain_ms"] = statistics.median(plain) if plain else None
+        # img/s and the phase's peak are written after a step, at the advanced count
+        after = [e for e in events if lo < e["step"] <= hi]
+        img_s = [e["value"] for e in after if e["tag"] == "img_s" and e["value"] > 0]
+        row["img_s"] = img_s[-1] if img_s else None
+        peak = [e["value"] for e in after if e["tag"] == "memory/phase_peak_bytes"]
+        check(len(peak) == 1, f"trainer phase {phase}: peak memory events {peak}")
+        row["peak_mib"] = peak[0] / 2 ** 20
+        report["phases"][phase] = row
+        print(f"trainer phase {phase}: mixing {row['mixing_ms_per_step']:.2f} ms/step, "
+              f"stabilizing {row['stabilizing_ms_per_step']:.2f} ms/step (median after the "
+              f"first, CUDA events; all {[round(v, 2) for v in row['mixing_ms_all']]} / "
+              f"{[round(v, 2) for v in row['stabilizing_ms_all']]}; steps without summary "
+              f"{row['mixing_plain_ms']} / {row['stabilizing_plain_ms']}), "
+              f"img/s {row['img_s']}, "
+              f"peak {row['peak_mib']:.0f} MiB", flush=True)
+    print(f"trainer: {wall_s:.1f} s wall for phases 5 and 6, launches {counts}", flush=True)
+    return report
+
+
+def check_bitwise_resume(data: Path, logdir: Path, uninterrupted: Path):
+    """The same command in a subprocess with full-state checkpoints, SIGTERM once the
+    last phase (6) printed its second step line (exit 75), then again with --auto_resume
+    (exit 0): its model_6.npz must equal the uninterrupted run's bit for bit."""
+    last = TRAINER_ARGS[TRAINER_ARGS.index("--ending_phase") + 1]
+    cmd = [sys.executable, "-u", "-m", "saragan_tpu_torch",
+           *trainer_args(data, logdir, "--full_state_checkpoints")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    lines, phase6, seen = [], False, 0
+    try:
+        for line in p.stdout:
+            lines.append(line)
+            phase6 = phase6 or f"Begin mixing epochs in phase {last}" in line
+            if phase6 and "\tStep " in line:
+                seen += 1
+                if seen == 2:
+                    p.send_signal(signal.SIGTERM)
+                    break
+        lines.append(p.stdout.read())
+        rc = p.wait(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    out = "".join(lines)
+    check(rc == 75 and "INTERRUPTED" in out, f"SIGTERM run exited {rc}:\n{out[-3000:]}")
+    pkls = [f for f in os.listdir(logdir) if f.endswith("_interrupt.pkl")]
+    check(len(pkls) == 1, f"SIGTERM run left {pkls}")
+    again = subprocess.run(cmd + ["--auto_resume"], cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=900)
+    check(again.returncode == 0 and "auto_resume: continuing from" in again.stdout,
+          f"auto_resume run exited {again.returncode}:\n{again.stdout[-3000:]}"
+          f"{again.stderr[-3000:]}")
+    with (np.load(uninterrupted / f"model_{last}.npz") as a,
+          np.load(logdir / f"model_{last}.npz") as b):
+        check(sorted(a.files) == sorted(b.files), "the resumed checkpoint has other arrays")
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+    check(not differ, f"resumed model_{last}.npz differs from the uninterrupted run in {differ}")
+    seconds = time.perf_counter() - t0
+    print(f"bitwise resume: SIGTERM run exited 75 at {pkls[0]}, the auto_resume run exited 0, "
+          f"model_{last}.npz bit-equal to the uninterrupted run ({len(a.files)} arrays), "
+          f"{seconds:.1f} s", flush=True)
+    return dict(interrupt=pkls[0], arrays=len(a.files), seconds=seconds)
+
+
+def check_conv_v2(items, dtype, detail):
+    """Kernel #3 at every (role, x shape, w shape, weight) of `items`: against its plain
+    version, against kernel #1, and against itself on a rerun; times weighted by
+    `weight` (launches per unit) and summed."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    limit = {torch.float32: 1e-4, torch.bfloat16: 1e-2}[dtype]
+    e = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, v1_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+             t_ops=0.0, max_abs_err=0.0, max_rel_err=0.0, max_rel_diff_v1=0.0)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for role, xs, ws, weight in items:
+            x = torch.randn(xs, generator=g, device="cuda").to(dtype)
+            fan_in = ws[0] * ws[1] * ws[2] * ws[3]
+            w = (torch.randn(ws, generator=g, device="cuda") * (2.0 / fan_in) ** 0.5).to(dtype)
+            y = cf.conv3d_flat_v2_cuda(x, w, role)
+            again = cf.conv3d_flat_v2_cuda(x, w, role)
+            y1 = cf.conv3d_flat_cuda(x, w, role)
+            ref = cf.conv3d_flat_v2_plain(x, w)
+            torch.cuda.synchronize()
+            check(torch.equal(y, again), f"conv v2 {dtype} x{xs} w{ws}: two runs differ")
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            v1_rel = (y.float() - y1.float()).abs().max().item() / scale
+            check(err <= limit * scale and v1_rel <= limit and torch.isfinite(y).all().item(),
+                  f"conv v2 {dtype} x{xs} w{ws}: max|err| {err} of {scale}, v1 diff {v1_rel}")
+            del ref, y1
+            wt = w.permute(4, 3, 0, 1, 2).contiguous()
+            n, c = xs[:2]
+            b_ms, t_bytes, t_ops = _conv_bound(n, c, ws[-1], ws[0] * ws[1] * ws[2],
+                                               math.prod(xs[2:]), dtype)
+            t = dict(ms=time_ms(lambda: cf.conv3d_flat_v2_cuda(x, w, role), reps=5, warmup=1),
+                     v1_ms=time_ms(lambda: cf.conv3d_flat_cuda(x, w, role), reps=5, warmup=1),
+                     plain_ms=time_ms(lambda: cf.conv3d_flat_v2_plain(x, w), reps=2, warmup=0),
+                     library_ms=time_ms(lambda: F.conv3d(x, wt, padding="same"), reps=5,
+                                        warmup=1),
+                     bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops)
+            detail.append(dict(kernel="conv3d_flat_v2", role=role, dtype=str(dtype), x=list(xs),
+                               w=list(ws), weight=weight, max_abs_err=err, scale=scale,
+                               rel_diff_v1=v1_rel, **t))
+            print(f"conv v2 {str(dtype)[6:]} {role} x{xs} w{ws} x{weight:g}: kernel "
+                  f"{t['ms']:.4f} ms, kernel #1 {t['v1_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+                  f"F.conv3d {t['library_ms']:.4f}, bound {b_ms:.4f} "
+                  f"({'ops' if t_ops > t_bytes else 'bytes'}), err {err:.3g} of {scale:.3g}, "
+                  f"bit-identical rerun", flush=True)
+            for k in ("ms", "plain_ms", "library_ms", "v1_ms", "bound_ms", "t_bytes", "t_ops"):
+                e[k] += weight * t[k]
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e["max_rel_err"] = max(e["max_rel_err"], err / scale)
+            e["max_rel_diff_v1"] = max(e["max_rel_diff_v1"], v1_rel)
+    return e
+
+
+def check_mbstd(cfg, detail):
+    """Kernel #5, group 4, at N = 8 and 16 and the per-sample feature counts of the
+    largest and smallest activation of the phase-6 pgan D, f32 and bf16 input."""
+    fs = cfg.resolved_filter_spec()
+
+    def sp(p):
+        return [d * 2 ** (p - 1) for d in cfg.base_shape[1:]]
+
+    shapes = {"largest": (fs[PHASE - 1][1], *sp(PHASE)), "smallest": (fs[0][0], *sp(1))}
+    g = torch.Generator(device="cuda").manual_seed(6)
+    e = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+    for which, feat in shapes.items():
+        for n in (8, 16):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((n, *feat), generator=g, device="cuda").to(dtype)
+                s = mb.minibatch_stddev_stat_triton(x)
+                again = mb.minibatch_stddev_stat_triton(x)
+                ref = mb.minibatch_stddev_stat_plain(x)
+                torch.cuda.synchronize()
+                check(torch.equal(s, again), f"mbstd {dtype} {tuple(x.shape)}: reruns differ")
+                err = (s - ref).abs().max().item()
+                check(err <= 1e-5 * ref.abs().max().item(),
+                      f"mbstd {dtype} {tuple(x.shape)}: max|err| {err}")
+                nbytes = x.numel() * x.element_size() + s.numel() * 4
+                b_ms, t_bytes, t_ops = bound(nbytes, 5 * x.numel(), F32_FLOPS)
+                t = dict(ms=time_ms(lambda: mb.minibatch_stddev_stat_triton(x)),
+                         plain_ms=time_ms(lambda: mb.minibatch_stddev_stat_plain(x), reps=5,
+                                          warmup=1),
+                         bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops)
+                detail.append(dict(kernel="minibatch_stddev_stat", shape=list(x.shape),
+                                   dtype=str(dtype), which=which, max_abs_err=err, **t))
+                print(f"mbstd {str(dtype)[6:]} {tuple(x.shape)} ({which}): kernel "
+                      f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, bound {b_ms:.4f} "
+                      f"({'bytes' if t_bytes >= t_ops else 'ops'}), err {err:.3g}, "
+                      f"bit-identical rerun", flush=True)
+                for k in ("ms", "plain_ms", "bound_ms", "t_bytes", "t_ops"):
+                    e[k] += t[k]
+                e["max_abs_err"] = max(e["max_abs_err"], err)
+    return e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -571,20 +847,28 @@ def main() -> int:
     print(card, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    seconds = {}
+    clock = [time.perf_counter()]
 
-    t0 = time.perf_counter()
+    def phase_done(name):
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+
     report = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(report) or 'cached libraries'}",
-          flush=True)
+    print(f"build: {sorted(report) or 'cached libraries'}", flush=True)
     for name, r in report.items():
-        print(f"  {name}: {r['seconds']:.1f} s\n{r['log']}", flush=True)
+        print(f"  {name}: {r['seconds']:.1f} s\n{r['log'][-2000:]}", flush=True)
+    phase_done("build")
 
     cfg = Config(**BENCH_CFG, starting_phase=PHASE, ending_phase=PHASE).finalize()
-    fused_shapes, conv_shapes = serving_shapes(cfg, PHASE, BATCH)
-    check(len(fused_shapes) == 11 and len(conv_shapes) == 6, "phase-6 serving shapes")
+    fused_shapes, serve_convs = serving_shapes(cfg, PHASE, BATCH)
+    check(len(fused_shapes) == 11 and len(serve_convs) == 6, "phase-6 serving shapes")
     detail = []
     fused = check_fused(fused_shapes, detail)
-    conv = check_conv(conv_shapes, detail)
+    conv = check_conv(serve_convs, detail)
+    phase_done("serving kernels")
 
     params = get_architecture("pgan").init(torch.Generator().manual_seed(0), phase=PHASE,
                                            cfg=cfg, device="cuda")
@@ -597,20 +881,52 @@ def main() -> int:
         check(diff <= 1e-4 * np.abs(a).max(), f"engines disagree on seed {seed}: {diff}")
     print(f"direct vs flat: max|diff| {max(np.abs(served['direct'][0][s] - served['flat'][0][s]).max() for _, s in REQUESTS):.3g}",
           flush=True)
+    phase_done("serving")
 
     # training: the flagship step under both engines from one initial state
-
     tcfg = bench_train_config(PHASE, BATCH)
     state0, opts = init_train_state(get_architecture("pgan"), torch.Generator().manual_seed(0),
                                     phase=PHASE, cfg=tcfg, device="cuda")
     real = real_batch(tcfg, PHASE, BATCH, "cuda")
     trained = {engine: train_engine(tcfg, engine, state0, opts, real)
                for engine in ("flat", "direct")}
+    phase_done("train step")
     conv_shapes, wgrad_shapes = trained["flat"][2]
     train_steps = TRAIN_STEPS * 2  # both halves
     train_convs = check_train_convs(conv_shapes, wgrad_shapes, train_steps, detail)
     train_fused = check_train_fused(fused_shapes, detail)
+    phase_done("training kernels")
     engines_f32 = compare_engines_f32(state0, real)
+    del state0, real
+    phase_done("f32 engines")
+
+    # the trainer through its CLI: phase 5 -> 6 at full width, then a preempted and
+    # resumed run of the same command that must end bit-equal
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_dataset(tmp / "data")
+        trainer = run_trainer(tmp / "data", tmp / "run")
+        phase_done("trainer")
+        resume = check_bitwise_resume(tmp / "data", tmp / "resumed", tmp / "run")
+        phase_done("bitwise resume")
+
+    # kernel #3 (standalone) at the serving shapes (f32) and the train step's forward and
+    # dgrad shapes (bf16), and kernel #5 (standalone)
+    zero_counts()
+    by_role = {}
+    for (role, xs, ws, _), count in sorted(conv_shapes.items(), key=str):
+        by_role.setdefault(role, []).append((role, xs, ws, count / train_steps))
+    v2, v2_launches = {}, {}
+    for key, shapes, dtype in (
+            ("f32", [("forward", xs, ws, 1) for xs, ws in serve_convs], torch.float32),
+            ("forward", by_role["forward"], torch.bfloat16),
+            ("dgrad", by_role["dgrad"], torch.bfloat16)):
+        before = cf.conv3d_flat_v2_cuda.launches
+        v2[key] = check_conv_v2(shapes, dtype, detail)
+        v2_launches[key] = cf.conv3d_flat_v2_cuda.launches - before
+    mbstd = check_mbstd(cfg, detail)
+    mbstd_launches = mb.minibatch_stddev_stat_triton.launches
+    phase_done("standalone kernels")
 
     main_launches = served["flat"][2]
     dispatches = served["flat"][1]["dispatches"]
@@ -621,34 +937,55 @@ def main() -> int:
            f"counted over {dispatches} dispatches")
     per_step = (f"one phase-6 batch-8 bf16 train step under flat (sum over its launches); "
                 f"launches counted over {train_steps} steps")
+    per_v2 = (f"{STANDALONE_3}; ms per phase-6 batch-8 f32 serving forward / bf16 train step "
+              f"(sum over the shapes kernel #1 runs at); launches of this entry's own standalone "
+              f"check, its timing repeats included")
+    per_mbstd = (f"{STANDALONE_5}; ms summed over 8 inputs (N 8 and 16, the largest and "
+                 f"smallest phase-6 D activation, f32 and bf16); launches of this standalone "
+                 f"check")
     kernels = []
-    for name, route, source, replaces, e, launches, library, per_what in (
+    for name, route, source, replaces, e, launches, library, per_what, unit in (
             ("fused_bias_act_pixelnorm", "triton", "saragan_tpu_torch/ops/fused_bias_act.py",
-             "saragan_tpu/ops/pallas_kernels.py:112", fused, main_launches["fused"], None, per),
+             "saragan_tpu/ops/pallas_kernels.py:112", fused, main_launches["fused"], None, per,
+             dispatches),
             ("conv3d_flat", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
-             "saragan_tpu/ops/pallas_conv.py:124", conv, main_launches["conv"], "library_ms", per),
+             "saragan_tpu/ops/pallas_conv.py:124", conv, main_launches["conv"], "library_ms", per,
+             dispatches),
             ("fused_bias_act_pixelnorm[train,bf16,with backward]", "triton",
              "saragan_tpu_torch/ops/fused_bias_act.py", "saragan_tpu/ops/pallas_kernels.py:112",
-             train_fused, train_launches["fused"], None, per_step),
+             train_fused, train_launches["fused"], None, per_step, train_steps),
             ("conv3d_flat[forward,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
              "saragan_tpu/ops/pallas_conv.py:124", train_convs[("forward", "bfloat16")],
-             train_launches["forward"], "library_ms", per_step),
+             train_launches["forward"], "library_ms", per_step, train_steps),
             ("conv3d_flat[dgrad,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
              "saragan_tpu/ops/core.py:386", train_convs[("dgrad", "bfloat16")],
-             train_launches["dgrad"], "library_ms", per_step),
+             train_launches["dgrad"], "library_ms", per_step, train_steps),
             ("conv3d_wgrad[bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad.cu",
              "saragan_tpu/ops/pallas_conv.py:183", train_convs[("wgrad", "bfloat16")],
-             train_launches["wgrad"], "library_ms", per_step)):
-        check(launches > 0, f"{name}: not launched on its main path")
-        unit = dispatches if per_what == per else train_steps
+             train_launches["wgrad"], "library_ms", per_step, train_steps),
+            ("conv3d_flat_v2[f32]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2.cu",
+             "saragan_tpu/ops/pallas_conv.py:288", v2["f32"], v2_launches["f32"], "library_ms",
+             per_v2, None),
+            ("conv3d_flat_v2[forward,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2.cu",
+             "saragan_tpu/ops/pallas_conv.py:288", v2["forward"], v2_launches["forward"],
+             "library_ms", per_v2, None),
+            ("conv3d_flat_v2[dgrad,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2.cu",
+             "saragan_tpu/ops/pallas_conv.py:288", v2["dgrad"], v2_launches["dgrad"],
+             "library_ms", per_v2, None),
+            ("minibatch_stddev_stat", "triton", "saragan_tpu_torch/ops/minibatch_stddev.py",
+             "saragan_tpu/ops/pallas_kernels.py:159", mbstd, mbstd_launches, None, per_mbstd,
+             None)):
+        check(launches > 0, f"{name}: not launched")
         k = dict(name=name, route=route, source=source, replaces=replaces, launches=launches,
-                 launches_per_unit=launches / unit,
                  max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
                  bound_ms=e["bound_ms"],
                  bound_by="operations" if e["t_ops"] > e["t_bytes"] else "bytes",
                  library_ms=e[library] if library else None, per=per_what)
-        if "backward_ms" in e:
-            k["backward_ms"] = e["backward_ms"]
+        if unit:
+            k["launches_per_unit"] = launches / unit
+        for extra in ("backward_ms", "v1_ms", "max_rel_diff_v1"):
+            if extra in e:
+                k[extra] = e[extra]
         kernels.append(k)
     f32_train = {f"{kind}[f32]": {x: e[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "max_abs_err", "launches_per_step")}
@@ -658,12 +995,18 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train,
         serving={e: served[e][1] for e in served}, training=training,
-        engines_f32=engines_f32), indent=1))
+        engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume,
+        seconds=seconds), indent=1))
     print(f"serving: " + json.dumps({e: served[e][1] for e in served}), flush=True)
     print("training: " + json.dumps({e: {h: dict(step_ms=r["step_ms"], peak_mib=r["peak_mib"])
                                          for h, r in trained[e][0].items()} for e in trained}),
           flush=True)
     print("f32 training-shape kernels: " + json.dumps(f32_train), flush=True)
+    print("trainer: " + json.dumps(dict(
+        launches=trainer["launches"], wall_s=trainer["wall_s"],
+        phases={p: {k: v for k, v in r.items() if not k.endswith("_all")}
+                for p, r in trainer["phases"].items()})), flush=True)
+    print("seconds: " + json.dumps(seconds), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

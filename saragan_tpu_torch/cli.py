@@ -1,0 +1,200 @@
+"""Command-line interface of the port's trainer (own copy of ``saragan_tpu/cli.py``,
+limited to the fields the port has):
+
+    python -m saragan_tpu_torch <architecture> <dataset_path> --start_shape ... --flags
+
+The flag names, defaults and None-able types are the reference's.  Added:
+``--conv_engine {direct,flat}`` (cuDNN, or the hand-written kernels) and ``--device``
+(CUDA unless named; ``--device cpu`` trains on the CPU).  ``main`` builds the
+``Trainer`` and runs it, as the reference's harness does without HPO; on a SIGTERM or
+SIGINT it prints the resume hint and exits 75.  Flags of options the port does not run
+yet (``--optuna_ntrials``, ``--calc_metrics``, ``--profile_dir``, ``--horovod``,
+``--single_chip_big_volume``, ``--dataset imagenet``) are accepted and raise
+``NotImplementedError`` naming ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+from saragan_tpu_torch.config import Config
+
+
+def none_or_str(value):
+    return None if value == "None" else str(value)
+
+
+def none_or_float(value):
+    return None if value == "None" else float(value)
+
+
+def none_or_int(value):
+    return None if value == "None" else int(value)
+
+
+def kernel_spec(value):
+    with open(value) as f:
+        return json.load(f)["kernel_spec"]
+
+
+def filter_spec(value):
+    with open(value) as f:
+        return json.load(f)["filter_spec"]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="saragan_tpu_torch")
+    p.add_argument("architecture", type=str)
+    p.add_argument("dataset_path", type=str)
+    p.add_argument("--dataset", type=none_or_str, default=None,
+                   help="dataset kind; 'imagenet' is not ported")
+    p.add_argument("--start_shape", type=str, required=True,
+                   help="shape of the data at phase 1, '(c, z, y, x)'")
+    p.add_argument("--final_shape", type=str, required=True)
+    p.add_argument("--starting_phase", type=int, required=True)
+    p.add_argument("--ending_phase", type=int, required=True)
+    p.add_argument("--scratch_path", type=str, default=None)
+    p.add_argument("--base_batch_size", type=none_or_int, default=None)
+    p.add_argument("--max_global_batch_size", type=none_or_int, default=None)
+    p.add_argument("--mixing_nimg", type=int, default=2**19)
+    p.add_argument("--stabilizing_nimg", type=int, default=2**19)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--horovod", default=False, action="store_true",
+                   help="data-parallel training: not ported")
+    p.add_argument("--checkpoint_every_nsteps", default=20000, type=int)
+    p.add_argument("--logdir", default=None, type=str)
+    p.add_argument("--continue_path", default=None, type=str)
+    p.add_argument("--starting_alpha", default=1, type=float)
+    p.add_argument("--validation_fraction", default=0.1, type=float)
+    p.add_argument("--test_fraction", default=0.1, type=float)
+    # architecture
+    p.add_argument("--latent_dim", type=int, required=True)
+    p.add_argument("--network_size", default=None,
+                   choices=["xxs", "xs", "s", "m", "l", "xl", "xxl"])
+    p.add_argument("--activation", type=str, default="leaky_relu")
+    p.add_argument("--leakiness", type=float, default=0.2)
+    p.add_argument("--conv_kernel_size", type=none_or_int, nargs="+", default=[3, 3, 3])
+    p.add_argument("--kernel_spec", type=kernel_spec, default=None)
+    p.add_argument("--filter_spec", type=filter_spec, default=None)
+    # learning rate
+    p.add_argument("--g_lr", type=none_or_float, default=None)
+    p.add_argument("--d_lr", type=none_or_float, default=None)
+    for net in ("g", "d"):
+        p.add_argument(f"--{net}_lr_increase", type=none_or_str,
+                       choices=[None, "linear", "exponential"], default=None)
+        p.add_argument(f"--{net}_lr_decrease", type=none_or_str,
+                       choices=[None, "linear", "exponential"], default=None)
+        p.add_argument(f"--{net}_lr_rise_niter", type=none_or_int, default=None)
+        p.add_argument(f"--{net}_lr_decay_niter", type=none_or_int, default=None)
+    p.add_argument("--d_scaling", default="none", choices=["linear", "sqrt", "none"])
+    p.add_argument("--g_scaling", default="none", choices=["linear", "sqrt", "none"])
+    # loss and optimization
+    p.add_argument("--loss_fn", default="logistic", choices=["logistic", "wgan"])
+    p.add_argument("--gp_weight", type=float, default=1)
+    p.add_argument("--g_clipping", default=False, type=bool)
+    p.add_argument("--d_clipping", default=False, type=bool)
+    p.add_argument("--optim_strategy", default="simultaneous",
+                   choices=["simultaneous", "alternate"])
+    p.add_argument("--ema_beta", type=float, default=0.99)
+    p.add_argument("--noise_stddev", default=None, type=float, required=True)
+    _optim_choices = [None, "Adam", "SGD", "Momentum", "Adadelta", "LAMB", "RAdam", "AdamW",
+                      "LARS"]
+    p.add_argument("--optimizer", type=none_or_str, choices=_optim_choices, default="Adam")
+    p.add_argument("--d_use_different_optimizer", default=False, action="store_true")
+    p.add_argument("--d_optimizer", type=none_or_str, choices=_optim_choices, default="Adam")
+    p.add_argument("--gradient_accumulation", type=int, default=1)
+    p.add_argument("--use_spectral_norm", default=False, action="store_true")
+    p.add_argument("--fused_transitions", dest="fused_transitions", default=True,
+                   action="store_true", help="upscale + conv as one exact transition")
+    p.add_argument("--no_fused_transitions", dest="fused_transitions", action="store_false")
+    p.add_argument("--fused_grads", dest="fused_grads", default=True, action="store_true",
+                   help="shared-fake-pass WGAN gradients (exact; default on)")
+    p.add_argument("--no_fused_grads", dest="fused_grads", action="store_false")
+    p.add_argument("--batched_passes", dest="batched_passes", default=True,
+                   action="store_true", help="the fake and real critic passes as one call")
+    p.add_argument("--no_batched_passes", dest="batched_passes", action="store_false")
+    p.add_argument("--no_graceful_shutdown", dest="graceful_shutdown", default=True,
+                   action="store_false",
+                   help="disable the SIGTERM/SIGINT checkpoint-and-exit(75) handler")
+    p.add_argument("--abort_on_nonfinite", default=False, action="store_true",
+                   help="fail fast (with a rewind hint) when summary losses go NaN/inf")
+    p.add_argument("--keep_checkpoints", type=int, default=0,
+                   help="keep only the newest N cadence checkpoints per phase (0 = all)")
+    p.add_argument("--auto_resume", default=False, action="store_true",
+                   help="continue from the newest resume point in --logdir")
+    p.add_argument("--full_state_checkpoints", default=False, action="store_true",
+                   help="cadence checkpoints also save the full train state")
+    p.add_argument("--gp_full_reduction", default=False, action="store_true")
+    p.add_argument("--gp_grad_mode", default="revrev", choices=["revrev", "revfwd"])
+    p.add_argument("--lazy_gp", default=1, type=int,
+                   help="apply the gradient penalty every k-th step with k-scaled weight")
+    p.add_argument("--remat", default=False, action="store_true")
+    p.add_argument("--remat_offload", default=False, action="store_true")
+    p.add_argument("--single_chip_big_volume", default=False, action="store_true",
+                   help="needs remat_offload: not ported")
+    p.add_argument("--use_pallas_fusion", default=False, action="store_true",
+                   help="the fused bias + leaky ReLU + pixel norm kernel after every "
+                        "generator conv (the flag keeps the reference's name)")
+    p.add_argument("--adam_beta1", "--beta1", dest="adam_beta1", type=none_or_float, default=0)
+    p.add_argument("--d_use_different_beta1", default=False, action="store_true")
+    p.add_argument("--d_adam_beta1", type=none_or_float, default=0)
+    p.add_argument("--adam_beta2", "--beta2", dest="adam_beta2", type=none_or_float,
+                   default=0.9)
+    p.add_argument("--d_use_different_beta2", default=False, action="store_true")
+    p.add_argument("--d_adam_beta2", type=none_or_float, default=0.9)
+    # summaries
+    p.add_argument("--calc_metrics", default=False, action="store_true",
+                   help="metrics: not ported")
+    p.add_argument("--disable_grad_histograms", dest="grad_histograms", default=True,
+                   action="store_false")
+    p.add_argument("--summary_small_every_nsteps", default=32, type=int)
+    p.add_argument("--summary_large_every_nsteps", default=64, type=int)
+    p.add_argument("--optuna_ntrials", default=None, type=none_or_int,
+                   help="HPO: not ported")
+    # input normalization
+    p.add_argument("--data_mean", default=None, type=none_or_float)
+    p.add_argument("--data_stddev", default=None, type=none_or_float)
+    # numerics, device
+    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--transfer_dtype", default="auto",
+                   choices=["auto", "float32", "float16", "bfloat16"],
+                   help="host->device batch dtype; auto = bfloat16 under bfloat16 compute")
+    p.add_argument("--profile_dir", default=None, type=str, help="not ported")
+    p.add_argument("--conv_engine", default="direct", choices=["direct", "flat"],
+                   help="every 3-D conv through cuDNN (direct) or the hand-written "
+                        "kernels (flat)")
+    p.add_argument("--device", default=None, type=str,
+                   help="torch device; CUDA unless named (e.g. 'cpu')")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    fields = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in vars(args).items() if k in fields})
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.optuna_ntrials is not None:
+        raise NotImplementedError("HPO (--optuna_ntrials) is not ported yet "
+                                  "(ROADMAP.md queue 1 item 13)")
+    cfg = config_from_args(args).finalize()
+    # None means "let an HPO trial pick it"; without HPO the run needs a value
+    for field in ("g_lr", "d_lr", "base_batch_size", "optimizer", "noise_stddev"):
+        if getattr(cfg, field) is None:
+            raise ValueError(f"--{field} is unset (None): pass --{field} explicitly")
+    from saragan_tpu_torch.train.trainer import Trainer, TrainingInterrupted
+
+    trainer = Trainer(cfg, device=args.device)
+    try:
+        return trainer.run()
+    except TrainingInterrupted as e:
+        # the exact-resume checkpoint is on disk; 75 (EX_TEMPFAIL) lets a wrapper requeue
+        print(f"INTERRUPTED: {e}", flush=True)
+        raise SystemExit(75)
+
+
+if __name__ == "__main__":
+    main()

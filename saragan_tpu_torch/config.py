@@ -1,13 +1,15 @@
-"""Run configuration of the port: the fields the serving and training slices read.
+"""Run configuration of the port: the fields the models, the train step, the trainer,
+the CLI and the serving tools read.
 
 The port keeps its own copy of ``saragan_tpu/config.py``'s ``Config`` (same field
-names, defaults and derived properties), trimmed to what the models, the train step and
-the serving tools use.  There is no ``apply_runtime_opts``: the conv engine is an
-explicit argument of the samplers and of ``make_train_step``, never a process-wide gate.
-Fields of options the port does not run yet (``remat``, ``remat_offload``,
-``gradient_accumulation > 1``, ``use_spectral_norm``, other optimizers than Adam) are
-kept so a configuration reads the same in both packages; the code that meets them
-raises and names ROADMAP.md.
+names, defaults and derived properties), trimmed to what the port runs.  There is no
+``apply_runtime_opts``: the conv engine is the explicit field ``conv_engine`` ("direct",
+cuDNN, the reference's choice off the TPU; or "flat", the hand-written kernels), handed
+down to every conv, never a process-wide gate.  Fields of options the port does not run
+yet (``remat``, ``remat_offload``, ``gradient_accumulation > 1``, ``use_spectral_norm``,
+other optimizers than Adam, ``calc_metrics``, ``profile_dir``, ``horovod``,
+``single_chip_big_volume``, the ImageNet dataset) are kept so a configuration reads the
+same in both packages; the code that meets them raises and names ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -50,11 +52,25 @@ def default_filter_spec(num_phases: int, base_shape, size: str = "xs", ndim: int
 @dataclass
 class Config:
     architecture: str = "pgan"
+    dataset_path: str = ""
+    # dataset kind: None = the npy pyramid; "imagenet" (the 2-D path) is not ported
+    dataset: Optional[str] = None
     start_shape: str = "(1, 4, 4, 4)"
     final_shape: str = "(1, 32, 32, 32)"
     starting_phase: int = 1
     ending_phase: Optional[int] = None
+    scratch_path: Optional[str] = None
+    max_global_batch_size: Optional[int] = None
+    mixing_nimg: int = 2**19
+    stabilizing_nimg: int = 2**19
     seed: int = 42
+    horovod: bool = False  # data-parallel over a mesh: not ported (ROADMAP queue 1 item 12)
+    checkpoint_every_nsteps: int = 20000
+    logdir: Optional[str] = None
+    continue_path: Optional[str] = None
+    starting_alpha: float = 1.0
+    validation_fraction: float = 0.1
+    test_fraction: float = 0.1
     latent_dim: int = 256
     network_size: Optional[str] = "xs"
     activation: str = "leaky_relu"
@@ -72,6 +88,16 @@ class Config:
     base_batch_size: Optional[int] = None
     g_lr: Optional[float] = 1e-3
     d_lr: Optional[float] = 1e-3
+    g_lr_increase: Optional[str] = None
+    g_lr_decrease: Optional[str] = None
+    d_lr_increase: Optional[str] = None
+    d_lr_decrease: Optional[str] = None
+    g_lr_rise_niter: Optional[int] = None
+    g_lr_decay_niter: Optional[int] = None
+    d_lr_rise_niter: Optional[int] = None
+    d_lr_decay_niter: Optional[int] = None
+    d_scaling: str = "none"
+    g_scaling: str = "none"
     loss_fn: str = "logistic"
     gp_weight: float = 1.0
     use_spectral_norm: bool = False
@@ -102,6 +128,22 @@ class Config:
     gp_grad_mode: str = "revrev"
     # fake and real critic passes as one D call over both batches
     batched_passes: bool = True
+    # --- trainer (saragan_tpu/config.py:145-153,203-250) ---
+    calc_metrics: bool = False  # metrics/ are not ported (ROADMAP queue 1 item 11)
+    grad_histograms: bool = True  # per-variable gradient histograms on summary steps
+    summary_small_every_nsteps: int = 32
+    summary_large_every_nsteps: int = 64
+    # host->device batch dtype; "auto" = bfloat16 under bfloat16 compute, else float32
+    transfer_dtype: str = "auto"
+    profile_dir: Optional[str] = None  # not ported
+    full_state_checkpoints: bool = False  # cadence checkpoints also save the full state
+    graceful_shutdown: bool = True  # SIGTERM/SIGINT: finish the step, checkpoint, exit 75
+    auto_resume: bool = False  # continue from the newest resume point in the logdir
+    keep_checkpoints: int = 0  # newest N cadence checkpoints per phase (0 = all)
+    abort_on_nonfinite: bool = False  # raise TrainingDiverged on a non-finite summary loss
+    single_chip_big_volume: bool = False  # needs remat_offload: not ported
+    # "direct" (cuDNN) or "flat" (the hand-written kernels), the explicit SARAGAN_CONV3D
+    conv_engine: str = "direct"
 
     @property
     def start_shape_t(self) -> Tuple[int, ...]:
@@ -124,6 +166,15 @@ class Config:
     def current_shape(self, phase: int, batch_size: int) -> Tuple[int, ...]:
         s = self.start_shape_t
         return (batch_size, s[0], *[d * 2 ** (phase - 1) for d in s[1:]])
+
+    def batch_size_for_phase(self, phase: int, global_size: int = 1) -> int:
+        """Per-worker batch size: halved each phase, capped at
+        max_global_batch_size / global_size in every phase."""
+        assert self.base_batch_size is not None
+        batch_size = max(1, self.base_batch_size // (2 ** (phase - 1)))
+        if self.max_global_batch_size is not None:
+            batch_size = min(batch_size, max(1, self.max_global_batch_size // global_size))
+        return batch_size
 
     def resolved_kernel_spec(self) -> list:
         """Kernel spec from conv_kernel_size, shrunk per phase so a kernel never exceeds
@@ -149,9 +200,25 @@ class Config:
         return default_filter_spec(self.num_phases, self.base_shape, size=size, ndim=self.ndim)
 
     def finalize(self) -> "Config":
-        """Derived defaults (D's optimizer settings mirror G's unless
-        d_use_different_*) and the phase-range checks of the reference's finalize."""
+        """Derived defaults (the transfer dtype, the LR rise/decay lengths from the phase
+        halves, D's optimizer settings mirroring G's unless d_use_different_*) and the
+        phase-range checks of the reference's finalize."""
         c = dataclasses.replace(self)
+        if c.transfer_dtype == "auto":
+            c.transfer_dtype = "bfloat16" if c.compute_dtype == "bfloat16" else "float32"
+        if c.g_lr_rise_niter is None:
+            c.g_lr_rise_niter = c.mixing_nimg // 2
+        if c.g_lr_decay_niter is None:
+            c.g_lr_decay_niter = c.stabilizing_nimg // 2
+        if c.d_lr_rise_niter is None:
+            c.d_lr_rise_niter = c.mixing_nimg // 2
+        if c.d_lr_decay_niter is None:
+            c.d_lr_decay_niter = c.stabilizing_nimg // 2
+        if c.conv_engine not in ("direct", "flat"):
+            raise ValueError(f"conv_engine must be 'direct' or 'flat'; got {c.conv_engine!r}")
+        if c.single_chip_big_volume:
+            raise NotImplementedError("single_chip_big_volume needs remat_offload, which is "
+                                      "not ported yet (ROADMAP queue 1 item 10)")
         if not c.d_use_different_optimizer:
             c.d_optimizer = c.optimizer
         if not c.d_use_different_beta1:

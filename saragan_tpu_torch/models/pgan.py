@@ -23,6 +23,8 @@ the train step relies on.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -210,7 +212,10 @@ def init(rng: torch.Generator, *, phase: int, cfg, device) -> Params:
     params: Params = {}
     scope = Scope(params, init=True, rng=rng, device=torch.device(device))
     z = torch.empty((1, cfg.latent_dim), device="meta")
-    _generator(scope, z, 1.0, phase, cfg, cfg.leakiness, "direct")
+    # the fused op reads the same "bias" parameter; the shape-only pass skips its
+    # dispatch, so an init never counts as a call of its plain version
+    _generator(scope, z, 1.0, phase, dataclasses.replace(cfg, use_pallas_fusion=False),
+               cfg.leakiness, "direct")
     x = torch.empty(cfg.current_shape(phase, 1), device="meta")
     _discriminator(scope, x, 1.0, phase, cfg, cfg.leakiness, "direct")
     return params

@@ -3,7 +3,10 @@ their plain versions.
 
 Replaces the ``pallas`` conv engine of the reference, ``saragan_tpu/ops/pallas_conv.py``:
 ``conv3d_flat`` (kernel ``_fwd_kernel``) by ``csrc/conv3d_fwd.cu`` and
-``conv3d_flat_wgrad`` (kernel ``_wgrad_kernel``) by ``csrc/conv3d_wgrad.cu``.  Each
+``conv3d_flat_wgrad`` (kernel ``_wgrad_kernel``) by ``csrc/conv3d_wgrad.cu``, and the
+pipelined variant ``conv3d_flat_v2`` (kernel ``_fwd_v2_kernel``) by
+``csrc/conv3d_fwd_v2.cu``.  v2 is standalone, as in the reference, where no conv engine
+reaches it (``saragan_tpu/ops/core.py:553``); the port's engines use kernels #1 and #2.  Each
 source note says what bounds the kernel on the H100 and how its design differs from the
 TPU kernel's flat-padded window.  The derivative algebra that uses them as forward,
 dgrad and wgrad is ``ops/conv3d_grad.py``.
@@ -90,6 +93,10 @@ def conv3d_flat_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     contractions of shifted slices, accumulated in f32 (f64 for f64 inputs)."""
     _check_shapes(x, w)
     conv3d_flat_plain.calls += 1
+    return _conv_per_tap(x, w)
+
+
+def _conv_per_tap(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n, _, d, h, wd = x.shape
     kd, kh, kw, _, f = w.shape
     acc_dtype = _acc_dtype(x.dtype)
@@ -105,6 +112,31 @@ def conv3d_flat_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 conv3d_flat_plain.calls = 0
+
+
+def conv3d_flat_v2_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The same conv the way v2 contracts it, in torch ops: for C <= 32, per sample, the
+    K shifted slices of the padded input stacked into one (K*C, D*H*W) im2col operand and
+    one K*C-wide contraction with w reshaped to (K*C, F); per tap otherwise.  f32 (f64
+    for f64 inputs) accumulation, one rounding to x.dtype."""
+    _check_shapes(x, w)
+    conv3d_flat_v2_plain.calls += 1
+    n, c, d, h, wd = x.shape
+    kd, kh, kw, _, f = w.shape
+    if c > 32:
+        return _conv_per_tap(x, w)
+    acc_dtype = _acc_dtype(x.dtype)
+    wk = w.to(acc_dtype).reshape(-1, f)
+    y = torch.empty((n, f, d, h, wd), dtype=x.dtype, device=x.device)
+    for s in range(n):  # one sample's operand at a time bounds the memory
+        xp = F.pad(x[s].to(acc_dtype), (kw // 2, kw // 2, kh // 2, kh // 2, kd // 2, kd // 2))
+        cols = torch.cat([xp[:, i:i + d, j:j + h, k:k + wd].reshape(c, -1)
+                          for i in range(kd) for j in range(kh) for k in range(kw)])
+        y[s] = (wk.t() @ cols).reshape(f, d, h, wd).to(x.dtype)
+    return y
+
+
+conv3d_flat_v2_plain.calls = 0
 
 
 def conv3d_flat_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
@@ -160,6 +192,31 @@ conv3d_flat_cuda.launches = 0
 conv3d_flat_cuda.by_shape = Counter()  # (role, x shape, w shape, dtype) -> launches
 
 
+def conv3d_flat_v2_cuda(x: torch.Tensor, w: torch.Tensor, role: str = "forward") -> torch.Tensor:
+    """Launch the pipelined forward kernel (``csrc/conv3d_fwd_v2.cu``) on PyTorch's
+    current stream.  `role` only labels the launch count ("forward" or "dgrad")."""
+    _check_shapes(x, w)
+    _check_cuda_operands("conv3d_flat_v2_cuda", (x, w))
+    if w.shape[2] not in _SUPPORTED_KW:
+        raise ValueError(f"kernel width {w.shape[2]} not in {_SUPPORTED_KW}")
+    n, c, d, h, wd = x.shape
+    kd, kh, kw, _, f = w.shape
+    y = torch.empty((n, f, d, h, wd), dtype=x.dtype, device=x.device)
+    lib = _v2_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.saragan_conv3d_fwd_v2(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+                                    y.data_ptr(), n, c, d, h, wd, kd, kh, kw, f, stream)
+    _raise_on_error(lib, err, f"conv3d_fwd_v2 launch for x {tuple(x.shape)}, "
+                              f"w {tuple(w.shape)}")
+    conv3d_flat_v2_cuda.launches += 1
+    conv3d_flat_v2_cuda.by_shape[(role, tuple(x.shape), tuple(w.shape), x.dtype)] += 1
+    return y
+
+
+conv3d_flat_v2_cuda.launches = 0
+conv3d_flat_v2_cuda.by_shape = Counter()  # (role, x shape, w shape, dtype) -> launches
+
+
 def conv3d_flat_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
                            kernel: Tuple[int, int, int]) -> torch.Tensor:
     """Launch the weight-gradient kernel (two passes, a fixed summation order) on
@@ -206,6 +263,17 @@ def _fwd_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def _v2_library() -> ctypes.CDLL:
+    lib = _build.load_library("conv3d_fwd_v2")
+    fn = lib.saragan_conv3d_fwd_v2
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.saragan_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.saragan_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _wgrad_library() -> ctypes.CDLL:
     lib = _build.load_library("conv3d_wgrad")
     q = lib.saragan_conv3d_wgrad_workspace_floats
@@ -234,6 +302,15 @@ def conv3d_flat(x: torch.Tensor, w: torch.Tensor, role: str = "forward") -> torc
     if _device_path("conv3d_flat", x) == "cuda":
         return conv3d_flat_cuda(x, w, role)
     return conv3d_flat_plain(x, w)
+
+
+def conv3d_flat_v2(x: torch.Tensor, w: torch.Tensor, role: str = "forward") -> torch.Tensor:
+    """The pipelined variant of ``conv3d_flat``, the same function: the v2 CUDA kernel for
+    CUDA tensors, its plain version for CPU (and meta) tensors.  Standalone, as in the
+    reference: no conv engine of the port routes through it."""
+    if _device_path("conv3d_flat_v2", x) == "cuda":
+        return conv3d_flat_v2_cuda(x, w, role)
+    return conv3d_flat_v2_plain(x, w)
 
 
 def conv3d_flat_wgrad(x: torch.Tensor, dy: torch.Tensor,

@@ -1,7 +1,7 @@
 """Exponential moving average of the parameters (counterpart of
 ``saragan_tpu/optim/ema.py:25-43``): ``ema = decay * ema + (1 - decay) * params`` once
-per step, over G and D.  The averages are a second parameter dict keyed like the
-parameters.
+per step, over G and D, and ``fold_ema`` before the phase-final checkpoint.  The averages
+are a second parameter dict keyed like the parameters.
 """
 
 from __future__ import annotations
@@ -21,3 +21,9 @@ def ema_init(params: Params) -> Params:
 @torch.no_grad()
 def ema_update(ema: Params, params: Params, decay: float) -> Params:
     return {k: decay * e + (1.0 - decay) * params[k] for k, e in ema.items()}
+
+
+def fold_ema(params: Params, ema: Params) -> Params:
+    """The live weights overwritten by their averages (the phase-final checkpoint's
+    weights); copies, so the result aliases neither dict."""
+    return {k: ema[k].detach().clone() for k in params}

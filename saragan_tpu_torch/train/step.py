@@ -17,9 +17,14 @@ to the activation dtype at use (no autocast).  Library convs (the ``direct`` eng
 polyphase transitions) run under deterministic cuDNN with TF32 off, as serving does,
 and matmuls with TF32 off (``_train_numerics``).
 
+Previous-phase freezing (``freeze`` with ``frozen_names``): frozen parameters and their
+Adam slots keep their old values, and the clip norm and every gradient statistic cover
+only the other names.  ``grad_histograms``: the step also returns per-variable 64-bin
+gradient histograms, binned on the device (the trainer's variant for summary steps).
+
 Not ported (each raises and names ROADMAP.md): ``optim_strategy="alternate"``,
-``remat``/``remat_offload``, previous-phase freezing, gradient histograms,
-``gradient_accumulation > 1``, ``gp_grad_mode="revfwd"``, spectral norm.
+``remat``/``remat_offload``, ``gradient_accumulation > 1``, ``gp_grad_mode="revfwd"``,
+spectral norm.
 
 The step builds its graph eagerly and makes no host synchronisation: losses and metrics
 come back as device tensors.
@@ -37,6 +42,7 @@ from saragan_tpu_torch._device import resolve_device
 from saragan_tpu_torch.core import Params, filter_params
 from saragan_tpu_torch.optim.ema import ema_init, ema_update
 from saragan_tpu_torch.optim.factory import Optimizer, make_optimizers_from_config
+from saragan_tpu_torch.optim.freeze import freeze_select
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64}
 
@@ -57,6 +63,9 @@ class StepMetrics(NamedTuple):
     max_d_norm: torch.Tensor
     g_norms: Optional[Dict[str, torch.Tensor]] = None
     d_norms: Optional[Dict[str, torch.Tensor]] = None
+    # per-variable 64-bin gradient histograms {name: (counts, edges)}, on the device
+    g_hists: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+    d_hists: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
     fake_min: Optional[torch.Tensor] = None
     fake_max: Optional[torch.Tensor] = None
     real_min: Optional[torch.Tensor] = None
@@ -83,16 +92,43 @@ def init_train_state(arch, rng: torch.Generator, *, phase: int, cfg,
     return state, (g_optimizer, d_optimizer)
 
 
+def histogram(g: torch.Tensor, bins: int = 64):
+    """``jnp.histogram(g, bins)`` on the device.  The edges are ``linspace(min, max,
+    bins + 1)`` computed as XLA computes them: ``lo * (1 - i/bins)`` rounded to f32, then
+    ``+ hi * i/bins`` with one rounding (a fused multiply-add), the last edge exactly the
+    maximum; a constant tensor gets the range min +- 0.5.  Bin i counts
+    edges[i] <= v < edges[i + 1], the last bin also v == max.  ``torch.histc`` places
+    values by its own arithmetic, so a value next to an edge could land in the other bin;
+    ``bucketize`` against the edges is the reference's ``searchsorted(side='right')``.
+    Returns (counts f32, edges f32)."""
+    v = g.detach().reshape(-1).float()
+    lo, hi = torch.min(v), torch.max(v)
+    same = lo == hi
+    lo, hi = torch.where(same, lo - 0.5, lo), torch.where(same, hi + 0.5, hi)
+    step = torch.arange(bins, dtype=torch.float32, device=v.device) / bins
+    head = (lo * (1 - step)).double() + hi.double() * step.double()
+    edges = torch.cat([head.float(), hi.reshape(1)])
+    idx = torch.bucketize(v, edges, right=True)
+    idx = torch.where(v == edges[-1], bins, idx)
+    counts = torch.bincount(idx, minlength=bins + 2)[1:bins + 1].float()
+    return counts, edges
+
+
 @torch.no_grad()
-def _clip_and_norms(grads: Params, clipping: bool):
+def _clip_and_norms(grads: Params, clipping: bool, hist_bins: int = 0,
+                    frozen: FrozenSet[str] = frozenset()):
     """Optional global-norm-1 clip, then per-variable norms of the (clipped) gradients
-    and their maximum."""
+    and their maximum, and with `hist_bins` per-variable histograms.  The clip norm and
+    every statistic cover only the names not in `frozen` (the reference clips over the
+    limited variable list of its freeze path)."""
+    live = [k for k in grads if k not in frozen]
     if clipping:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()))
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[k])) for k in live))
         scale = torch.clamp(1.0 / (gnorm + 1e-16), max=1.0)
-        grads = {k: g * scale for k, g in grads.items()}
-    norms = {k: torch.linalg.vector_norm(g.reshape(-1)) for k, g in grads.items()}
-    return grads, torch.max(torch.stack(list(norms.values()))), norms
+        grads = {k: (g * scale if k not in frozen else g) for k, g in grads.items()}
+    norms = {k: torch.linalg.vector_norm(grads[k].reshape(-1)) for k in live}
+    hists = {k: histogram(grads[k], hist_bins) for k in live} if hist_bins else None
+    return grads, torch.max(torch.stack(list(norms.values()))), norms, hists
 
 
 @contextlib.contextmanager
@@ -108,7 +144,7 @@ def _train_numerics():
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
 
-def _check_ported(arch, cfg, freeze, frozen_names, grad_histograms):
+def _check_ported(cfg):
     todo = []
     if cfg.optim_strategy == "alternate":
         todo.append("optim_strategy='alternate' (queue 1 item 5)")
@@ -116,10 +152,6 @@ def _check_ported(arch, cfg, freeze, frozen_names, grad_histograms):
         raise ValueError(f"Unknown optim strategy {cfg.optim_strategy}")
     if cfg.remat or cfg.remat_offload:
         todo.append("remat / remat_offload (queue 1 item 10)")
-    if freeze and frozen_names:
-        todo.append("previous-phase freezing (queue 1 item 5)")
-    if grad_histograms:
-        todo.append("the gradient-histogram step variant (queue 1 item 5)")
     if int(cfg.gradient_accumulation) > 1:
         todo.append("gradient_accumulation > 1 (queue 1 item 9)")
     if cfg.use_spectral_norm:
@@ -184,10 +216,18 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
     Otherwise alpha goes in as a 0-dim tensor and the branches always run, as the
     reference's traced alpha does.  `conv_engine` is "direct" (cuDNN) or "flat" (the
     hand-written kernels)."""
-    _check_ported(arch, cfg, freeze, frozen_names, grad_histograms)
+    _check_ported(cfg)
     dtype = compute_dtype(cfg)
+    frozen = frozenset(frozen_names) if freeze else frozenset()
+    hist_bins = 64 if grad_histograms else 0
     grads_fn = make_grads_fn(arch, cfg, phase, apply_gp, static_alpha,
                              conv_engine=conv_engine)
+
+    def apply_updates(optimizer, params, opt_state, grads, lr, clipping):
+        grads, max_norm, norms, hists = _clip_and_norms(grads, clipping, hist_bins, frozen)
+        new_params, new_opt = optimizer.update(grads, opt_state, params, lr)
+        return (freeze_select(params, new_params, frozen),
+                freeze_select(opt_state, new_opt, frozen), max_norm, norms, hists)
 
     def train_step(state: TrainState, real: torch.Tensor, rng: Optional[torch.Generator],
                    alpha, g_lr, d_lr, draws: Optional[losses.Draws] = None):
@@ -199,13 +239,13 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
         (g_grads, d_grads), out = grads_fn(state.g_params, state.d_params, real, draws, alpha)
 
         with torch.no_grad():
-            g_grads, max_g_norm, g_norms = _clip_and_norms(g_grads, cfg.g_clipping)
-            d_grads, max_d_norm, d_norms = _clip_and_norms(d_grads, cfg.d_clipping)
-            g_params, g_opt = g_optimizer.update(g_grads, state.g_opt, state.g_params, g_lr)
-            d_params, d_opt = d_optimizer.update(d_grads, state.d_opt, state.d_params, d_lr)
+            g_params, g_opt, max_g_norm, g_norms, g_hists = apply_updates(
+                g_optimizer, state.g_params, state.g_opt, g_grads, g_lr, cfg.g_clipping)
+            d_params, d_opt, max_d_norm, d_norms, d_hists = apply_updates(
+                d_optimizer, state.d_params, state.d_opt, d_grads, d_lr, cfg.d_clipping)
             ema = ema_update(state.ema, {**g_params, **d_params}, cfg.ema_beta)
             metrics = StepMetrics(out.gen_loss, out.disc_loss, out.gp_loss, max_g_norm,
-                                  max_d_norm, g_norms, d_norms,
+                                  max_d_norm, g_norms, d_norms, g_hists, d_hists,
                                   torch.min(out.gen_sample), torch.max(out.gen_sample),
                                   torch.min(real[0]), torch.max(real[0]))
         return TrainState(g_params, d_params, g_opt, d_opt, ema), metrics

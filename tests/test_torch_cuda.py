@@ -1,5 +1,6 @@
-"""The port's hand-written kernels against their plain versions on the card, the conv's
-derivative algebra against cuDNN's double backward, and one train step under ``flat``.
+"""The port's hand-written kernels against their plain versions on the card (the
+standalone #3 and #5 too), the conv's derivative algebra against cuDNN's double backward,
+one train step under ``flat``, and a two-step CLI trainer run.
 
 Needs an NVIDIA GPU, nvcc and triton; skipped without them.  This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -16,6 +17,7 @@ from saragan_tpu_torch.config import Config
 from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.ops import conv3d_flat as cf
 from saragan_tpu_torch.ops import fused_bias_act as fba
+from saragan_tpu_torch.ops import minibatch_stddev as mb
 from saragan_tpu_torch.ops.conv3d_grad import conv3d_c
 from saragan_tpu_torch.train.step import init_train_state, make_train_step
 
@@ -115,6 +117,42 @@ def test_wgrad_kernel_matches_plain_and_repeats_bit_for_bit(cuda, x_shape, w_sha
     assert torch.equal(dw, again)
 
 
+# im2col (C <= 32) with plain loads in bf16 (odd W), per tap over three channel chunks,
+# and the narrow-plane tile (W <= 8)
+V2_SHAPES = [((2, 5, 3, 5, 37), (3, 3, 3, 5, 7)), ((1, 70, 2, 9, 16), (1, 3, 3, 70, 17)),
+             ((2, 16, 4, 8, 8), (3, 3, 3, 16, 16))]
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("x_shape,w_shape", V2_SHAPES)
+def test_conv3d_v2_kernel_matches_plain_and_repeats(cuda, x_shape, w_shape, dtype, limit):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(w_shape, generator=g, device=cuda) * 0.2).to(dtype)
+    launches = cf.conv3d_flat_v2_cuda.launches
+    y = cf.conv3d_flat_v2(x, w)
+    again = cf.conv3d_flat_v2(x, w)
+    torch.cuda.synchronize()
+    assert cf.conv3d_flat_v2_cuda.launches == launches + 2
+    assert y.dtype == dtype and torch.equal(y, again)
+    assert _rel_err(y, cf.conv3d_flat_v2_plain(x, w)) <= limit
+    assert _rel_err(y, cf.conv3d_flat_cuda(x, w)) <= limit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 16, 4, 8, 8), (16, 3, 5, 7)])
+def test_minibatch_stddev_kernel_matches_plain_and_repeats(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    launches = mb.minibatch_stddev_stat_triton.launches
+    s = mb.minibatch_stddev_stat(x)
+    again = mb.minibatch_stddev_stat(x)
+    torch.cuda.synchronize()
+    assert mb.minibatch_stddev_stat_triton.launches == launches + 2
+    assert s.shape == (shape[0] // 4, 1) and torch.equal(s, again)
+    torch.testing.assert_close(s, mb.minibatch_stddev_stat_plain(x), rtol=1e-5, atol=0)
+
+
 def test_gp_pattern_through_the_kernels_matches_cudnn_double_backward(cuda):
     """tests/test_pallas_conv.py:46-63 on the card, f32, TF32 off."""
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -177,3 +215,43 @@ def test_phase2_train_step_runs_on_the_kernels(cuda, dtype):
     assert all(torch.isfinite(v).item() for v in (m.gen_loss, m.disc_loss, m.gp_loss))
     assert any(not torch.equal(new.d_params[k], state.d_params[k]) for k in state.d_params)
     assert any(not torch.equal(new.g_params[k], state.g_params[k]) for k in state.g_params)
+
+
+def test_two_step_cli_trainer_run_at_phase_2(cuda, tmp_path):
+    """The CLI trains two steps at phase 2 (one mixing, one stabilizing) under `flat`,
+    through the kernels and no plain version, and writes model_2.npz."""
+    import json
+
+    import numpy as np
+
+    from saragan_tpu_torch.cli import main
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "data" / "8x8").mkdir(parents=True)
+    for i in range(6):
+        np.save(tmp_path / "data" / "8x8" / f"{i}.npy",
+                rng.normal(size=(8, 8, 8)).astype(np.float32))
+    spec = tmp_path / "filters.json"
+    spec.write_text(json.dumps({"filter_spec": [[16, 16], [16, 8]]}))
+    counts = (cf.conv3d_flat_cuda.launches, cf.conv3d_flat_wgrad_cuda.launches,
+              fba.fused_bias_act_pixelnorm.launches, cf.conv3d_flat_plain.calls,
+              cf.conv3d_flat_wgrad_plain.calls, fba.bias_act_pixelnorm_plain.calls)
+    main(["pgan", str(tmp_path / "data"), "--start_shape", "(1, 4, 4, 4)",
+          "--final_shape", "(1, 16, 16, 16)", "--starting_phase", "2", "--ending_phase", "2",
+          "--latent_dim", "16", "--filter_spec", str(spec), "--base_batch_size", "4",
+          "--mixing_nimg", "2", "--stabilizing_nimg", "2", "--noise_stddev", "0",
+          "--g_lr", "1e-3", "--d_lr", "1e-3", "--loss_fn", "wgan", "--gp_weight", "10",
+          "--conv_engine", "flat", "--use_pallas_fusion", "--compute_dtype", "bfloat16",
+          "--summary_small_every_nsteps", "2", "--validation_fraction", "0",
+          "--test_fraction", "0", "--logdir", str(tmp_path / "logs")])
+    torch.cuda.synchronize()
+    assert cf.conv3d_flat_cuda.launches > counts[0]
+    assert cf.conv3d_flat_wgrad_cuda.launches > counts[1]
+    assert fba.fused_bias_act_pixelnorm.launches > counts[2]
+    assert (cf.conv3d_flat_plain.calls, cf.conv3d_flat_wgrad_plain.calls,
+            fba.bias_act_pixelnorm_plain.calls) == counts[3:]
+    assert (tmp_path / "logs" / "model_2.npz").is_file()
+    events = [json.loads(line) for line in open(tmp_path / "logs" / "events.jsonl")]
+    losses = [e["value"] for e in events if e["tag"] in ("Loss/d_loss", "Loss/g_loss")]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert len([e for e in events if e["tag"].startswith("Timing/step_ms")]) == 2

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it imports with JAX, optax and the JAX package
-blocked, never names the JAX package in an import, and its entry points refuse to fall
+"""The PyTorch port stands alone: it imports with JAX, optax, ml_dtypes and the JAX
+package blocked, never names the JAX package in an import, and its entry points refuse to fall
 back to the CPU when no GPU is present."""
 
 import pathlib
@@ -18,7 +18,7 @@ PORT = ROOT / "saragan_tpu_torch"
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = {"jax", "jaxlib", "optax", "saragan_tpu"}
+BLOCKED = {"jax", "jaxlib", "optax", "ml_dtypes", "saragan_tpu"}
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -33,15 +33,23 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# the trainer slice's modules, which the hook must reach
+REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
+            "saragan_tpu_torch.train.trainer", "saragan_tpu_torch.data.dataset",
+            "saragan_tpu_torch.optim.schedules", "saragan_tpu_torch.optim.freeze",
+            "saragan_tpu_torch.ops.minibatch_stddev"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the port was imported
+    names = set(out.stdout.split())
+    assert len(names) >= 20  # every module of the port was imported
+    assert REQUIRED <= names, REQUIRED - names
 
 
 _REF_IMPORT = re.compile(
