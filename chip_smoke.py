@@ -8,7 +8,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 1. environment: the card's name and power limit (nvidia-smi), torch and CUDA versions;
    no CUDA device -> exit 1 before anything else;
 2. build: nvcc compiles every CUDA source of the port (one process per source, all
-   started together) and the build time is printed;
+   started together) and the build time is printed, with the registers and spills ptxas
+   reports for each tensor-core kernel;
 3. kernels against their plain PyTorch versions, on the card, at every shape the
    phase-6 batch-8 serving forward gives them (TF32 off):
    - fused bias+lrelu+pixel-norm (Triton): rtol 1e-5, atol 1e-6, pixel norm on and off;
@@ -29,14 +30,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and then `direct`: per half (mixing at alpha 0.5, stabilizing at static alpha 0) one
    warm-up step and 5 timed steps (CUDA events, median) with the peak device memory;
    every loss finite, parameters and EMA moved; under `flat` each step launches the
-   forward, dgrad, wgrad and fused kernels as often as its warm-up step did and no plain
-   version runs; under `direct` no conv kernel runs;
+   forward, dgrad, wgrad and fused kernels as often as its warm-up step did, every conv
+   through the tensor-core route ("tc", bf16) and none through the CUDA-core one ("simt"),
+   and no plain version runs; under `direct` no conv kernel runs;
 6. training kernels against their plain versions, on the card, at every shape that
-   step launched them with, in f32 and bf16 (TF32 off): max|kernel - plain| <= 1e-4
-   (f32) or 1e-2 (bf16) * max|plain|; the wgrad bit-identical across two runs; the fused
-   op's backward equal to autograd of its plain version (rtol 1e-5, f32); each with its
-   time, its plain version's, the library call's (``F.conv3d`` for forward and dgrad,
-   ``aten.convolution_backward`` with only the weight mask for wgrad) and its bound;
+   step launched them with, in f32 (CUDA cores) and bf16 (tensor cores): max|kernel -
+   plain| <= 1e-4 (f32) or 1e-2 (bf16) * max|plain|; forward, dgrad and wgrad
+   bit-identical across two runs; the fused op's backward equal to autograd of its plain
+   version (rtol 1e-5, f32); each with its time, its plain version's, the library call's
+   (``F.conv3d`` for forward and dgrad, ``aten.convolution_backward`` with only the weight
+   mask for wgrad) and its bound, and for bf16 its TFLOP/s and share of the bound;
 7. one f32 step's gradients under `flat` and `direct` from the same state and the same
    pre-drawn z and gamma: losses within 1e-3 relative, every gradient within
    1e-3 * max|g|;
@@ -47,8 +50,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    write model_5.npz and model_6.npz; phase 6 must hold every phase-5 name of model_5.npz
    bit for bit through its frozen mixing half (its cadence checkpoint after that half);
    events.jsonl must hold finite Loss/d_loss, Loss/g_loss and Loss/gp in both phases and
-   a histogram event; kernels #1 (forward and dgrad), #2 and #4 must have run and no
-   plain version.  Prints ms/step per phase and half (CUDA events, median after the
+   a histogram event; kernels #1 (forward and dgrad), #2 and #4 must have run, the convs
+   through the tensor-core route only, and no plain version.  Prints ms/step per phase and half (CUDA events, median after the
    first), img/s and the phase's peak memory;
 9. bitwise resume: the same command in a subprocess with --full_state_checkpoints gets
    a SIGTERM once phase 6 printed its second step line and must exit 75; rerun with
@@ -74,6 +77,7 @@ import io
 import json
 import math
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -284,6 +288,7 @@ def serve_engine(model_path, cfg, engine):
         check(not errors and not any(t.is_alive() for t in threads), f"requests: {errors}")
         launches = {"fused": fba.fused_bias_act_pixelnorm.launches,
                     "conv": cf.conv3d_flat_cuda.launches,
+                    "conv_tc": cf.launches_by_route(cf.conv3d_flat_cuda)["tc"],
                     "plain": fba.bias_act_pixelnorm_plain.calls + cf.conv3d_flat_plain.calls}
         stats = _get(url + "/stats")
         dispatches = stats["batches"] - batches0
@@ -302,6 +307,7 @@ def serve_engine(model_path, cfg, engine):
         check(launches["conv"] == (6 if engine == "flat" else 0) * dispatches,
               f"{launches['conv']} conv launches for {dispatches} dispatches ({engine})")
         check(launches["plain"] == 0, f"{launches['plain']} plain-version calls on the card")
+        check(launches["conv_tc"] == 0, f"f32 serving: {launches['conv_tc']} tensor-core launches")
 
         # the same requests served alone are bit-equal to their coalesced responses
         for num, seed in REQUESTS:
@@ -332,6 +338,14 @@ def serve_engine(model_path, cfg, engine):
         thread.join(timeout=30)
 
 
+def _kernel_label(mangled):
+    """A ptxas entry name shortened to the kernel and its template arguments."""
+    for name in ("conv3d_fwd_tc_kernel", "wgrad_tc_partial_kernel", "wgrad_tc_reduce_kernel"):
+        if name in mangled:
+            return f"{name}<{','.join(re.findall(r'Li(\d+)E', mangled.split(name, 1)[1]))}>"
+    return mangled
+
+
 def zero_counts():
     """Every launch and plain-call count to 0."""
     for fn in (cf.conv3d_flat_cuda, cf.conv3d_flat_wgrad_cuda, cf.conv3d_flat_v2_cuda):
@@ -348,8 +362,12 @@ def read_counts():
     by_role = Counter()
     for (role, *_), n in cf.conv3d_flat_cuda.by_shape.items():
         by_role[role] += n
+    conv_routes = cf.launches_by_route(cf.conv3d_flat_cuda)
+    wgrad_routes = cf.launches_by_route(cf.conv3d_flat_wgrad_cuda)
     return dict(forward=by_role["forward"], dgrad=by_role["dgrad"],
                 wgrad=cf.conv3d_flat_wgrad_cuda.launches,
+                conv_tc=conv_routes["tc"], conv_simt=conv_routes["simt"],
+                wgrad_tc=wgrad_routes["tc"], wgrad_simt=wgrad_routes["simt"],
                 fused=fba.fused_bias_act_pixelnorm.launches,
                 v2=cf.conv3d_flat_v2_cuda.launches,
                 mbstd=mb.minibatch_stddev_stat_triton.launches,
@@ -395,13 +413,19 @@ def train_engine(cfg, engine, state0, opts, real):
         if engine == "flat":
             check(min(warm[k] for k in ("forward", "dgrad", "wgrad", "fused")) > 0,
                   f"train[flat] {half}: a kernel was not launched: {warm}")
+            # bf16: every conv through the tensor-core kernels, none through the CUDA cores
+            check(counts["conv_tc"] == counts["forward"] + counts["dgrad"]
+                  and counts["wgrad_tc"] == counts["wgrad"]
+                  and counts["conv_simt"] == counts["wgrad_simt"] == 0,
+                  f"train[flat] {half}: routes {counts}")
         else:
             check(warm["forward"] == warm["dgrad"] == warm["wgrad"] == 0 and warm["fused"] > 0,
                   f"train[direct] {half}: launches {warm}")
         rows[half] = dict(step_ms=statistics.median(ms), step_ms_all=ms, peak_mib=peak_mib,
                           losses=losses)
-        launches[half] = dict(per_step={k: warm[k] for k in ("forward", "dgrad", "wgrad", "fused")},
-                              total=counts)
+        launches[half] = dict(per_step={k: warm[k] for k in (
+            "forward", "dgrad", "wgrad", "fused", "conv_tc", "conv_simt", "wgrad_tc",
+            "wgrad_simt")}, total=counts)
         print(f"train[{engine}] {half}: {statistics.median(ms):.2f} ms/step (median of "
               f"{TRAIN_STEPS}, CUDA events; all {[round(v, 2) for v in ms]}), peak "
               f"{peak_mib:.0f} MiB, launches per step {launches[half]['per_step']}, "
@@ -421,17 +445,25 @@ def _conv_bound(n, c, f, taps, vox, dtype):
 
 
 def _add(entry, weight, t):
-    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops"):
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops", "t_flop"):
         entry[k] += weight * t[k]
     entry["launches_per_step"] += weight
     entry["max_abs_err"] = max(entry["max_abs_err"], t["err"])
     entry["max_rel_err"] = max(entry["max_rel_err"], t["err"] / max(t["scale"], 1e-30))
 
 
+def _rate_line(t, dtype):
+    if cf.conv_route(dtype) != "tc":
+        return ""
+    return (f", {t['t_flop'] / t['ms'] / 1e9:.1f} TFLOP/s, {100 * t['bound_ms'] / t['ms']:.1f} % "
+            f"of bound")
+
+
 def check_train_convs(conv_shapes, wgrad_shapes, steps, detail):
     """Forward/dgrad and wgrad kernels at every (shape, role) the train step launched, in
-    f32 and bf16.  Returns {(kind, dtype name): summed per-step entry}; each shape's
-    numbers count as often as one step launches it."""
+    f32 (CUDA cores) and bf16 (tensor cores).  Returns {(kind, dtype
+    name): summed per-step entry}; each shape's numbers count as often as one step
+    launches it."""
     g = torch.Generator(device="cuda").manual_seed(2)
     dtypes = (torch.float32, torch.bfloat16)
     limits = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -440,7 +472,7 @@ def check_train_convs(conv_shapes, wgrad_shapes, steps, detail):
     def entry(kind, dtype):
         return entries.setdefault((kind, str(dtype).split(".")[-1]), dict(
             ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
-            max_abs_err=0.0, max_rel_err=0.0, launches_per_step=0.0))
+            t_flop=0.0, max_abs_err=0.0, max_rel_err=0.0, launches_per_step=0.0))
 
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
@@ -453,12 +485,15 @@ def check_train_convs(conv_shapes, wgrad_shapes, steps, detail):
                     w = torch.randn(ws, generator=g, device="cuda") * (2.0 / fan_in) ** 0.5
                     w = w.to(dtype)
                     y = cf.conv3d_flat_cuda(x, w, role)
+                    again = cf.conv3d_flat_cuda(x, w, role)
                     ref = cf.conv3d_flat_plain(x, w)
                     torch.cuda.synchronize()
+                    check(torch.equal(y, again), f"conv {dtype} x{xs} w{ws}: two runs differ")
                     err = (y.float() - ref.float()).abs().max().item()
                     scale = ref.float().abs().max().item()
                     check(err <= limits[dtype] * scale and torch.isfinite(y).all().item(),
                           f"conv {dtype} x{xs} w{ws}: max|err| {err} > {limits[dtype]} * {scale}")
+                    del y, again, ref
                     wt = w.permute(4, 3, 0, 1, 2).contiguous()
                     n, c = xs[:2]
                     b_ms, t_bytes, t_ops = _conv_bound(n, c, ws[-1], ws[0] * ws[1] * ws[2],
@@ -467,14 +502,19 @@ def check_train_convs(conv_shapes, wgrad_shapes, steps, detail):
                              plain_ms=time_ms(lambda: cf.conv3d_flat_plain(x, w), reps=3, warmup=1),
                              library_ms=time_ms(lambda: F.conv3d(x, wt, padding="same"), reps=5,
                                                 warmup=1),
-                             bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops, err=err, scale=scale)
+                             bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops,
+                             t_flop=2 * n * ws[-1] * c * ws[0] * ws[1] * ws[2] * math.prod(xs[2:]),
+                             err=err, scale=scale)
                     timed[key] = t
-                    detail.append(dict(kernel="conv3d_flat", dtype=str(dtype), x=list(xs),
-                                       w=list(ws), **t))
+                    detail.append(dict(kernel="conv3d_flat", route=cf.conv_route(dtype),
+                                       dtype=str(dtype), x=list(xs), w=list(ws),
+                                       tflops=t["t_flop"] / t["ms"] / 1e9,
+                                       share_of_bound=b_ms / t["ms"], **t))
                     print(f"conv {str(dtype)[6:]} x{xs} w{ws}: kernel {t['ms']:.4f} ms, plain "
                           f"{t['plain_ms']:.4f}, F.conv3d {t['library_ms']:.4f}, bound "
                           f"{b_ms:.4f} ({'ops' if t_ops > t_bytes else 'bytes'}), err "
-                          f"{err:.3g} of {scale:.3g}", flush=True)
+                          f"{err:.3g} of {scale:.3g}, bit-identical rerun{_rate_line(t, dtype)}",
+                          flush=True)
                 _add(entry(role, dtype), count / steps, timed[key])
 
         for (xs, dys, k, _), count in sorted(wgrad_shapes.items(), key=str):
@@ -507,14 +547,18 @@ def check_train_convs(conv_shapes, wgrad_shapes, steps, detail):
                          plain_ms=time_ms(lambda: cf.conv3d_flat_wgrad_plain(x, dy, k), reps=3,
                                           warmup=1),
                          library_ms=time_ms(library, reps=5, warmup=1),
-                         bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops, err=err, scale=scale)
-                detail.append(dict(kernel="conv3d_wgrad", dtype=str(dtype), x=list(xs),
-                                   dy=list(dys), kernel_size=list(k),
-                                   library_max_abs_err=lib_err, **t))
+                         bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops,
+                         t_flop=2 * n * dys[1] * c * math.prod(k) * math.prod(xs[2:]),
+                         err=err, scale=scale)
+                detail.append(dict(kernel="conv3d_wgrad", route=cf.conv_route(dtype),
+                                   dtype=str(dtype), x=list(xs), dy=list(dys), kernel_size=list(k),
+                                   library_max_abs_err=lib_err, tflops=t["t_flop"] / t["ms"] / 1e9,
+                                   share_of_bound=b_ms / t["ms"], **t))
                 print(f"wgrad {str(dtype)[6:]} x{xs} dy{dys} k{k}: kernel {t['ms']:.4f} ms, plain "
                       f"{t['plain_ms']:.4f}, convolution_backward {t['library_ms']:.4f}, bound "
                       f"{b_ms:.4f} ({'ops' if t_ops > t_bytes else 'bytes'}), err {err:.3g} of "
-                      f"{scale:.3g} (library {lib_err:.3g}), bit-identical rerun", flush=True)
+                      f"{scale:.3g} (library {lib_err:.3g}), bit-identical rerun"
+                      f"{_rate_line(t, dtype)}", flush=True)
                 _add(entry("wgrad", dtype), count / steps, t)
     return entries
 
@@ -588,6 +632,8 @@ def compare_engines_f32(state0, real):
         check(counts["plain"] == 0, f"f32 step [{engine}]: plain versions ran")
         convs = counts["forward"] + counts["dgrad"] + counts["wgrad"]
         check(convs > 0 if engine == "flat" else convs == 0, f"f32 step [{engine}]: {counts}")
+        check(counts["conv_tc"] == counts["wgrad_tc"] == 0,
+              f"f32 step [{engine}]: tensor-core launches {counts}")
         res[engine] = ({**gg, **dg}, out)
     (ga, oa), (gb, ob) = res["flat"], res["direct"]
     loss_rel = {}
@@ -641,6 +687,9 @@ def run_trainer(data: Path, logdir: Path):
     check(counts["plain"] == 0, f"trainer: {counts['plain']} plain-version calls on the card")
     for k in ("forward", "dgrad", "wgrad", "fused"):
         check(counts[k] > 0, f"trainer: kernel {k} not launched ({counts})")
+    check(counts["conv_simt"] == counts["wgrad_simt"] == 0
+          and counts["conv_tc"] == counts["forward"] + counts["dgrad"]
+          and counts["wgrad_tc"] == counts["wgrad"], f"trainer (bf16): routes {counts}")
     for p in (5, 6):
         check((logdir / f"model_{p}.npz").is_file(), f"trainer: model_{p}.npz not written")
     # phase 6 restored every phase-5 name bit for bit, and its mixing half kept them frozen:
@@ -858,8 +907,17 @@ def main() -> int:
 
     report = _build.build_all()
     print(f"build: {sorted(report) or 'cached libraries'}", flush=True)
+    ptxas = {}
     for name, r in report.items():
-        print(f"  {name}: {r['seconds']:.1f} s\n{r['log'][-2000:]}", flush=True)
+        print(f"  {name}: {r['seconds']:.1f} s", flush=True)
+        if name.endswith("_tc"):  # registers and spills of the tensor-core kernels
+            ptxas[name] = _build.ptxas_report(r["log"])
+            for row in ptxas[name]:
+                print(f"    {_kernel_label(row['function'])}: {row['registers']} registers, "
+                      f"spills {row['spill_stores']} B stored / {row['spill_loads']} B loaded",
+                      flush=True)
+        else:
+            print(r["log"][-2000:], flush=True)
     phase_done("build")
 
     cfg = Config(**BENCH_CFG, starting_phase=PHASE, ending_phase=PHASE).finalize()
@@ -954,13 +1012,13 @@ def main() -> int:
             ("fused_bias_act_pixelnorm[train,bf16,with backward]", "triton",
              "saragan_tpu_torch/ops/fused_bias_act.py", "saragan_tpu/ops/pallas_kernels.py:112",
              train_fused, train_launches["fused"], None, per_step, train_steps),
-            ("conv3d_flat[forward,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
+            ("conv3d_flat[forward,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
              "saragan_tpu/ops/pallas_conv.py:124", train_convs[("forward", "bfloat16")],
              train_launches["forward"], "library_ms", per_step, train_steps),
-            ("conv3d_flat[dgrad,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
+            ("conv3d_flat[dgrad,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
              "saragan_tpu/ops/core.py:386", train_convs[("dgrad", "bfloat16")],
              train_launches["dgrad"], "library_ms", per_step, train_steps),
-            ("conv3d_wgrad[bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad.cu",
+            ("conv3d_wgrad[bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad_tc.cu",
              "saragan_tpu/ops/pallas_conv.py:183", train_convs[("wgrad", "bfloat16")],
              train_launches["wgrad"], "library_ms", per_step, train_steps),
             ("conv3d_flat_v2[f32]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2.cu",
@@ -986,6 +1044,9 @@ def main() -> int:
         for extra in ("backward_ms", "v1_ms", "max_rel_diff_v1"):
             if extra in e:
                 k[extra] = e[extra]
+        if "t_flop" in e:  # the tensor-core rows: the rate
+            k["tflops"] = e["t_flop"] / e["ms"] / 1e9
+            k["share_of_bound"] = e["bound_ms"] / e["ms"]
         kernels.append(k)
     f32_train = {f"{kind}[f32]": {x: e[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "max_abs_err", "launches_per_step")}
@@ -993,7 +1054,7 @@ def main() -> int:
     training = {e: dict(timing=trained[e][0], launches=trained[e][1]) for e in trained}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train,
+        card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train, ptxas=ptxas,
         serving={e: served[e][1] for e in served}, training=training,
         engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume,
         seconds=seconds), indent=1))

@@ -1,18 +1,19 @@
-// SAME, stride-1 3-D convolution forward in f32 or bf16 on CUDA cores, for Hopper (sm_90a).
+// SAME, stride-1 3-D convolution forward in f32 on CUDA cores, for Hopper (sm_90a).
 //
 // Replaces saragan_tpu/ops/pallas_conv.py::conv3d_flat (kernel body _fwd_kernel):
 //   y[n, f, p] = sum_{kz,ky,kx} sum_c w[kz, ky, kx, c, f] * x[n, c, p + (kz, ky, kx) - k//2]
 // with zero padding outside the volume, x in NCDHW, w in (kd, kh, kw, C, F) and f32
-// accumulation.  x, w and y share one element type, f32 or bf16: loads widen to f32 and
-// the store rounds once, as the reference's _fwd_kernel does (pallas_conv.py:121).  With
-// flipped, io-swapped weights the same kernel is the dgrad (ops/conv3d_grad.py).  Only odd kernel sizes: SAME padding is then k//2 on both sides, which is
-// what the reference's flat engine pads (pallas_conv.py:47); for even sizes the flat
-// engine disagrees with SAME, so this entry point refuses them.
+// accumulation.  f32 only (the serving convs and the f32 train step): bf16 goes to the
+// tensor-core kernel conv3d_fwd_tc.cu (ops/conv3d_flat.py routes by dtype).  With
+// flipped, io-swapped weights the same kernel is the dgrad (ops/conv3d_grad.py).  Only
+// odd kernel sizes: SAME padding is then k//2 on both sides, which is what the
+// reference's flat engine pads (pallas_conv.py:47); for even sizes the flat engine
+// disagrees with SAME, so this entry point refuses them.
 //
 // What bounds it: at the phase-6 shapes the convolution does 27*C multiply-adds per
-// output for about 8 bytes of input and output (4 in bf16), so on CUDA cores it is bound
-// by operations, not by device memory.  In bf16 the card's bound is the tensor cores'
-// rate, which this kernel does not use yet.
+// output for about 8 bytes of input and output, so on CUDA cores it is bound by
+// operations, not by device memory.  Tensor cores in f32 would mean TF32, which the port
+// keeps off.
 //
 // Design.  The TPU kernel keeps a whole zero-padded, flattened volume window in VMEM and
 // reads every tap as a lane shift of it.  At 32x128x128 that window needs about 17K
@@ -26,19 +27,13 @@
 //   * each thread keeps VPT consecutive W outputs for FPT output channels in registers
 //     and reuses each input row it reads from shared memory across the KW taps;
 //   * the shared row stride is odd, so the four rows a warp reads fall in distinct banks.
-// Tensor cores (mma / wgmma), TMA and a multi-stage pipeline are later work.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
 
-#include "elem.cuh"
-
 namespace {
-
-using saragan::load_f32;
-using saragan::store_t;
 
 constexpr int TH = 16;   // output rows (H) per block
 constexpr int TW = 32;   // output columns (W) per block
@@ -52,10 +47,10 @@ constexpr size_t MAX_SMEM = 232448;                  // 227 KB usable by one blo
 
 __host__ __device__ constexpr int odd_stride(int width) { return width | 1; }
 
-template <typename T, int KW>
+template <int KW>
 __global__ void __launch_bounds__(THREADS)
-conv3d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  T* __restrict__ y, int C, int D, int H, int W, int KD, int KH,
+conv3d_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  float* __restrict__ y, int C, int D, int H, int W, int KD, int KH,
                   int F, int tiles_h, int tiles_w, int x_tile_floats) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
@@ -91,7 +86,7 @@ conv3d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int f = 0; f < FPT; ++f) acc[v][f] = 0.f;
 
   const size_t plane = static_cast<size_t>(H) * W;
-  const T* xn = x + static_cast<size_t>(n) * C * D * plane;
+  const float* xn = x + static_cast<size_t>(n) * C * D * plane;
   const int x_count = CC * KD * HH * WW;
   const int w_count = K * CC * FT;
 
@@ -108,8 +103,8 @@ conv3d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int gd = d0 + zz - pd, gh = h0 + yy - ph, gw = w0 + xx - pw;
       float v = 0.f;
       if (c < C && gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W)
-        v = load_f32(xn + (static_cast<size_t>(c) * D + gd) * plane +
-                     static_cast<size_t>(gh) * W + gw);
+        v = __ldg(xn + (static_cast<size_t>(c) * D + gd) * plane +
+                  static_cast<size_t>(gh) * W + gw);
       xs[((cc * KD + zz) * HH + yy) * WS + xx] = v;
     }
     // weights as ws[tap][cc][FT], zero past the last channel / filter
@@ -119,7 +114,7 @@ conv3d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int cc = t % CC;
       const int k = t / CC;
       const int c = c0 + cc, f = f0 + ff;
-      ws[i] = (c < C && f < F) ? load_f32(w + (static_cast<size_t>(k) * C + c) * F + f) : 0.f;
+      ws[i] = (c < C && f < F) ? __ldg(w + (static_cast<size_t>(k) * C + c) * F + f) : 0.f;
     }
     __syncthreads();
 
@@ -154,18 +149,18 @@ conv3d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int f = 0; f < FPT; ++f) {
     const int gf = f0 + fg * FPT + f;
     if (gf >= F) continue;
-    T* yrow = y + ((static_cast<size_t>(n) * F + gf) * D + d0) * plane +
+    float* yrow = y + ((static_cast<size_t>(n) * F + gf) * D + d0) * plane +
                   static_cast<size_t>(gh) * W;
 #pragma unroll
     for (int v = 0; v < VPT; ++v) {
       const int gw = w0 + lx + v;
-      if (gw < W) yrow[gw] = store_t<T>(acc[v][f]);
+      if (gw < W) yrow[gw] = acc[v][f];
     }
   }
 }
 
-template <typename T, int KW>
-int launch(const T* x, const T* w, T* y, int n, int c, int d, int h, int wd,
+template <int KW>
+int launch(const float* x, const float* w, float* y, int n, int c, int d, int h, int wd,
            int kd, int kh, int f, cudaStream_t stream) {
   const int tiles_h = (h + TH - 1) / TH;
   const int tiles_w = (wd + TW - 1) / TW;
@@ -178,45 +173,34 @@ int launch(const T* x, const T* w, T* y, int n, int c, int d, int h, int wd,
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv3d_fwd_kernel<T, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        conv3d_fwd_kernel<KW>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>((f + FT - 1) / FT));
-  conv3d_fwd_kernel<T, KW><<<grid, THREADS, smem, stream>>>(x, w, y, c, d, h, wd, kd, kh, f,
-                                                            tiles_h, tiles_w, x_tile);
+  conv3d_fwd_kernel<KW><<<grid, THREADS, smem, stream>>>(x, w, y, c, d, h, wd, kd, kh, f,
+                                                         tiles_h, tiles_w, x_tile);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_kw(const void* x, const void* w, void* y, int n, int c, int d, int h, int wd, int kd,
-                int kh, int kw, int f, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  T* yt = static_cast<T*>(y);
-  switch (kw) {
-    case 1: return launch<T, 1>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
-    case 3: return launch<T, 3>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
-    case 5: return launch<T, 5>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
-    case 7: return launch<T, 7>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// x: (n, c, d, h, wd), w: (kd, kh, kw, c, f), y: (n, f, d, h, wd), all of the element type
-// `dtype` (0 f32, 1 bf16) and contiguous on the device of `stream`.  Returns a cudaError_t
-// (0 when the launch was accepted); the caller checks it.
-extern "C" int saragan_conv3d_fwd(int dtype, const void* x, const void* w, void* y, int n, int c,
-                                  int d, int h, int wd, int kd, int kh, int kw, int f,
-                                  void* stream) {
+// x: (n, c, d, h, wd), w: (kd, kh, kw, c, f), y: (n, f, d, h, wd), f32, contiguous on the
+// device of `stream`.  Returns a cudaError_t (0 when the launch was accepted); the caller
+// checks it.
+extern "C" int saragan_conv3d_fwd(const void* x, const void* w, void* y, int n, int c, int d,
+                                  int h, int wd, int kd, int kh, int kw, int f, void* stream) {
   if (kd % 2 == 0 || kh % 2 == 0 || kw % 2 == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float* xt = static_cast<const float*>(x);
+  const float* wt = static_cast<const float*>(w);
+  float* yt = static_cast<float*>(y);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == saragan::DTYPE_F32)
-    return dispatch_kw<float>(x, w, y, n, c, d, h, wd, kd, kh, kw, f, s);
-  if (dtype == saragan::DTYPE_BF16)
-    return dispatch_kw<__nv_bfloat16>(x, w, y, n, c, d, h, wd, kd, kh, kw, f, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (kw) {
+    case 1: return launch<1>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
+    case 3: return launch<3>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
+    case 5: return launch<5>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
+    case 7: return launch<7>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* saragan_cuda_error_string(int e) {

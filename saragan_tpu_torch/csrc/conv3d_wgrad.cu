@@ -1,16 +1,16 @@
-// Weight gradient of the SAME, stride-1 3-D convolution, f32 or bf16 on CUDA cores, for
-// Hopper (sm_90a).
+// Weight gradient of the SAME, stride-1 3-D convolution, f32 on CUDA cores, for Hopper
+// (sm_90a).
 //
 // Replaces saragan_tpu/ops/pallas_conv.py::conv3d_flat_wgrad (kernel body _wgrad_kernel):
 //   dw[kz, ky, kx, c, f] = sum_{n, p} x[n, c, p + (kz, ky, kx) - k//2] * dy[n, f, p]
 // with zero padding outside the volume, x in NCDHW, dy in NCDHW with F channels, dw in
-// (kd, kh, kw, C, F).  x and dy share one element type, f32 or bf16; products and sums
-// are f32 and dw is rounded once to that type, as the reference's f32 accumulator is cast
-// to x.dtype (pallas_conv.py:218).  Only odd kernel sizes, as in conv3d_fwd.cu.
+// (kd, kh, kw, C, F).  f32 only: bf16 goes to the tensor-core kernel conv3d_wgrad_tc.cu
+// (ops/conv3d_flat.py routes by dtype).  Products and sums are f32, as the reference's
+// f32 accumulator (pallas_conv.py:218).  Only odd kernel sizes, as in conv3d_fwd.cu.
 //
 // What bounds it: the reduction runs over every position of the batch (8.4 M at the
 // phase-6 stacked critic pass) into a small output (27 x 16 x 32), so there are about
-// 2 * K * C * F operations for each (C + F) * 2 or 4 bytes read: operations, not device
+// 2 * K * C * F operations for each (C + F) * 4 bytes read: operations, not device
 // memory, on CUDA cores.
 //
 // Design.  The TPU kernel walks its sequential grid and adds into one VMEM-resident
@@ -24,9 +24,8 @@
 //     keeps the KW x FPT sums of one input channel, one (kz, ky) tap row and FPT output
 //     channels in registers, reuses each x row it reads across the KW taps, and reads dy
 //     as float4 words that the threads of a warp share (one broadcast);
-//   * pass 2: one thread per output adds the chunks' partial sums in chunk order and
-//     rounds the result once.
-// Tensor cores, TMA and pipelining are later work.
+//   * pass 2: one thread per output adds the chunks' partial sums in chunk order.
+// Tensor cores in f32 would mean TF32, which the port keeps off.
 
 #include <cuda_runtime.h>
 
@@ -34,12 +33,7 @@
 #include <climits>
 #include <cstddef>
 
-#include "elem.cuh"
-
 namespace {
-
-using saragan::load_f32;
-using saragan::store_t;
 
 constexpr int TH = 8;                  // positions (H) per tile
 constexpr int TW = 32;                 // positions (W) per tile
@@ -92,9 +86,10 @@ bool make_plan(int n, int c, int d, int h, int wd, int kd, int kh, int kw, int f
   return p->smem <= MAX_SMEM;
 }
 
-template <typename T, int KW>
+template <int KW>
 __global__ void __launch_bounds__(MAX_THREADS)
-wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ ws,
+wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                     float* __restrict__ ws,
                      int C, int D, int H, int W, int KD, int KH, int F, int CT, int tiles_h,
                      int tiles_w, long long tiles, long long per_split, int x_tile) {
   extern __shared__ float4 smem4[];
@@ -142,7 +137,7 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* _
     const int h0 = th * TH, w0 = tw * TW;
 
     __syncthreads();  // every thread is done with the previous tile
-    const T* xn = x + static_cast<size_t>(n) * C * D * plane;
+    const float* xn = x + static_cast<size_t>(n) * C * D * plane;
     for (int i = tid; i < x_count; i += nthreads) {
       const int xx = i % WW;
       int q = i / WW;
@@ -154,12 +149,12 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* _
       const int gd = d0 + zz - pd, gh = h0 + yy - ph, gw = w0 + xx - pw;
       float v = 0.f;
       if (c < C && gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W)
-        v = load_f32(xn + (static_cast<size_t>(c) * D + gd) * plane +
-                     static_cast<size_t>(gh) * W + gw);
+        v = __ldg(xn + (static_cast<size_t>(c) * D + gd) * plane +
+                  static_cast<size_t>(gh) * W + gw);
       xs[((cc * KD + zz) * HH + yy) * WS + xx] = v;
     }
     // dy as ds[ff][yy][xx], zero past the volume and the last output channel
-    const T* dyn = dy + static_cast<size_t>(n) * F * D * plane;
+    const float* dyn = dy + static_cast<size_t>(n) * F * D * plane;
     for (int i = tid; i < d_count; i += nthreads) {
       const int xx = i % TW;
       const int yy = (i / TW) % TH;
@@ -167,8 +162,8 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* _
       const int f = f0 + ff, gh = h0 + yy, gw = w0 + xx;
       float v = 0.f;
       if (f < F && gh < H && gw < W)
-        v = load_f32(dyn + (static_cast<size_t>(f) * D + d0) * plane +
-                     static_cast<size_t>(gh) * W + gw);
+        v = __ldg(dyn + (static_cast<size_t>(f) * D + d0) * plane +
+                  static_cast<size_t>(gh) * W + gw);
       ds[i] = v;
     }
     __syncthreads();
@@ -209,52 +204,36 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* _
   }
 }
 
-template <typename T>
-__global__ void wgrad_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dw,
+__global__ void wgrad_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
                                     long long kcf, long long splits) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= kcf) return;
   float s = 0.f;
   for (long long k = 0; k < splits; ++k) s += ws[k * kcf + i];  // fixed order
-  dw[i] = store_t<T>(s);
+  dw[i] = s;
 }
 
-template <typename T, int KW>
-int launch(const Plan& p, const T* x, const T* dy, T* dw, float* ws, int c, int d, int h,
+template <int KW>
+int launch(const Plan& p, const float* x, const float* dy, float* dw, float* ws, int c, int d, int h,
            int wd, int kd, int kh, int f, cudaStream_t stream) {
   if (p.smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(wgrad_partial_kernel<T, KW>,
+    const cudaError_t e = cudaFuncSetAttribute(wgrad_partial_kernel<KW>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(p.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(static_cast<unsigned>(p.splits), static_cast<unsigned>(p.c_tiles),
                   static_cast<unsigned>(p.f_tiles));
-  wgrad_partial_kernel<T, KW><<<grid, p.threads, p.smem, stream>>>(
+  wgrad_partial_kernel<KW><<<grid, p.threads, p.smem, stream>>>(
       x, dy, ws, c, d, h, wd, kd, kh, f, p.ct, p.tiles_h, p.tiles_w, p.tiles, p.per_split,
       p.x_tile);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = (p.kcf + REDUCE_THREADS - 1) / REDUCE_THREADS;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  wgrad_reduce_kernel<T><<<static_cast<unsigned>(blocks), REDUCE_THREADS, 0, stream>>>(
+  wgrad_reduce_kernel<<<static_cast<unsigned>(blocks), REDUCE_THREADS, 0, stream>>>(
       ws, dw, p.kcf, p.splits);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_kw(const Plan& p, const void* x, const void* dy, void* dw, float* ws, int c,
-                int d, int h, int wd, int kd, int kh, int kw, int f, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
-  T* dwt = static_cast<T*>(dw);
-  switch (kw) {
-    case 1: return launch<T, 1>(p, xt, dyt, dwt, ws, c, d, h, wd, kd, kh, f, s);
-    case 3: return launch<T, 3>(p, xt, dyt, dwt, ws, c, d, h, wd, kd, kh, f, s);
-    case 5: return launch<T, 5>(p, xt, dyt, dwt, ws, c, d, h, wd, kd, kh, f, s);
-    case 7: return launch<T, 7>(p, xt, dyt, dwt, ws, c, d, h, wd, kd, kh, f, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -268,22 +247,27 @@ extern "C" long long saragan_conv3d_wgrad_workspace_floats(int n, int c, int d, 
   return p.splits * p.kcf;
 }
 
-// x: (n, c, d, h, wd), dy: (n, f, d, h, wd), dw: (kd, kh, kw, c, f), all of the element
-// type `dtype` (0 f32, 1 bf16) and contiguous on the device of `stream`; ws: f32 scratch of
-// saragan_conv3d_wgrad_workspace_floats(...) elements.  Returns a cudaError_t (0 when both
-// launches were accepted); the caller checks it.
-extern "C" int saragan_conv3d_wgrad(int dtype, const void* x, const void* dy, void* dw,
-                                    float* ws, long long ws_floats, int n, int c, int d, int h,
-                                    int wd, int kd, int kh, int kw, int f, void* stream) {
+// x: (n, c, d, h, wd), dy: (n, f, d, h, wd), dw: (kd, kh, kw, c, f), f32, contiguous on
+// the device of `stream`; ws: f32 scratch of saragan_conv3d_wgrad_workspace_floats(...)
+// elements.  Returns a cudaError_t (0 when both launches were accepted); the caller checks
+// it.
+extern "C" int saragan_conv3d_wgrad(const void* x, const void* dy, void* dw, float* ws,
+                                    long long ws_floats, int n, int c, int d, int h, int wd,
+                                    int kd, int kh, int kw, int f, void* stream) {
   Plan p;
   if (!make_plan(n, c, d, h, wd, kd, kh, kw, f, &p)) return static_cast<int>(cudaErrorInvalidValue);
   if (ws_floats < p.splits * p.kcf) return static_cast<int>(cudaErrorInvalidValue);
+  const float* xt = static_cast<const float*>(x);
+  const float* dyt = static_cast<const float*>(dy);
+  float* dwt = static_cast<float*>(dw);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == saragan::DTYPE_F32)
-    return dispatch_kw<float>(p, x, dy, dw, ws, c, d, h, wd, kd, kh, kw, f, s);
-  if (dtype == saragan::DTYPE_BF16)
-    return dispatch_kw<__nv_bfloat16>(p, x, dy, dw, ws, c, d, h, wd, kd, kh, kw, f, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (kw) {
+    case 1: return launch<1>(p, xt, dyt, dwt, ws, c, d, h, wd, kd, kh, f, s);
+    case 3: return launch<3>(p, xt, dyt, dwt, ws, c, d, h, wd, kd, kh, f, s);
+    case 5: return launch<5>(p, xt, dyt, dwt, ws, c, d, h, wd, kd, kh, f, s);
+    case 7: return launch<7>(p, xt, dyt, dwt, ws, c, d, h, wd, kd, kh, f, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* saragan_cuda_error_string(int e) {

@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -84,6 +85,28 @@ def build_all() -> Dict[str, dict]:
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return report
+
+
+def ptxas_report(log: str) -> list:
+    """Per kernel entry of an nvcc log built with ``-Xptxas -v``: {"function" (mangled),
+    "registers", "spill_stores", "spill_loads"} (bytes of spills)."""
+    rows, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = dict(function=m.group(1), registers=None, spill_stores=None,
+                           spill_loads=None)
+            rows.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return rows
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,8 +17,10 @@ For each engine (``flat``, ``direct``) and half: the time of each step (CUDA eve
 around it; median), the peak device memory of a step, and a torch.profiler breakdown of
 one more step's device time by kernel group.  The idle share is 1 - that device time /
 the median step time (the profiled step itself runs slower: the profiler adds host work
-to every launch).  Prints JSON lines and writes ``chiprun_out/profile_training.json``;
-needs a CUDA device.
+to every launch).  What holds the card idle is read from the host side: the host time
+to enqueue one step that starts on an idle card (``host_ms``; near the step time, the
+step is bound by the host) and the profiled step's operators by self CPU time.  Prints
+JSON lines and writes ``chiprun_out/profile_training.json``; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import argparse
 import json
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -74,7 +77,14 @@ def run_steps(step, state, real, rng, alpha, n):
     return state, [s.elapsed_time(e) for s, e in events], metrics
 
 
+HOST_STEPS = 10  # steps whose host enqueue time is taken, per half (median)
+
+
 def kernel_group(name: str) -> str:
+    if "conv3d_fwd_tc_kernel" in name:
+        return "conv3d_flat forward+dgrad (tensor cores)"
+    if "wgrad_tc_partial_kernel" in name or "wgrad_tc_reduce_kernel" in name:
+        return "conv3d_wgrad (tensor cores)"
     if "conv3d_fwd_kernel" in name:
         return "conv3d_flat forward+dgrad (CUDA)"
     if "wgrad_partial_kernel" in name or "wgrad_reduce_kernel" in name:
@@ -114,16 +124,32 @@ def profile_one_step(step, state, real, rng, alpha):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     ops = sorted(prof.key_averages(group_by_input_shape=True),
                  key=lambda a: -a.self_device_time_total)[:10]
+    cpu = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:12]
     return state, dict(profiled_step_ms=step_ms, device_ms=device_ms,
                        groups=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                        top_kernels=[[n[:90], ms] for n, ms in top],
                        top_ops=[[a.key, str(a.input_shapes)[:160], a.count,
-                                 a.self_device_time_total / 1e3] for a in ops])
+                                 a.self_device_time_total / 1e3] for a in ops],
+                       top_cpu_ops=[[a.key[:90], a.count, a.self_cpu_time_total / 1e3]
+                                    for a in cpu])
+
+
+def host_enqueue_ms(step, state, real, rng, alpha, n):
+    """Host milliseconds to enqueue each of `n` steps, each started on an idle card (a
+    synchronize before, none inside the timed call)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, real, rng, alpha, 1e-3, 1e-3)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return state, times
 
 
 def measure(cfg, phase, batch, engine, steps, device):
     """Both halves under `engine`: {half: {step_ms, step_ms_all, peak_mib, losses,
-    profile, idle_share}}."""
+    profile, idle_share, host_ms, host_ms_all}}."""
     arch = get_architecture("pgan")
     state, (g_opt, d_opt) = init_train_state(arch, torch.Generator().manual_seed(0),
                                              phase=phase, cfg=cfg, device=device)
@@ -142,6 +168,8 @@ def measure(cfg, phase, batch, engine, steps, device):
                            for m in metrics])
         state, row["profile"] = profile_one_step(step, state, real, rng, alpha)
         row["idle_share"] = max(0.0, 1.0 - row["profile"]["device_ms"] / row["step_ms"])
+        state, row["host_ms_all"] = host_enqueue_ms(step, state, real, rng, alpha, HOST_STEPS)
+        row["host_ms"] = statistics.median(row["host_ms_all"])
         out[half] = row
     return out
 

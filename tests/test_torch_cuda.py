@@ -1,12 +1,16 @@
-"""The port's hand-written kernels against their plain versions on the card (the
-standalone #3 and #5 too), the conv's derivative algebra against cuDNN's double backward,
-one train step under ``flat``, and a two-step CLI trainer run.
+"""The port's hand-written kernels against their plain versions on the card (the bf16
+tensor-core convs, on ragged, misaligned and small shapes, the wgrad's two stagers through
+its 16- and 32-output tiles; the
+standalone #3 and #5 too), the conv's derivative algebra against cuDNN's double backward
+in f32 and bf16, one train step under ``flat``, and a two-step CLI trainer run.
 
 Needs an NVIDIA GPU, nvcc and triton; skipped without them.  This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import math
 
 import pytest
 import torch
@@ -18,7 +22,7 @@ from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.ops import conv3d_flat as cf
 from saragan_tpu_torch.ops import fused_bias_act as fba
 from saragan_tpu_torch.ops import minibatch_stddev as mb
-from saragan_tpu_torch.ops.conv3d_grad import conv3d_c
+from saragan_tpu_torch.ops.conv3d_grad import conv3d_c, flip_swap
 from saragan_tpu_torch.train.step import init_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -139,6 +143,76 @@ def test_conv3d_v2_kernel_matches_plain_and_repeats(cuda, x_shape, w_shape, dtyp
     assert _rel_err(y, cf.conv3d_flat_cuda(x, w)) <= limit
 
 
+# the tensor-core kernels (bf16): C, F from 4 to 256, 4x4, 8x8 and ragged (5, 7, 9) planes,
+# 1x3x3 and 3x3x3 kernels, batch 1 and 16
+TC_CASES = [  # (n, c, f, (d, h, w), kernel)
+    (1, 4, 8, (2, 4, 4), (1, 3, 3)),
+    (16, 8, 4, (1, 4, 4), (1, 3, 3)),
+    (2, 16, 16, (4, 8, 8), (3, 3, 3)),
+    (1, 32, 64, (3, 5, 5), (3, 3, 3)),
+    (2, 64, 32, (2, 7, 7), (3, 3, 3)),
+    (1, 256, 256, (1, 4, 4), (1, 3, 3)),
+    (16, 256, 256, (2, 8, 8), (1, 3, 3)),
+    (1, 16, 256, (3, 9, 9), (3, 3, 3)),
+    (2, 256, 64, (4, 16, 16), (3, 3, 3)),
+    (16, 16, 32, (4, 16, 16), (3, 3, 3)),
+    (16, 16, 16, (8, 32, 32), (3, 3, 3)),    # 256-position boxes, eight warps
+    (8, 8, 32, (7, 40, 37), (3, 3, 3)),      # the same on a ragged volume
+]
+
+
+def _tc_operands(g, n, c, f, spatial, kernel, cuda):
+    x = torch.randn((n, c, *spatial), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((*kernel, c, f), generator=g, device=cuda)
+         * (2.0 / (c * math.prod(kernel))) ** 0.5).bfloat16()
+    dy = torch.randn((n, f, *spatial), generator=g, device=cuda).bfloat16()
+    return x, w, dy
+
+
+def _tc_launches():
+    return (cf.launches_by_route(cf.conv3d_flat_cuda)["tc"],
+            cf.launches_by_route(cf.conv3d_flat_wgrad_cuda)["tc"])
+
+
+@pytest.mark.parametrize("n,c,f,spatial,kernel", TC_CASES)
+def test_tensor_core_kernels_match_plain_and_repeat_bit_for_bit(cuda, n, c, f, spatial, kernel):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x, w, dy = _tc_operands(g, n, c, f, spatial, kernel, cuda)
+    wd = flip_swap(w)
+    routes = _tc_launches()
+    for name, run, plain in (
+            ("forward", lambda: cf.conv3d_flat_cuda(x, w), lambda: cf.conv3d_flat_plain(x, w)),
+            ("dgrad", lambda: cf.conv3d_flat_cuda(dy, wd, "dgrad"),
+             lambda: cf.conv3d_flat_plain(dy, wd)),
+            ("wgrad", lambda: cf.conv3d_flat_wgrad_cuda(x, dy, kernel),
+             lambda: cf.conv3d_flat_wgrad_plain(x, dy, kernel))):
+        out, again = run(), run()
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and torch.isfinite(out).all().item(), name
+        assert torch.equal(out, again), f"{name}: two runs differ"
+        assert _rel_err(out, plain()) <= 1e-2, name
+    assert _tc_launches() == (routes[0] + 4, routes[1] + 2)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+def test_tensor_core_kernels_take_misaligned_views(cuda, offset):
+    """A contiguous view `offset` elements into its storage (as one half of a batch cut
+    with narrow can be): narrower loads, the same result."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    shape, dshape, kernel = (2, 16, 3, 16, 16), (2, 32, 3, 16, 16), (3, 3, 3)
+    xbuf = torch.randn(math.prod(shape) + offset, generator=g, device=cuda).bfloat16()
+    dbuf = torch.randn(math.prod(dshape) + offset, generator=g, device=cuda).bfloat16()
+    x, dy = xbuf[offset:].view(shape), dbuf[offset:].view(dshape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == (2 * offset) % 16
+    w = (torch.randn((*kernel, 16, 32), generator=g, device=cuda) * 0.1).bfloat16()
+    y = cf.conv3d_flat_cuda(x, w)
+    assert _rel_err(y, cf.conv3d_flat_plain(x, w)) <= 1e-2
+    assert torch.equal(y, cf.conv3d_flat_cuda(x.clone(), w))
+    dw = cf.conv3d_flat_wgrad_cuda(x, dy, kernel)
+    assert _rel_err(dw, cf.conv3d_flat_wgrad_plain(x, dy, kernel)) <= 1e-2
+    assert torch.equal(dw, cf.conv3d_flat_wgrad_cuda(x.clone(), dy.clone(), kernel))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 16, 4, 8, 8), (16, 3, 5, 7)])
 def test_minibatch_stddev_kernel_matches_plain_and_repeats(cuda, shape, dtype):
@@ -171,6 +245,29 @@ def test_gp_pattern_through_the_kernels_matches_cudnn_double_backward(cuda):
     assert cf.conv3d_flat_cuda.launches > launches[0]
     assert cf.conv3d_flat_wgrad_cuda.launches > launches[1]
     torch.testing.assert_close(ours, ref, rtol=1e-3, atol=1e-3)
+
+
+def test_gp_pattern_in_bf16_through_the_tensor_cores_matches_cudnn(cuda):
+    """The same pattern in bf16: the penalty's double backward runs the tensor-core
+    forward, dgrad and wgrad with `uw`-shaped weights; cuDNN's bf16 double backward is the
+    yardstick, within 2e-2 of max|ref| (bf16 rounds every intermediate)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(2, 16, 4, 8, 8, generator=g, device=cuda).bfloat16()
+    w0 = (torch.randn(3, 3, 3, 16, 32, generator=g, device=cuda) * 0.05).bfloat16()
+
+    def gp(conv):
+        xt, wt = x.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(torch.tanh(conv(xt, wt)).float().sum(), xt,
+                                    create_graph=True)
+        return torch.autograd.grad(gx.float().square().sum(), wt)[0]
+
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        ref = gp(lambda a, b: F.conv3d(a, b.permute(4, 3, 0, 1, 2), padding="same"))
+        routes = _tc_launches()
+        ours = gp(conv3d_c)
+    assert all(now > before for now, before in zip(_tc_launches(), routes))
+    assert ours.dtype == torch.bfloat16
+    assert _rel_err(ours, ref) <= 2e-2
 
 
 def test_fused_backward_matches_plain_autograd(cuda):
