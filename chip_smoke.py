@@ -9,11 +9,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    no CUDA device -> exit 1 before anything else;
 2. build: nvcc compiles every CUDA source of the port (one process per source, all
    started together) and the build time is printed, with the registers and spills ptxas
-   reports for each tensor-core kernel;
+   reports for each tensor-core kernel and the CUDA-core forward;
 3. kernels against their plain PyTorch versions, on the card, at every shape the
    phase-6 batch-8 serving forward gives them (TF32 off):
    - fused bias+lrelu+pixel-norm (Triton): rtol 1e-5, atol 1e-6, pixel norm on and off;
-   - conv3d forward (CUDA C++): max|kernel - plain| <= 1e-4 * max|plain|;
+   - conv3d forward (CUDA C++, CUDA cores): max|kernel - plain| <= 1e-4 * max|plain|,
+     bit-identical on a rerun, with its plan, TFLOP/s and share of the bound;
    with each kernel's time, its plain version's time, F.conv3d's time (the library
    yardstick; the port's flat engine never calls it) and the least time the card could
    take for the same work;
@@ -32,25 +33,36 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    every loss finite, parameters and EMA moved; under `flat` each step launches the
    forward, dgrad, wgrad and fused kernels as often as its warm-up step did, every conv
    through the tensor-core route ("tc", bf16) and none through the CUDA-core one ("simt"),
-   and no plain version runs; under `direct` no conv kernel runs;
+   and no plain version runs; under `direct` no conv kernel runs; under both the fused
+   op's backward kernel runs once per forward launch (11 per step); under `flat` one
+   more step per half is profiled for its kernel count and the host's launch calls;
 6. training kernels against their plain versions, on the card, at every shape that
    step launched them with, in f32 (CUDA cores) and bf16 (tensor cores): max|kernel -
    plain| <= 1e-4 (f32) or 1e-2 (bf16) * max|plain|; forward, dgrad and wgrad
-   bit-identical across two runs; the fused op's backward equal to autograd of its plain
-   version (rtol 1e-5, f32); each with its time, its plain version's, the library call's
-   (``F.conv3d`` for forward and dgrad, ``aten.convolution_backward`` with only the weight
-   mask for wgrad) and its bound, and for bf16 its TFLOP/s and share of the bound;
+   bit-identical across two runs; each with its time, its plain version's, the library
+   call's (``F.conv3d`` for forward and dgrad, ``aten.convolution_backward`` with only the
+   weight mask for wgrad) and its bound, with its TFLOP/s and share of the bound; the
+   fused op's backward kernel in f32 and bf16 against its plain version and against
+   autograd of the reference's oracle (the backward it replaces): f32 gx within 1e-6 +
+   1e-5 * max(|gx|, |r g| + |a r^3 s / C|) (gx is the difference of those two terms, so
+   its rounding error scales with them), gb within rtol 1e-5 plus 1e-5 * ||gx_c||_2 (a
+   sum of N * S terms: a
+   reordered f32 sum differs by a multiple of that, not of |gb_c|); bf16 within 1e-2 *
+   max|reference|; gx and gb bit-identical on a rerun; its time, its plain version's, the
+   oracle's autograd's, the autograd.Function's backward and the bound;
 7. one f32 step's gradients under `flat` and `direct` from the same state and the same
    pre-drawn z and gamma: losses within 1e-3 relative, every gradient within
    1e-3 * max|g|;
 8. the trainer through its CLI (``cli.main`` in process, the slice's main path): the
    flagship configuration from phase 5 (batch 16) into phase 6 (batch 8), 32 + 32
-   images per phase, `flat`, bf16, the fused op on, on a seeded npy dataset written to a
+   images per phase, no --conv_engine (so `flat`, the card's default: events.jsonl must
+   say so), bf16, the fused op on, on a seeded npy dataset written to a
    temp dir (16 volumes of 16x64x64 and 16 of 32x128x128).  It must exit normally and
    write model_5.npz and model_6.npz; phase 6 must hold every phase-5 name of model_5.npz
    bit for bit through its frozen mixing half (its cadence checkpoint after that half);
    events.jsonl must hold finite Loss/d_loss, Loss/g_loss and Loss/gp in both phases and
-   a histogram event; kernels #1 (forward and dgrad), #2 and #4 must have run, the convs
+   a histogram event; kernels #1 (forward and dgrad), #2 and #4 (and its backward) must
+   have run, the convs
    through the tensor-core route only, and no plain version.  Prints ms/step per phase and half (CUDA events, median after the
    first), img/s and the phase's peak memory;
 9. bitwise resume: the same command in a subprocess with --full_state_checkpoints gets
@@ -102,8 +114,9 @@ from saragan_tpu_torch.ops import fused_bias_act as fba
 from saragan_tpu_torch.ops import minibatch_stddev as mb
 from saragan_tpu_torch.tools.generate import _load_generator_params, make_keyed_sampler
 from saragan_tpu_torch.tools.profile_serving import BENCH_CFG, time_ms
-from saragan_tpu_torch.tools.profile_training import (HALVES, bench_train_config, real_batch,
-                                                       run_steps)
+from saragan_tpu_torch.tools.profile_training import (HALVES, bench_train_config,
+                                                       launch_counts, profile_one_step,
+                                                       real_batch, run_steps)
 from saragan_tpu_torch.tools.serve import GeneratorService, make_server
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train.step import init_train_state, make_grads_fn, make_train_step
@@ -129,7 +142,7 @@ TRAINER_ARGS = [
     "--stabilizing_nimg", "32", "--loss_fn", "wgan", "--gp_weight", "10",
     "--noise_stddev", "0", "--g_lr", "1e-3", "--d_lr", "1e-3", "--adam_beta1", "0",
     "--adam_beta2", "0.9", "--compute_dtype", "bfloat16", "--use_pallas_fusion",
-    "--conv_engine", "flat", "--summary_small_every_nsteps", "16",
+    "--summary_small_every_nsteps", "16",
     "--summary_large_every_nsteps", "32", "--checkpoint_every_nsteps", "32"]
 PHASE6_START = 64  # global image count at which phase 6 begins (32 + 32 at phase 5)
 STANDALONE_3 = "standalone: no path of the JAX package runs it (saragan_tpu/ops/core.py:553)"
@@ -198,19 +211,22 @@ def check_fused(fused_shapes, detail):
 def check_conv(conv_shapes, detail):
     g = torch.Generator(device="cuda").manual_seed(1)
     entry = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0, library_ms=0.0,
-                 max_abs_err=0.0)
+                 t_flop=0.0, max_abs_err=0.0)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
         for xs, ws in conv_shapes:
             x = torch.randn(xs, generator=g, device="cuda")
             w = torch.randn(ws, generator=g, device="cuda") * (2.0 / (ws[3] * ws[0] * ws[1] * ws[2])) ** 0.5
             y = cf.conv3d_flat_cuda(x, w)
+            again = cf.conv3d_flat_cuda(x, w)
             ref = cf.conv3d_flat_plain(x, w)
             torch.cuda.synchronize()
+            check(torch.equal(y, again), f"conv kernel x{xs} w{ws}: two runs differ")
             err = (y - ref).abs().max().item()
             scale = ref.abs().max().item()
             check(err <= 1e-4 * scale and torch.isfinite(y).all().item(),
                   f"conv kernel x{xs} w{ws}: max|err| {err} > 1e-4 * {scale}")
+            plan = cf.conv_simt_plan(xs, ws)
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             wt = w.permute(4, 3, 0, 1, 2).contiguous()
             lib_err = (F.conv3d(x, wt, padding="same") - ref).abs().max().item()
@@ -221,17 +237,22 @@ def check_conv(conv_shapes, detail):
             f = ws[-1]
             vox = x[0, 0].numel()
             taps = ws[0] * ws[1] * ws[2]
-            b_ms, t_bytes, t_ops = bound((n * c * vox + taps * c * f + n * f * vox) * 4,
-                                         2 * n * f * c * taps * vox)
-            detail.append(dict(kernel="conv3d_flat", x=list(xs), w=list(ws), ms=ms,
+            flop = 2 * n * f * c * taps * vox
+            b_ms, t_bytes, t_ops = bound((n * c * vox + taps * c * f + n * f * vox) * 4, flop)
+            plan_s = (f"box {plan.box}, cc {plan.cc}, ft {plan.ft}, tile {plan.vpt}x{plan.fpt}, "
+                      f"{plan.threads} threads")
+            detail.append(dict(kernel="conv3d_flat", route="simt", x=list(xs), w=list(ws), ms=ms,
                                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                               max_abs_err=err, library_max_abs_err=lib_err))
+                               max_abs_err=err, library_max_abs_err=lib_err, plan=plan_s,
+                               tflops=flop / ms / 1e9, share_of_bound=b_ms / ms))
             print(f"conv x{xs} w{ws}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"F.conv3d {library_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({'ops' if t_ops > t_bytes else 'bytes'}), err {err:.3g} of {scale:.3g}",
-                  flush=True)
+                  f"({'ops' if t_ops > t_bytes else 'bytes'}), {flop / ms / 1e9:.1f} TFLOP/s, "
+                  f"{100 * b_ms / ms:.1f} % of bound, err {err:.3g} of {scale:.3g}, "
+                  f"bit-identical rerun; plan {plan_s}", flush=True)
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                         ("bound_ms", b_ms), ("t_bytes", t_bytes), ("t_ops", t_ops)):
+                         ("bound_ms", b_ms), ("t_bytes", t_bytes), ("t_ops", t_ops),
+                         ("t_flop", flop)):
                 entry[k] += v
     return entry
 
@@ -340,7 +361,8 @@ def serve_engine(model_path, cfg, engine):
 
 def _kernel_label(mangled):
     """A ptxas entry name shortened to the kernel and its template arguments."""
-    for name in ("conv3d_fwd_tc_kernel", "wgrad_tc_partial_kernel", "wgrad_tc_reduce_kernel"):
+    for name in ("conv3d_fwd_tc_kernel", "wgrad_tc_partial_kernel", "wgrad_tc_reduce_kernel",
+                 "conv3d_fwd_kernel"):
         if name in mangled:
             return f"{name}<{','.join(re.findall(r'Li(\d+)E', mangled.split(name, 1)[1]))}>"
     return mangled
@@ -352,9 +374,11 @@ def zero_counts():
         fn.launches = 0
         fn.by_shape.clear()
     fba.fused_bias_act_pixelnorm.launches = 0
+    fba.fused_bias_act_pixelnorm_grad.launches = 0
     mb.minibatch_stddev_stat_triton.launches = 0
     for fn in (cf.conv3d_flat_plain, cf.conv3d_flat_wgrad_plain, cf.conv3d_flat_v2_plain,
-               fba.bias_act_pixelnorm_plain, mb.minibatch_stddev_stat_plain):
+               fba.bias_act_pixelnorm_plain, fba.bias_act_pixelnorm_grad_plain,
+               mb.minibatch_stddev_stat_plain):
         fn.calls = 0
 
 
@@ -369,10 +393,12 @@ def read_counts():
                 conv_tc=conv_routes["tc"], conv_simt=conv_routes["simt"],
                 wgrad_tc=wgrad_routes["tc"], wgrad_simt=wgrad_routes["simt"],
                 fused=fba.fused_bias_act_pixelnorm.launches,
+                fused_grad=fba.fused_bias_act_pixelnorm_grad.launches,
                 v2=cf.conv3d_flat_v2_cuda.launches,
                 mbstd=mb.minibatch_stddev_stat_triton.launches,
                 plain=(cf.conv3d_flat_plain.calls + cf.conv3d_flat_wgrad_plain.calls
-                       + fba.bias_act_pixelnorm_plain.calls + cf.conv3d_flat_v2_plain.calls
+                       + fba.bias_act_pixelnorm_plain.calls
+                       + fba.bias_act_pixelnorm_grad_plain.calls + cf.conv3d_flat_v2_plain.calls
                        + mb.minibatch_stddev_stat_plain.calls))
 
 
@@ -401,15 +427,24 @@ def train_engine(cfg, engine, state0, opts, real):
         peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
         conv_shapes.update(cf.conv3d_flat_cuda.by_shape)
         wgrad_shapes.update(cf.conv3d_flat_wgrad_cuda.by_shape)
+        profiled = None
+        if engine == "flat":  # the kernels one more step runs and the host's launch calls
+            state, prof = profile_one_step(step, state, real, rng, alpha)
+            profiled = {k: prof[k] for k in ("kernels", "launch_calls", "device_ms",
+                                             "profiled_step_ms")}
         losses = [[float(m.gen_loss), float(m.disc_loss), float(m.gp_loss)] for m in metrics]
         check(all(math.isfinite(v) for row in losses for v in row),
               f"train[{engine}] {half}: non-finite losses {losses}")
         check(counts["plain"] == 0, f"train[{engine}] {half}: {counts['plain']} plain-version "
                                     f"calls on the card")
-        for k in ("forward", "dgrad", "wgrad", "fused"):
+        for k in ("forward", "dgrad", "wgrad", "fused", "fused_grad"):
             check(counts[k] == TRAIN_STEPS * warm[k],
                   f"train[{engine}] {half}: {counts[k]} {k} launches in {TRAIN_STEPS} steps, "
                   f"{warm[k]} in the warm-up step")
+        # the fused op's backward: one kernel call for each forward launch, 11 per step
+        check(warm["fused_grad"] == warm["fused"] == 11,
+              f"train[{engine}] {half}: fused launches {warm['fused']}, backward "
+              f"{warm['fused_grad']} per step")
         if engine == "flat":
             check(min(warm[k] for k in ("forward", "dgrad", "wgrad", "fused")) > 0,
                   f"train[flat] {half}: a kernel was not launched: {warm}")
@@ -422,14 +457,14 @@ def train_engine(cfg, engine, state0, opts, real):
             check(warm["forward"] == warm["dgrad"] == warm["wgrad"] == 0 and warm["fused"] > 0,
                   f"train[direct] {half}: launches {warm}")
         rows[half] = dict(step_ms=statistics.median(ms), step_ms_all=ms, peak_mib=peak_mib,
-                          losses=losses)
+                          losses=losses, profiled=profiled)
         launches[half] = dict(per_step={k: warm[k] for k in (
-            "forward", "dgrad", "wgrad", "fused", "conv_tc", "conv_simt", "wgrad_tc",
-            "wgrad_simt")}, total=counts)
+            "forward", "dgrad", "wgrad", "fused", "fused_grad", "conv_tc", "conv_simt",
+            "wgrad_tc", "wgrad_simt")}, total=counts)
         print(f"train[{engine}] {half}: {statistics.median(ms):.2f} ms/step (median of "
               f"{TRAIN_STEPS}, CUDA events; all {[round(v, 2) for v in ms]}), peak "
               f"{peak_mib:.0f} MiB, launches per step {launches[half]['per_step']}, "
-              f"losses {losses[-1]}", flush=True)
+              f"losses {losses[-1]}; profiled step {profiled}", flush=True)
     for part in ("g_params", "d_params", "ema"):
         check(_moved(getattr(state, part), getattr(state0, part)),
               f"train[{engine}]: {part} did not move")
@@ -452,9 +487,7 @@ def _add(entry, weight, t):
     entry["max_rel_err"] = max(entry["max_rel_err"], t["err"] / max(t["scale"], 1e-30))
 
 
-def _rate_line(t, dtype):
-    if cf.conv_route(dtype) != "tc":
-        return ""
+def _rate_line(t):
     return (f", {t['t_flop'] / t['ms'] / 1e9:.1f} TFLOP/s, {100 * t['bound_ms'] / t['ms']:.1f} % "
             f"of bound")
 
@@ -513,7 +546,7 @@ def check_train_convs(conv_shapes, wgrad_shapes, steps, detail):
                     print(f"conv {str(dtype)[6:]} x{xs} w{ws}: kernel {t['ms']:.4f} ms, plain "
                           f"{t['plain_ms']:.4f}, F.conv3d {t['library_ms']:.4f}, bound "
                           f"{b_ms:.4f} ({'ops' if t_ops > t_bytes else 'bytes'}), err "
-                          f"{err:.3g} of {scale:.3g}, bit-identical rerun{_rate_line(t, dtype)}",
+                          f"{err:.3g} of {scale:.3g}, bit-identical rerun{_rate_line(t)}",
                           flush=True)
                 _add(entry(role, dtype), count / steps, timed[key])
 
@@ -558,77 +591,171 @@ def check_train_convs(conv_shapes, wgrad_shapes, steps, detail):
                       f"{t['plain_ms']:.4f}, convolution_backward {t['library_ms']:.4f}, bound "
                       f"{b_ms:.4f} ({'ops' if t_ops > t_bytes else 'bytes'}), err {err:.3g} of "
                       f"{scale:.3g} (library {lib_err:.3g}), bit-identical rerun"
-                      f"{_rate_line(t, dtype)}", flush=True)
+                      f"{_rate_line(t)}", flush=True)
                 _add(entry("wgrad", dtype), count / steps, t)
     return entries
 
 
+def _gb_tol(gx):
+    """Per channel: gb sums N * S terms, so two f32 orders of that sum differ by a
+    multiple of eps * ||gx_c||_2, not of |gb_c|: 1e-5 * ||gx_c||_2."""
+    return 1e-5 * gx.double().square().sum([0, *range(2, gx.ndim)]).sqrt()
+
+
+def _gx_terms(x, b, gy):
+    """Per element, |r g| + |a r^3 s / C|, the two terms whose difference is gx (f32): its
+    rounding error scales with them, not with |gx|, which can be near 0 between them."""
+    a = x.float() + b.reshape((1, -1) + (1,) * (x.ndim - 2))
+    a = torch.where(a >= 0, a, 0.2 * a)
+    g = gy.float()
+    r = torch.rsqrt(a.square().mean(dim=1, keepdim=True) + 1e-8)
+    s = (g * a).sum(dim=1, keepdim=True)
+    return (r * g).abs() + (a * r.pow(3) * s / x.shape[1]).abs()
+
+
+def _check_grad(name, gx, gb, ref_gx, ref_gb, dtype, terms):
+    """The backward kernel's (gx, gb) against a reference's; `terms` from ``_gx_terms``.
+    Returns the largest errors (gx, gb)."""
+    ex = (gx.float() - ref_gx.float()).abs()
+    eb = (gb - ref_gb).abs()
+    if dtype == torch.float32:
+        over_x = (ex - (1e-6 + 1e-5 * torch.maximum(ref_gx.abs(), terms))).max().item()
+        over_b = (eb.double() - (1e-5 * ref_gb.abs().double() + _gb_tol(gx))).max().item()
+        check(over_x <= 0 and over_b <= 0,
+              f"{name}: tolerance exceeded by {over_x} (gx) / {over_b} (gb)")
+    else:
+        check(ex.max().item() <= 1e-2 * ref_gx.float().abs().max().item()
+              and eb.max().item() <= 1e-2 * ref_gb.abs().max().item(),
+              f"{name}: max|err| {ex.max().item()} (gx), {eb.max().item()} (gb)")
+    return ex.max().item(), eb.max().item()
+
+
+def count_kernels(fn):
+    """{kernels, launch_calls} of one call of `fn`, by torch.profiler (``launch_counts``).
+    The host idles 20 ms before and after the call inside the trace, so that device events
+    placed a little off the call on the host's clock stay in the trace's window: a bare
+    trace of the backward kernel's sub-millisecond call, late in this script, once showed
+    none of its kernels (its launch calls are host events and cannot fall outside)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.02)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    kernels, launch_calls = launch_counts(prof)
+    return dict(kernels=kernels, launch_calls=launch_calls)
+
+
 def check_train_fused(fused_shapes, detail):
-    """The fused op in bf16 (the train step's dtype) against its plain version, and its
-    autograd.Function's backward against autograd of the plain version in f32."""
+    """The fused op at every shape the train step runs it with: the forward kernel in bf16
+    (the step's dtype) against its plain version; the backward kernel in f32 and bf16
+    against its plain version and against autograd of the reference's oracle (what the
+    backward computed before it had a kernel), gx and gb bit-identical on a rerun.  Times
+    (bf16): both kernels, their plain versions, the oracle's autograd and the
+    autograd.Function's backward.  Returns (forward entry, backward entry), each summed
+    over the step's launches."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    entry = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0, backward_ms=0.0,
-                 plain_backward_ms=0.0, max_abs_err=0.0, backward_max_abs_err=0.0)
+    fwd = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+    bwd = dict(ms=0.0, plain_ms=0.0, oracle_autograd_ms=0.0, function_backward_ms=0.0,
+               bound_ms=0.0, t_bytes=0.0, t_ops=0.0, max_abs_err=0.0, gb_max_abs_err=0.0,
+               kernels_per_call={})
     for shape, count in Counter(fused_shapes).items():
         x32 = torch.randn(shape, generator=g, device="cuda")
         b = torch.randn(shape[1], generator=g, device="cuda")
-        gy = torch.randn(shape, generator=g, device="cuda")
-        x = x32.bfloat16()
+        gy32 = torch.randn(shape, generator=g, device="cuda")
+        x, gy = x32.bfloat16(), gy32.bfloat16()
         y = fba.fused_bias_act_pixelnorm(x, b, 0.2, True)
         ref = fba.bias_act_pixelnorm_plain(x, b, 0.2, True)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs().max().item()
         check(err <= 1e-2 * ref.float().abs().max().item() and torch.isfinite(y).all().item(),
               f"fused bf16 {shape}: max|err| {err}")
-        xg, bg = x32.clone().requires_grad_(True), b.clone().requires_grad_(True)
-        yk = fba.bias_act_pixelnorm(xg, bg)
-        yp = fba.bias_act_pixelnorm_plain(xg, bg, 0.2, True)
-        ours = torch.autograd.grad(yk, (xg, bg), gy, retain_graph=True)
-        theirs = torch.autograd.grad(yp, (xg, bg), gy, retain_graph=True)
-        bwd_err = 0.0
-        for a, r in zip(ours, theirs):
-            excess = ((a - r).abs() - (1e-6 + 1e-5 * r.abs())).max().item()
-            check(excess <= 0, f"fused backward {shape}: tolerance exceeded by {excess}")
-            bwd_err = max(bwd_err, (a - r).abs().max().item())
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+        errs = {}
+        for dtype, xd, gyd in ((torch.float32, x32, gy32), (torch.bfloat16, x, gy)):
+            gx, gb = fba.fused_bias_act_pixelnorm_grad(xd, b, gyd, 0.2, True)
+            gx2, gb2 = fba.fused_bias_act_pixelnorm_grad(xd, b, gyd, 0.2, True)
+            plain = fba.bias_act_pixelnorm_grad_plain(xd, b, gyd, 0.2, True)
+            xa, ba = xd.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            oracle = torch.autograd.grad(fba._oracle(xa, ba, 0.2, True), (xa, ba), gyd)
+            torch.cuda.synchronize()
+            check(torch.equal(gx, gx2) and torch.equal(gb, gb2),
+                  f"fused backward {dtype} {shape}: two runs differ")
+            check(torch.isfinite(gx).all().item() and torch.isfinite(gb).all().item(),
+                  f"fused backward {dtype} {shape}: not finite")
+            terms = _gx_terms(xd, b, gyd)
+            for name, (rgx, rgb) in (("plain", plain), ("oracle autograd", oracle)):
+                errs[(str(dtype)[6:], name)] = _check_grad(
+                    f"fused backward {dtype} {shape} vs {name}", gx, gb, rgx, rgb, dtype, terms)
+            del terms
+            if dtype == torch.bfloat16:
+                bwd["max_abs_err"] = max(bwd["max_abs_err"], errs[("bfloat16", "plain")][0])
+                bwd["gb_max_abs_err"] = max(bwd["gb_max_abs_err"], errs[("bfloat16", "plain")][1])
         xb = x.clone().requires_grad_(True)
         yb = fba.bias_act_pixelnorm(xb, b)
-        gyb = gy.bfloat16()
+        xo, bo = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        yo = fba._oracle(xo, bo, 0.2, True)
+        if not bwd["kernels_per_call"]:
+            # the backward before this kernel (the oracle recomputed, then its autograd)
+            # against this one (its two launches, the gx pass and the gb pass)
+            bwd["kernels_per_call"] = dict(
+                oracle_backward=count_kernels(lambda: torch.autograd.grad(
+                    fba._oracle(xo, bo, 0.2, True), (xo, bo), gy)),
+                kernel=count_kernels(
+                    lambda: fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)))
+            print(f"fused backward kernels per call: {bwd['kernels_per_call']}", flush=True)
+            check(bwd["kernels_per_call"]["kernel"]["launch_calls"] == 2,
+                  f"fused backward: {bwd['kernels_per_call']['kernel']} per call, not 2 launches")
         t = dict(ms=time_ms(lambda: fba.fused_bias_act_pixelnorm(x, b, 0.2, True)),
-                 plain_ms=time_ms(lambda: fba.bias_act_pixelnorm_plain(x, b, 0.2, True)),
-                 backward_ms=time_ms(lambda: torch.autograd.grad(yb, xb, gyb, retain_graph=True)),
-                 plain_backward_ms=time_ms(lambda: torch.autograd.grad(yp, (xg, bg), gy,
-                                                                       retain_graph=True)))
+                 plain_ms=time_ms(lambda: fba.bias_act_pixelnorm_plain(x, b, 0.2, True)))
+        tb = dict(ms=time_ms(lambda: fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)),
+                  plain_ms=time_ms(lambda: fba.bias_act_pixelnorm_grad_plain(x, b, gy, 0.2, True)),
+                  oracle_autograd_ms=time_ms(lambda: torch.autograd.grad(
+                      yo, (xo, bo), gy, retain_graph=True)),
+                  function_backward_ms=time_ms(lambda: torch.autograd.grad(
+                      yb, xb, gy, retain_graph=True)))
         n, c = shape[:2]
         s = math.prod(shape[2:])
-        b_ms, t_bytes, t_ops = bound((2 * n * c * s) * 2 + c * 4, 6 * n * c * s + 2 * n * s,
-                                     BF16_FLOPS)
-        t.update(bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops)
+        t["bound_ms"], t["t_bytes"], t["t_ops"] = bound(
+            (2 * n * c * s) * 2 + c * 4, 6 * n * c * s + 2 * n * s, BF16_FLOPS)
+        # x and gy read, gx written (bf16), b read and gb written (f32); per element about
+        # 14 operations (bias, slope, the two channel sums, ga, gx, the gb sum)
+        tb["bound_ms"], tb["t_bytes"], tb["t_ops"] = bound(
+            (3 * n * c * s) * 2 + 2 * c * 4, 14 * n * c * s, BF16_FLOPS)
         detail.append(dict(kernel="fused_bias_act_pixelnorm", dtype="bfloat16", shape=list(shape),
-                           calls=count, max_abs_err=err, backward_max_abs_err=bwd_err, **t))
+                           calls=count, max_abs_err=err, **t))
+        detail.append(dict(kernel="fused_bias_act_pixelnorm_grad", shape=list(shape),
+                           calls=count, errors={f"{k[0]} vs {k[1]}": v for k, v in errs.items()},
+                           **tb))
         print(f"fused bf16 {shape} x{count}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
-              f"backward {t['backward_ms']:.4f} (plain autograd f32 {t['plain_backward_ms']:.4f}), "
-              f"bound {b_ms:.4f}, err {err:.3g}, backward err {bwd_err:.3g}", flush=True)
-        for k, v in t.items():
-            entry[k] += count * v
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry["backward_max_abs_err"] = max(entry["backward_max_abs_err"], bwd_err)
-    return entry
+              f"bound {t['bound_ms']:.4f}, err {err:.3g}; backward kernel {tb['ms']:.4f} ms, "
+              f"plain {tb['plain_ms']:.4f}, oracle autograd {tb['oracle_autograd_ms']:.4f}, "
+              f"Function backward {tb['function_backward_ms']:.4f}, bound {tb['bound_ms']:.4f}, "
+              f"max|err| (gx, gb) {errs}, bit-identical rerun", flush=True)
+        for entry, times in ((fwd, t), (bwd, tb)):
+            for k, v in times.items():
+                entry[k] += count * v
+    return fwd, bwd
 
 
 def compare_engines_f32(state0, real):
     """One f32 gradient computation of the step under each engine, from one state and
-    one set of pre-drawn z and gamma."""
+    one set of pre-drawn z and gamma; `flat` runs the CUDA-core convs.  Returns the
+    agreement and the `flat` run's launches."""
     cfg = bench_train_config(PHASE, BATCH, compute_dtype="float32")
     arch = get_architecture("pgan")
     draws = losses.draw_inputs(torch.Generator(device="cuda").manual_seed(4), BATCH,
                                cfg.latent_dim, real.shape[1:], torch.float32, "cuda")
-    res = {}
+    res, launches = {}, {}
     for engine in ("flat", "direct"):
+        # a main path of the f32 kernels: counts set to 0 just before, read just after
         zero_counts()
         grads_fn = make_grads_fn(arch, cfg, PHASE, static_alpha=None, conv_engine=engine)
         (gg, dg), out = grads_fn(state0.g_params, state0.d_params, real, draws, 0.5)
         torch.cuda.synchronize()
         counts = read_counts()
+        launches[engine] = counts
         check(counts["plain"] == 0, f"f32 step [{engine}]: plain versions ran")
         convs = counts["forward"] + counts["dgrad"] + counts["wgrad"]
         check(convs > 0 if engine == "flat" else convs == 0, f"f32 step [{engine}]: {counts}")
@@ -650,7 +777,11 @@ def compare_engines_f32(state0, real):
             worst = max(worst, (err / scale, k))
     print(f"f32 step flat vs direct: loss rel diffs {loss_rel}, worst gradient "
           f"max|diff|/max|g| {worst[0]:.3g} ({worst[1]}) over {len(gb)} tensors", flush=True)
-    return dict(loss_rel=loss_rel, worst_grad_rel=worst[0], worst_grad=worst[1])
+    check(launches["flat"]["conv_simt"] == launches["flat"]["forward"] + launches["flat"]["dgrad"]
+          and launches["flat"]["fused_grad"] == launches["flat"]["fused"] > 0,
+          f"f32 step [flat]: launches {launches['flat']}")
+    return dict(loss_rel=loss_rel, worst_grad_rel=worst[0], worst_grad=worst[1],
+                flat_launches=launches["flat"])
 
 
 def write_dataset(root: Path):
@@ -685,7 +816,7 @@ def run_trainer(data: Path, logdir: Path):
     wall_s = time.perf_counter() - t0
     counts = read_counts()
     check(counts["plain"] == 0, f"trainer: {counts['plain']} plain-version calls on the card")
-    for k in ("forward", "dgrad", "wgrad", "fused"):
+    for k in ("forward", "dgrad", "wgrad", "fused", "fused_grad"):
         check(counts[k] > 0, f"trainer: kernel {k} not launched ({counts})")
     check(counts["conv_simt"] == counts["wgrad_simt"] == 0
           and counts["conv_tc"] == counts["forward"] + counts["dgrad"]
@@ -704,7 +835,9 @@ def run_trainer(data: Path, logdir: Path):
           "trainer: phase 6 did not keep model_5's weights through the frozen mixing half")
 
     events = _events(logdir)
-    report = dict(wall_s=wall_s, launches=counts, phases={})
+    engines = [e["text"] for e in events if e["tag"] == "config/conv_engine"]
+    check(engines == ["flat"], f"trainer without --conv_engine on the card: engine {engines}")
+    report = dict(wall_s=wall_s, launches=counts, conv_engine=engines[0], phases={})
     for phase, lo, hi in ((5, 0, PHASE6_START), (6, PHASE6_START, 10 ** 9)):
         ev = [e for e in events if lo <= e["step"] < hi]
         for tag in ("Loss/d_loss", "Loss/g_loss", "Loss/gp"):
@@ -910,7 +1043,7 @@ def main() -> int:
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.1f} s", flush=True)
-        if name.endswith("_tc"):  # registers and spills of the tensor-core kernels
+        if name.endswith("_tc") or name == "conv3d_fwd":  # registers and spills
             ptxas[name] = _build.ptxas_report(r["log"])
             for row in ptxas[name]:
                 print(f"    {_kernel_label(row['function'])}: {row['registers']} registers, "
@@ -952,7 +1085,7 @@ def main() -> int:
     conv_shapes, wgrad_shapes = trained["flat"][2]
     train_steps = TRAIN_STEPS * 2  # both halves
     train_convs = check_train_convs(conv_shapes, wgrad_shapes, train_steps, detail)
-    train_fused = check_train_fused(fused_shapes, detail)
+    train_fused, train_fused_grad = check_train_fused(fused_shapes, detail)
     phase_done("training kernels")
     engines_f32 = compare_engines_f32(state0, real)
     del state0, real
@@ -990,11 +1123,19 @@ def main() -> int:
     dispatches = served["flat"][1]["dispatches"]
     flat_runs = trained["flat"][1]
     train_launches = {k: sum(flat_runs[h]["total"][k] for h in flat_runs)
-                      for k in ("forward", "dgrad", "wgrad", "fused")}
+                      for k in ("forward", "dgrad", "wgrad", "fused", "fused_grad")}
     per = (f"one phase-6 batch-8 f32 serving forward (sum over its launches); launches "
            f"counted over {dispatches} dispatches")
     per_step = (f"one phase-6 batch-8 bf16 train step under flat (sum over its launches); "
                 f"launches counted over {train_steps} steps")
+    per_f32 = ("one phase-6 batch-8 f32 gradient computation of the train step under flat "
+               "(forward and dgrad, sum over their launches at the bf16 step's per-step "
+               "counts); launches counted over that one computation (phase 7)")
+    fwd32, dgrad32 = train_convs[("forward", "float32")], train_convs[("dgrad", "float32")]
+    conv32 = {k: fwd32[k] + dgrad32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "t_bytes", "t_ops", "t_flop")}
+    conv32["max_abs_err"] = max(fwd32["max_abs_err"], dgrad32["max_abs_err"])
+    f32_launches = engines_f32["flat_launches"]
     per_v2 = (f"{STANDALONE_3}; ms per phase-6 batch-8 f32 serving forward / bf16 train step "
               f"(sum over the shapes kernel #1 runs at); launches of this entry's own standalone "
               f"check, its timing repeats included")
@@ -1009,9 +1150,15 @@ def main() -> int:
             ("conv3d_flat", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
              "saragan_tpu/ops/pallas_conv.py:124", conv, main_launches["conv"], "library_ms", per,
              dispatches),
-            ("fused_bias_act_pixelnorm[train,bf16,with backward]", "triton",
+            ("fused_bias_act_pixelnorm[train,bf16]", "triton",
              "saragan_tpu_torch/ops/fused_bias_act.py", "saragan_tpu/ops/pallas_kernels.py:112",
              train_fused, train_launches["fused"], None, per_step, train_steps),
+            ("fused_bias_act_pixelnorm_grad[train,bf16]", "triton",
+             "saragan_tpu_torch/ops/fused_bias_act.py", "saragan_tpu/ops/pallas_kernels.py:123",
+             train_fused_grad, train_launches["fused_grad"], None, per_step, train_steps),
+            ("conv3d_flat[forward+dgrad,f32,train]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
+             "saragan_tpu/ops/pallas_conv.py:124", conv32,
+             f32_launches["forward"] + f32_launches["dgrad"], "library_ms", per_f32, 1),
             ("conv3d_flat[forward,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
              "saragan_tpu/ops/pallas_conv.py:124", train_convs[("forward", "bfloat16")],
              train_launches["forward"], "library_ms", per_step, train_steps),
@@ -1041,10 +1188,11 @@ def main() -> int:
                  library_ms=e[library] if library else None, per=per_what)
         if unit:
             k["launches_per_unit"] = launches / unit
-        for extra in ("backward_ms", "v1_ms", "max_rel_diff_v1"):
+        for extra in ("v1_ms", "max_rel_diff_v1", "oracle_autograd_ms", "function_backward_ms",
+                      "gb_max_abs_err", "kernels_per_call"):
             if extra in e:
                 k[extra] = e[extra]
-        if "t_flop" in e:  # the tensor-core rows: the rate
+        if "t_flop" in e:  # the conv rows: the rate
             k["tflops"] = e["t_flop"] / e["ms"] / 1e9
             k["share_of_bound"] = e["bound_ms"] / e["ms"]
         kernels.append(k)

@@ -4,8 +4,9 @@ limited to the fields the port has):
     python -m saragan_tpu_torch <architecture> <dataset_path> --start_shape ... --flags
 
 The flag names, defaults and None-able types are the reference's.  Added:
-``--conv_engine {direct,flat}`` (cuDNN, or the hand-written kernels) and ``--device``
-(CUDA unless named; ``--device cpu`` trains on the CPU).  ``main`` builds the
+``--conv_engine {direct,flat}`` (cuDNN, or the hand-written kernels; without it the
+trainer takes ``flat`` on a CUDA device and ``direct`` on the CPU) and ``--device`` (CUDA
+unless named; ``--device cpu`` trains on the CPU).  ``main`` builds the
 ``Trainer`` and runs it, as the reference's harness does without HPO; on a SIGTERM or
 SIGINT it prints the resume hint and exits 75.  Flags of options the port does not run
 yet (``--optuna_ntrials``, ``--calc_metrics``, ``--profile_dir``, ``--horovod``,
@@ -162,9 +163,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "float32", "float16", "bfloat16"],
                    help="host->device batch dtype; auto = bfloat16 under bfloat16 compute")
     p.add_argument("--profile_dir", default=None, type=str, help="not ported")
-    p.add_argument("--conv_engine", default="direct", choices=["direct", "flat"],
+    p.add_argument("--conv_engine", default="unset", choices=["direct", "flat"],
                    help="every 3-D conv through cuDNN (direct) or the hand-written "
-                        "kernels (flat)")
+                        "kernels (flat); unset: flat on a CUDA device, direct on the CPU")
     p.add_argument("--device", default=None, type=str,
                    help="torch device; CUDA unless named (e.g. 'cpu')")
     return p

@@ -5,7 +5,9 @@ The port keeps its own copy of ``saragan_tpu/config.py``'s ``Config`` (same fiel
 names, defaults and derived properties), trimmed to what the port runs.  There is no
 ``apply_runtime_opts``: the conv engine is the explicit field ``conv_engine`` ("direct",
 cuDNN, the reference's choice off the TPU; or "flat", the hand-written kernels), handed
-down to every conv, never a process-wide gate.  Fields of options the port does not run
+down to every conv, never a process-wide gate.  Left "unset", the trainer resolves it
+for its device (``resolve_conv_engine``), as the reference's ``apply_runtime_opts`` picks
+an engine by backend.  Fields of options the port does not run
 yet (``remat``, ``remat_offload``, ``gradient_accumulation > 1``, ``use_spectral_norm``,
 other optimizers than Adam, ``calc_metrics``, ``profile_dir``, ``horovod``,
 ``single_chip_big_volume``, the ImageNet dataset) are kept so a configuration reads the
@@ -19,6 +21,23 @@ import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
+
+from saragan_tpu_torch.ops import core
+
+# the engines a Config may name: the convs' own, or "unset" for the trainer to resolve
+CONV_ENGINES = ("unset", *core.CONV_ENGINES)
+
+
+def resolve_conv_engine(engine: str, device_type: str) -> str:
+    """The trainer's conv engine on a device of `device_type` ("cuda", "cpu", ...): an
+    explicit "direct" or "flat" as given; "unset" as the reference's
+    ``apply_runtime_opts`` picks one for training (``saragan_tpu/config.py:500-512``), the
+    engine measured fastest on the device: "flat" (the hand-written kernels) on a CUDA
+    device, "direct" elsewhere.  The samplers and serving do not ask: they keep "direct",
+    as the reference's do (``inference=True``)."""
+    if engine != "unset":
+        return engine
+    return "flat" if device_type == "cuda" else "direct"
 
 
 def parse_tuple(value) -> Tuple[int, ...]:
@@ -142,8 +161,9 @@ class Config:
     keep_checkpoints: int = 0  # newest N cadence checkpoints per phase (0 = all)
     abort_on_nonfinite: bool = False  # raise TrainingDiverged on a non-finite summary loss
     single_chip_big_volume: bool = False  # needs remat_offload: not ported
-    # "direct" (cuDNN) or "flat" (the hand-written kernels), the explicit SARAGAN_CONV3D
-    conv_engine: str = "direct"
+    # "direct" (cuDNN) or "flat" (the hand-written kernels), the explicit SARAGAN_CONV3D;
+    # "unset": the trainer picks one for its device (resolve_conv_engine)
+    conv_engine: str = "unset"
 
     @property
     def start_shape_t(self) -> Tuple[int, ...]:
@@ -214,8 +234,8 @@ class Config:
             c.d_lr_rise_niter = c.mixing_nimg // 2
         if c.d_lr_decay_niter is None:
             c.d_lr_decay_niter = c.stabilizing_nimg // 2
-        if c.conv_engine not in ("direct", "flat"):
-            raise ValueError(f"conv_engine must be 'direct' or 'flat'; got {c.conv_engine!r}")
+        if c.conv_engine not in CONV_ENGINES:
+            raise ValueError(f"conv_engine must be one of {CONV_ENGINES}; got {c.conv_engine!r}")
         if c.single_chip_big_volume:
             raise NotImplementedError("single_chip_big_volume needs remat_offload, which is "
                                       "not ported yet (ROADMAP queue 1 item 10)")

@@ -12,8 +12,9 @@ Replaces the ``pallas`` conv engine of the reference, ``saragan_tpu/ops/pallas_c
   ``wgrad_tc_plan``), so the CPU tests reach them; the C side re-checks a plan and refuses
   one it cannot run;
 * f32 (serving, the f32 train step) stays on the CUDA-core kernels, route ``"simt"``:
-  ``csrc/conv3d_fwd.cu`` and ``csrc/conv3d_wgrad.cu``.  Tensor cores in f32 would mean
-  TF32, which the port keeps off on purpose.
+  ``csrc/conv3d_fwd.cu`` (its plan, ``conv_simt_plan``, is Python too) and
+  ``csrc/conv3d_wgrad.cu``.  Tensor cores in f32 would mean TF32, which the port keeps
+  off on purpose.
 
 v2 is standalone, as in the reference, where no conv engine reaches it
 (``saragan_tpu/ops/core.py:553``); the port's engines use kernels #1 and #2.  Each source
@@ -194,28 +195,35 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def tc_box(d: int, h: int, w: int, kernel, max_positions: int = 256) -> Tuple[int, int, int]:
-    """The (BD, BH, BW) box of positions one tensor-core block stages: `max_positions`
-    (256 or 128) where the sample's volume rounded up to powers of two holds them, else
-    128, or 16 where it holds no more than 16.  Powers of two; the shape whose halo'd rows
-    touch the fewest 32-byte sectors of device memory (plus the box's own positions) per
-    position that lies in the volume, then the fewest staged rows, then the widest W."""
+def _best_box(d: int, h: int, w: int, kernel, positions: int, per_sector: int,
+              min_bw: int = 1) -> Tuple[int, int, int]:
+    """The (BD, BH, BW) box of `positions` outputs (powers of two, BW >= `min_bw`) whose
+    halo'd rows touch the fewest 32-byte sectors of device memory (`per_sector` elements
+    each; plus the box's own positions) per position that lies in the volume, then the
+    fewest staged elements, then the widest W."""
     kd, kh, kw = kernel
-    room = _pow2_ceil(d) * _pow2_ceil(h) * _pow2_ceil(w)
-    positions = 16 if room <= 16 else max_positions if room >= max_positions else 128
     best = None
-    for lw in range(positions.bit_length()):
+    for lw in range(min_bw.bit_length() - 1, positions.bit_length()):
         for lh in range(positions.bit_length() - lw):
             bw, bh = 1 << lw, 1 << lh
             bd = positions // (bw * bh)
             useful = min(bd, d) * min(bh, h) * min(bw, w)
             rows = (bd + kd - 1) * (bh + kh - 1)
-            # 16 bf16 per sector; +1 for a row that does not start on a sector
-            sectors = -(-2 * (bw + kw - 1) // 32) + 1
-            key = ((rows * sectors * 16 + positions) / useful, rows * (bw + kw - 1), -bw)
+            # +1 for a row that does not start on a sector
+            sectors = -(-(bw + kw - 1) // per_sector) + 1
+            key = ((rows * sectors * per_sector + positions) / useful, rows * (bw + kw - 1), -bw)
             if best is None or key < best[0]:
                 best = (key, (bd, bh, bw))
     return best[1]
+
+
+def tc_box(d: int, h: int, w: int, kernel, max_positions: int = 256) -> Tuple[int, int, int]:
+    """The box of positions one tensor-core block stages (``_best_box``, 16 bf16 per
+    sector): `max_positions` (256 or 128) where the sample's volume rounded up to powers of
+    two holds them, else 128, or 16 where it holds no more than 16."""
+    room = _pow2_ceil(d) * _pow2_ceil(h) * _pow2_ceil(w)
+    positions = 16 if room <= 16 else max_positions if room >= max_positions else 128
+    return _best_box(d, h, w, kernel, positions, 16)
 
 
 def _boxes(spatial, box) -> Tuple[int, int, int]:
@@ -386,6 +394,88 @@ def _wgrad_tc_plan(x_shape, f, kernel, x_align, dy_align) -> WgradTcPlan:
                        ws_floats=splits * kcf)
 
 
+# --- tiling plan of the CUDA-core forward kernel (csrc/conv3d_fwd.cu) ---
+
+# register tiles (outputs along W, output channels per thread), widest first, each with the
+# least outputs (positions x F) a sample must have to take it: narrower tiles on smaller
+# volumes, so that a batch still runs warps enough to hide latency
+SIMT_TILES = {(8, 8): 1 << 19, (4, 4): 1 << 17, (4, 2): 1 << 14, (4, 1): 0}
+SIMT_THREADS = {8: 256, 4: 128}  # most threads per block, by tile width
+SIMT_BLOCKS_PER_SM = {8: 2, 4: 4}  # what the plan's shared memory leaves room for
+SIMT_MAX_FT = 32                 # most output channels per block
+
+
+def _simt_tile(outputs: int, w: int) -> Tuple[int, int]:
+    """The widest register tile a sample of `outputs` outputs and width `w` takes (8 x 8
+    only where W >= 8)."""
+    for (vpt, fpt), least in SIMT_TILES.items():
+        if outputs >= least and w >= vpt:
+            return vpt, fpt
+    return 4, 1
+
+
+def simt_box(d: int, h: int, w: int, kernel, positions: int, vpt: int) -> Tuple[int, int, int]:
+    """The box of `positions` outputs one CUDA-core block owns (``_best_box``, 8 floats
+    per sector), BW a multiple of `vpt`."""
+    return _best_box(d, h, w, kernel, positions, 8, vpt)
+
+
+@dataclass(frozen=True)
+class ConvSimtPlan:
+    """How ``csrc/conv3d_fwd.cu`` runs one f32 conv: a block per (sample, box, f tile)."""
+    box: Tuple[int, int, int]    # output positions per block (BD, BH, BW)
+    boxes: Tuple[int, int, int]  # boxes along D, H, W (per sample)
+    cc: int        # input channels per staged chunk
+    chunks: int
+    ft: int        # output channels per block
+    f_tiles: int
+    vpt: int       # consecutive W outputs per thread
+    fpt: int       # output channels per thread
+    threads: int
+    vw: int        # weight copy: 4 (16-byte cp.async) or 1
+    smem: int      # shared bytes per block: two stages of x box and weights, the row table
+
+
+def conv_simt_plan(x_shape, w_shape, w_align: int = 16) -> ConvSimtPlan:
+    """The CUDA-core forward kernel's plan for x (N,C,D,H,W) and w (kd,kh,kw,C,F);
+    `w_align` is the weights' address alignment in bytes.  A function of one sample's
+    shape: the batch size never enters it (nor does any sum order, which is fixed:
+    channel by channel, tap by tap).  The register tile by a sample's outputs
+    (``SIMT_TILES``); the box fitted to the volume; the largest channel chunk whose two
+    stages leave room for ``SIMT_BLOCKS_PER_SM`` blocks.  Cached: the wrapper asks for
+    every launch."""
+    return _conv_simt_plan(tuple(int(v) for v in x_shape[1:]), tuple(int(v) for v in w_shape),
+                           int(w_align))
+
+
+@functools.lru_cache(maxsize=4096)
+def _conv_simt_plan(sample_shape, w_shape, w_align) -> ConvSimtPlan:
+    c, d, h, wd = sample_shape
+    kd, kh, kw, _, f = w_shape
+    kernel = (kd, kh, kw)
+    taps = kd * kh * kw
+    vpt, fpt = _simt_tile(d * h * wd * f, wd)
+    ft = max(4, fpt, min(_pow2_ceil(f), SIMT_MAX_FT))
+    room = _pow2_ceil(d) * _pow2_ceil(h) * max(_pow2_ceil(wd), vpt)
+    positions = min(SIMT_THREADS[vpt] // (ft // fpt) * vpt, room)
+    box = simt_box(d, h, wd, kernel, positions, vpt)
+    sd, sh, rs = box[0] + kd - 1, box[1] + kh - 1, (box[2] + kw - 1) | 1
+    budget = MAX_SMEM // SIMT_BLOCKS_PER_SM[vpt] - 1024
+    cc = _pow2_ceil(c)
+    while True:  # two stages and the row table (csrc/conv3d_fwd.cu: Geo)
+        smem = 2 * (_round_up(cc * sd * sh * rs, 4) + taps * cc * ft) * 4 + cc * sd * sh * 8
+        if smem <= budget or cc == 1:
+            break
+        cc //= 2
+    if smem > MAX_SMEM:
+        raise ValueError(f"conv3d_fwd has no tiling that fits shared memory for x "
+                         f"{sample_shape}, w {tuple(w_shape)}")
+    vw = 4 if f % 4 == 0 and w_align % 16 == 0 else 1
+    return ConvSimtPlan(box=box, boxes=_boxes((d, h, wd), box), cc=cc, chunks=-(-c // cc),
+                        ft=ft, f_tiles=-(-f // ft), vpt=vpt, fpt=fpt,
+                        threads=(math.prod(box) // vpt) * (ft // fpt), vw=vw, smem=smem)
+
+
 def conv_route(dtype: torch.dtype) -> str:
     """Which kernels serve a dtype: "tc" (tensor cores) for bf16, "simt" (CUDA cores)
     for f32."""
@@ -428,9 +518,11 @@ def conv3d_flat_cuda(x: torch.Tensor, w: torch.Tensor, role: str = "forward") ->
     else:
         if kw not in _SUPPORTED_KW:
             raise ValueError(f"kernel width {kw} not in {_SUPPORTED_KW}")
+        p = conv_simt_plan(x.shape, w.shape, _alignment(w.data_ptr()))
         lib = _fwd_library()
         err = lib.saragan_conv3d_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, c, d, h, wd,
-                                     kd, kh, kw, f, _stream(x))
+                                     kd, kh, kw, f, *p.box, p.cc, p.ft, p.vpt, p.fpt, p.vw,
+                                     p.smem, _stream(x))
     _raise_on_error(lib, err, f"conv3d_fwd ({route}) launch for x {tuple(x.shape)}, "
                               f"w {tuple(w.shape)}")
     conv3d_flat_cuda.launches += 1
@@ -516,7 +608,8 @@ conv3d_flat_wgrad_cuda.by_shape = Counter()  # (x shape, dy shape, kernel, dtype
 def _fwd_library() -> ctypes.CDLL:
     lib = _build.load_library("conv3d_fwd")
     fn = lib.saragan_conv3d_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.saragan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.saragan_cuda_error_string.restype = ctypes.c_char_p

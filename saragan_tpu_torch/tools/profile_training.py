@@ -15,7 +15,8 @@ The step is driven as ``bench.py:122-164`` (``measure_step``) drives it:
 
 For each engine (``flat``, ``direct``) and half: the time of each step (CUDA events
 around it; median), the peak device memory of a step, and a torch.profiler breakdown of
-one more step's device time by kernel group.  The idle share is 1 - that device time /
+one more step's device time by kernel group, with its kernel count and the host's launch
+calls.  The idle share is 1 - that device time /
 the median step time (the profiled step itself runs slower: the profiler adds host work
 to every launch).  What holds the card idle is read from the host side: the host time
 to enqueue one step that starts on an idle card (``host_ms``; near the step time, the
@@ -91,6 +92,8 @@ def kernel_group(name: str) -> str:
         return "conv3d_wgrad (CUDA)"
     if name == "fused_kernel":
         return "fused_bias_act_pixelnorm (Triton)"
+    if name in ("fused_grad_kernel", "fused_grad_bias_kernel"):
+        return "fused_bias_act_pixelnorm backward (Triton)"
     if any(t in name for t in ("xmma", "cudnn", "implicit_gemm", "conv", "dgrad", "fprop",
                                "wgrad")):
         return "cuDNN convolutions"
@@ -99,6 +102,18 @@ def kernel_group(name: str) -> str:
     if "reduce" in name.lower():
         return "reductions"
     return "elementwise and other"
+
+
+def launch_counts(prof) -> tuple:
+    """(kernels, launch_calls) of a torch.profiler trace: the kernels it saw run on the
+    card (PyTorch's, the library's and Triton's alike; copies and fills excluded), and
+    the host's launch calls (the runtime's cudaLaunchKernel, Triton's cuLaunchKernel*)."""
+    kernels = sum(1 for evt in prof.events() if evt.device_type == torch.autograd.DeviceType.CUDA
+                  and not evt.name.startswith(("Memcpy", "Memset")))
+    launch_calls = sum(1 for evt in prof.events()
+                       if evt.device_type == torch.autograd.DeviceType.CPU
+                       and "LaunchKernel" in evt.name)
+    return kernels, launch_calls
 
 
 def profile_one_step(step, state, real, rng, alpha):
@@ -121,11 +136,13 @@ def profile_one_step(step, state, real, rng, alpha):
     for name, ms in by_kernel.items():
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
     device_ms = sum(by_kernel.values())
+    kernels, launch_calls = launch_counts(prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     ops = sorted(prof.key_averages(group_by_input_shape=True),
                  key=lambda a: -a.self_device_time_total)[:10]
     cpu = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:12]
-    return state, dict(profiled_step_ms=step_ms, device_ms=device_ms,
+    return state, dict(profiled_step_ms=step_ms, device_ms=device_ms, kernels=kernels,
+                       launch_calls=launch_calls,
                        groups=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                        top_kernels=[[n[:90], ms] for n, ms in top],
                        top_ops=[[a.key, str(a.input_shapes)[:160], a.count,

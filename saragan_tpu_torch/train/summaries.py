@@ -43,6 +43,13 @@ class SummaryWriter:
         if self._tb is not None:
             self._tb.add_scalar(tag, float(value), step)
 
+    def text(self, tag: str, text: str, step: int):
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps({"tag": tag, "text": str(text), "step": int(step)})
+                              + "\n")
+        if self._tb is not None:
+            self._tb.add_text(tag, str(text), step)
+
     def scalars(self, values: Dict[str, float], step: int):
         for tag, v in values.items():
             self.scalar(tag, v, step)

@@ -54,7 +54,7 @@ import torch
 
 from saragan_tpu_torch import losses
 from saragan_tpu_torch._device import resolve_device
-from saragan_tpu_torch.config import Config
+from saragan_tpu_torch.config import Config, resolve_conv_engine
 from saragan_tpu_torch.data import NumpyPathDataset, Prefetcher, get_numpy_dataset, normalize_numpy
 from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.optim.ema import fold_ema
@@ -152,6 +152,10 @@ class Trainer:
             _not_ported("the ImageNet / 2-D dataset (queue 1 item 9)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the run's engine, resolved for the device where unset: what the steps, the
+        # events and a resumed run (which resolves the same way) see.  Written into the
+        # caller's config, as --auto_resume writes continue_path and starting_phase below
+        cfg.conv_engine = resolve_conv_engine(cfg.conv_engine, self.device.type)
         self.arch = get_architecture(cfg.architecture)
         self.dataset_factory = dataset_factory
         self.draws_fn = draws_fn
@@ -171,6 +175,7 @@ class Trainer:
                 self._auto_resume_note = (f"auto_resume: continuing from {ar.continue_path} "
                                           f"at phase {ar.starting_phase}")
         self.writer = summ.SummaryWriter(self.logdir if verbose else None)
+        self.writer.text("config/conv_engine", cfg.conv_engine, 0)
         self.last_fid: Optional[float] = None
         self.last_img_s: float = 0.0
         self.state: Optional[TrainState] = None
@@ -326,6 +331,7 @@ class Trainer:
             return self.last_fid
         if self._auto_resume_note:
             self._log(self._auto_resume_note)
+        self._log(f"Conv engine: {cfg.conv_engine} on {self.device}")
         start_train = time.time()
         global_step = 0
 

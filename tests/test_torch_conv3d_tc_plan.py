@@ -1,7 +1,8 @@
-"""The tensor-core conv kernels' tiling plans (``ops/conv3d_flat.py``) at every conv and
-wgrad shape the flagship pgan 'xs' train step launches at phases 1-8, batches 8 and 16,
-and the dispatch by dtype: bf16 to the tensor-core route ("tc"), f32 to the CUDA-core
-route ("simt").  The kernels themselves run only on the card (``tests/test_torch_cuda.py``);
+"""The conv kernels' tiling plans (``ops/conv3d_flat.py``: the tensor-core forward and
+wgrad, the CUDA-core forward) at every conv and wgrad shape the flagship pgan 'xs' train
+step launches at phases 1-8, batches 8 and 16, and at the serving forward's, and the
+dispatch by dtype: bf16 to the tensor-core route ("tc"), f32 to the CUDA-core route
+("simt").  The kernels themselves run only on the card (``tests/test_torch_cuda.py``);
 here their plans, which the C side re-checks, and the wrappers' routing are held with a
 stubbed library."""
 
@@ -89,6 +90,7 @@ def test_plans_fit_and_cover_every_flagship_shape(phase, batch, monkeypatch):
         for extent, b, nb in zip((d, h, wd), p.box, p.boxes):
             assert covers_once(extent, b, nb)
         assert p.blocks == n * math.prod(p.boxes) * p.f_tiles < 2 ** 31
+        check_simt_plan(xs, ws)
     for xs, dys, k in wgrads:
         n, c, d, h, wd = xs
         f = dys[1]
@@ -163,6 +165,76 @@ def test_odd_channels_and_outputs_are_padded_not_refused():
         assert q.ct >= 16 and q.ft >= 16
 
 
+def check_simt_plan(xs, ws):
+    """The CUDA-core forward's plan: shared memory within its budget, a thread count the
+    kernel takes, the box covering the volume once, and no dependence on the batch."""
+    n, c, d, h, wd = xs
+    p = cf.conv_simt_plan(xs, ws)
+    assert (p.vpt, p.fpt) in cf.SIMT_TILES
+    assert p.smem <= cf.MAX_SMEM // cf.SIMT_BLOCKS_PER_SM[p.vpt] - 1024 or p.cc == 1
+    assert p.smem <= cf.MAX_SMEM
+    rows = p.cc * (p.box[0] + ws[0] - 1) * (p.box[1] + ws[1] - 1)
+    assert p.smem == 2 * 4 * (cf._round_up(rows * ((p.box[2] + ws[2] - 1) | 1), 4)
+                              + math.prod(ws[:3]) * p.cc * p.ft) + 8 * rows
+    assert p.threads == math.prod(p.box) // p.vpt * (p.ft // p.fpt) <= cf.SIMT_THREADS[p.vpt]
+    assert p.box[2] % p.vpt == 0 and p.ft % p.fpt == 0 and 4 <= p.ft <= max(4, cf.SIMT_MAX_FT)
+    assert p.chunks == -(-c // p.cc) and p.f_tiles == -(-ws[-1] // p.ft)
+    for extent, b, nb in zip((d, h, wd), p.box, p.boxes):
+        assert covers_once(extent, b, nb)
+    # the batch never enters the plan (nor, with it, any summation order)
+    for batch in (1, 8, 16, n + 3):
+        assert cf.conv_simt_plan((batch, *xs[1:]), ws) == p
+    return p
+
+
+def _masked_share_of_worst_block(spatial, box):
+    """The share of the last block's positions (the last along every axis, the most
+    masked) that lie outside the volume."""
+    inside = 1.0
+    for extent, b in zip(spatial, box):
+        inside *= (extent - (-(-extent // b) - 1) * b) / b
+    return 1 - inside
+
+
+# the phase-6 batch-8 serving forward's six convs (f32, the CUDA-core route)
+SERVING_CONVS = [((8, 256, 1, 4, 4), (1, 3, 3, 256, 256)), ((8, 256, 2, 8, 8), (1, 3, 3, 256, 256)),
+                 ((8, 64, 4, 16, 16), (3, 3, 3, 64, 64)), ((8, 64, 8, 32, 32), (3, 3, 3, 64, 64)),
+                 ((8, 32, 16, 64, 64), (3, 3, 3, 32, 32)),
+                 ((8, 16, 32, 128, 128), (3, 3, 3, 16, 16))]
+
+
+@pytest.mark.parametrize("xs,ws", SERVING_CONVS)
+def test_simt_plan_fits_the_serving_planes(xs, ws):
+    p = check_simt_plan(xs, ws)
+    # no block more than half masked: on the 4x4 and 8x8 planes the box fits the plane
+    assert _masked_share_of_worst_block(xs[2:], p.box) <= 0.5
+    if xs[3:] in ((4, 4), (8, 8)):
+        assert p.box[1] <= xs[3] and p.box[2] <= xs[4] and p.vpt == 4
+    # the widest register tile whose least outputs per sample the sample has
+    outputs = math.prod(xs[2:]) * ws[-1]
+    assert outputs >= cf.SIMT_TILES[(p.vpt, p.fpt)]
+    wider = list(cf.SIMT_TILES)[:list(cf.SIMT_TILES).index((p.vpt, p.fpt))]
+    assert all(outputs < cf.SIMT_TILES[t] for t in wider)
+
+
+@pytest.mark.parametrize("spatial,kernel,positions,vpt,box", [
+    ((1, 4, 4), (1, 3, 3), 16, 4, (1, 4, 4)),
+    ((2, 8, 8), (1, 3, 3), 64, 4, (1, 8, 8)),
+    ((32, 128, 128), (3, 3, 3), 1024, 8, (8, 4, 32)),
+    ((3, 5, 37), (3, 3, 3), 64, 4, (2, 2, 16)),
+])
+def test_simt_box_shape_follows_the_plane(spatial, kernel, positions, vpt, box):
+    assert cf.simt_box(*spatial, kernel, positions, vpt) == box
+
+
+def test_simt_plan_weight_copy_follows_alignment_and_f():
+    xs = (2, 16, 4, 16, 16)
+    assert cf.conv_simt_plan(xs, (3, 3, 3, 16, 32)).vw == 4
+    assert cf.conv_simt_plan(xs, (3, 3, 3, 16, 30)).vw == 1
+    p, q = cf.conv_simt_plan(xs, (3, 3, 3, 16, 32), 8), cf.conv_simt_plan(xs, (3, 3, 3, 16, 32))
+    assert p.vw == 1 and p == cf.ConvSimtPlan(**{**vars(q), "vw": 1})
+
+
 class _StubLibrary:
     """Stands in for the ctypes handle of a kernel library: records each call."""
 
@@ -204,7 +276,10 @@ def test_forward_routes_bf16_to_tensor_cores_and_f32_to_cuda_cores(stubbed):
     assert args[3:] == (2, 16, 4, 16, 16, 3, 3, 3, 32, *p.box, p.cc, p.ft, p.layout, p.nt,
                         p.ve, p.vw, p.smem, 0)
     [(name, args)] = stubbed["fwd"].calls
-    assert name == "saragan_conv3d_fwd" and args[3:] == (2, 16, 4, 16, 16, 3, 3, 3, 32, 0)
+    q = cf.conv_simt_plan(x.shape, w.shape)
+    assert name == "saragan_conv3d_fwd" and args[3:] == (2, 16, 4, 16, 16, 3, 3, 3, 32, *q.box,
+                                                         q.cc, q.ft, q.vpt, q.fpt, q.vw,
+                                                         q.smem, 0)
 
 
 def test_wgrad_routes_bf16_to_tensor_cores_and_f32_to_cuda_cores(stubbed):

@@ -1,8 +1,9 @@
-"""The port's hand-written kernels against their plain versions on the card (the bf16
-tensor-core convs, on ragged, misaligned and small shapes, the wgrad's two stagers through
-its 16- and 32-output tiles; the
-standalone #3 and #5 too), the conv's derivative algebra against cuDNN's double backward
-in f32 and bf16, one train step under ``flat``, and a two-step CLI trainer run.
+"""The port's hand-written kernels against their plain versions on the card (the f32
+CUDA-core conv through each register tile, the bf16 tensor-core convs, on ragged,
+misaligned and small shapes, the wgrad's two stagers through its 16- and 32-output tiles,
+the fused op's forward and backward kernels; the standalone #3 and #5 too), the conv's
+derivative algebra against cuDNN's double backward in f32 and bf16, one train step under
+``flat``, and a two-step CLI trainer run.
 
 Needs an NVIDIA GPU, nvcc and triton; skipped without them.  This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -35,8 +36,8 @@ def cuda():
     return torch.device("cuda")
 
 
-# ragged shapes: channels that are not multiples of the staged chunk (8) or the
-# per-block filter tile (16), volumes that are not multiples of the 16x32 output tile
+# ragged shapes: channels that are not multiples of the staged chunk or the per-block
+# filter tile, volumes that are not multiples of the output box
 @pytest.mark.parametrize("x_shape,w_shape", [
     ((2, 5, 3, 5, 37), (3, 3, 3, 5, 7)),
     ((1, 3, 4, 17, 33), (1, 3, 3, 3, 20)),
@@ -54,6 +55,52 @@ def test_conv3d_kernel_matches_plain(cuda, x_shape, w_shape):
     assert cf.conv3d_flat_cuda.launches == launches + 1
     ref = cf.conv3d_flat_plain(x, w)
     assert (y - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+# the CUDA-core kernel (f32): C, F in {4, 16, 32, 64, 256}, 4x4, 8x8 and ragged planes,
+# 1x3x3 and 3x3x3 kernels, both register tiles (8x8 where a sample has 2^19 outputs)
+SIMT_CASES = [  # (n, c, f, (d, h, w), kernel)
+    (8, 256, 256, (1, 4, 4), (1, 3, 3)),
+    (3, 256, 256, (2, 8, 8), (1, 3, 3)),
+    (1, 4, 16, (2, 4, 4), (1, 3, 3)),
+    (2, 64, 64, (4, 16, 16), (3, 3, 3)),
+    (1, 16, 32, (3, 9, 9), (3, 3, 3)),
+    (2, 32, 4, (5, 7, 37), (3, 3, 3)),
+    (1, 16, 16, (16, 64, 64), (3, 3, 3)),
+    (1, 4, 64, (9, 33, 70), (3, 3, 3)),
+    (2, 256, 32, (3, 12, 20), (1, 3, 3)),
+]
+
+
+@pytest.mark.parametrize("n,c,f,spatial,kernel", SIMT_CASES)
+def test_cuda_core_kernel_matches_plain_and_repeats_bit_for_bit(cuda, n, c, f, spatial, kernel):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((n, c, *spatial), generator=g, device=cuda)
+    w = torch.randn((*kernel, c, f), generator=g, device=cuda) * (2.0 / (c * math.prod(kernel))) ** 0.5
+    simt = cf.launches_by_route(cf.conv3d_flat_cuda)["simt"]
+    y, again = cf.conv3d_flat_cuda(x, w), cf.conv3d_flat_cuda(x, w)
+    torch.cuda.synchronize()
+    assert cf.launches_by_route(cf.conv3d_flat_cuda)["simt"] == simt + 2
+    assert torch.equal(y, again)
+    assert _rel_err(y, cf.conv3d_flat_plain(x, w)) <= 1e-4
+    # a sample's outputs do not depend on the batch it is computed in
+    assert torch.equal(cf.conv3d_flat_cuda(x[n - 1:].contiguous(), w), y[n - 1:])
+
+
+def test_cuda_core_kernel_runs_both_register_tiles(cuda):
+    tiles = {cf.conv_simt_plan((n, c, *spatial), (*kernel, c, f)).vpt
+             for n, c, f, spatial, kernel in SIMT_CASES}
+    assert tiles == {4, 8}
+
+
+def test_cuda_core_kernel_coalesced_batch_equals_samples_alone(cuda):
+    """The serving pattern: eight samples in one batch, bit-equal to each run alone."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn((8, 32, 16, 64, 64), generator=g, device=cuda)
+    w = torch.randn((3, 3, 3, 32, 32), generator=g, device=cuda) * 0.05
+    y = cf.conv3d_flat_cuda(x, w)
+    for i in (0, 5):
+        assert torch.equal(cf.conv3d_flat_cuda(x[i:i + 1].contiguous(), w), y[i:i + 1])
 
 
 def test_conv3d_kernel_refuses_what_it_does_not_take(cuda):
@@ -279,6 +326,45 @@ def test_fused_backward_matches_plain_autograd(cuda):
     ref = torch.autograd.grad(fba.bias_act_pixelnorm_plain(x, b, 0.2, True), (x, b), gy)
     for a, r in zip(ours, ref):
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+
+
+def _gb_tol(gx):
+    """Per channel: gb sums N * S terms, so two f32 orders of that sum differ by a
+    multiple of eps * ||gx_c||_2, not of |gb_c|."""
+    return 1e-5 * gx.double().square().sum([0, *range(2, gx.ndim)]).sqrt()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pixelnorm", [((2, 16, 3, 8, 8), True), ((8, 256, 1, 4, 4), True),
+                                             ((2, 33, 5, 7), True), ((1, 16, 4, 64, 64), True),
+                                             ((2, 20, 3, 9), False)])
+def test_fused_backward_kernel_matches_plain_and_repeats(cuda, shape, pixelnorm, dtype):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    b = torch.randn(shape[1], generator=g, device=cuda)
+    gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    launches = fba.fused_bias_act_pixelnorm_grad.launches
+    gx, gb = fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, pixelnorm)
+    gx2, gb2 = fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, pixelnorm)
+    torch.cuda.synchronize()
+    assert fba.fused_bias_act_pixelnorm_grad.launches == launches + 2
+    assert gx.dtype == dtype and gb.dtype == torch.float32
+    assert torch.equal(gx, gx2) and torch.equal(gb, gb2)
+    rgx, rgb = fba.bias_act_pixelnorm_grad_plain(x, b, gy, 0.2, pixelnorm)
+    if dtype == torch.float32:
+        torch.testing.assert_close(gx, rgx, rtol=1e-5, atol=1e-6)
+        assert ((gb - rgb).abs().double() <= 1e-5 * rgb.abs() + _gb_tol(gx)).all()
+    else:
+        assert _rel_err(gx, rgx) <= 1e-2 and _rel_err(gb, rgb) <= 1e-2
+
+
+def test_fused_backward_runs_the_kernel_not_the_plain_version(cuda):
+    x = torch.randn(2, 16, 3, 8, 8, device=cuda, requires_grad=True)
+    b = torch.randn(16, device=cuda, requires_grad=True)
+    counts = (fba.fused_bias_act_pixelnorm_grad.launches, fba.bias_act_pixelnorm_grad_plain.calls)
+    torch.autograd.grad(fba.bias_act_pixelnorm(x, b).square().sum(), (x, b))
+    assert (fba.fused_bias_act_pixelnorm_grad.launches,
+            fba.bias_act_pixelnorm_grad_plain.calls) == (counts[0] + 1, counts[1])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -117,3 +117,56 @@ def test_function_backward_recomputes_without_plain_version_calls():
     calls = fba.bias_act_pixelnorm_plain.calls
     torch.autograd.grad(y.sum(), (x, b))
     assert fba.bias_act_pixelnorm_plain.calls == calls
+
+
+# ---------------------------------------------------------------------------
+# The backward's plain version (what the backward kernel computes) against jax.vjp of the
+# reference's op, and the gradient Function's CPU dispatch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pixelnorm", [True, False])
+@pytest.mark.parametrize("c", [16, 64])
+def test_grad_plain_matches_jax_vjp(c, pixelnorm, dtype):
+    rng = np.random.default_rng(c + 3 * pixelnorm)
+    x = rng.normal(size=(2, c, 2, 4, 8)).astype(np.float32)
+    b = rng.normal(size=(c,)).astype(np.float32)
+    gy = rng.normal(size=x.shape).astype(np.float32)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    _, vjp = jax.vjp(lambda xx, bb: fused_bias_act_pixelnorm(xx, bb, 0.2, pixelnorm),
+                     jnp.asarray(x, jdt), jnp.asarray(b))
+    refs = vjp(jnp.asarray(gy, jdt))
+    ours = fba.bias_act_pixelnorm_grad_plain(torch.from_numpy(x).to(tdt), torch.from_numpy(b),
+                                             torch.from_numpy(gy).to(tdt), 0.2, pixelnorm)
+    assert ours[0].dtype == tdt and ours[1].dtype == torch.float32
+    gx, gb = (o.float().numpy() for o in ours)
+    dx, db = (np.asarray(r, np.float32) for r in refs)
+    if dtype == "float32":
+        np.testing.assert_allclose(gx, dx, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(gb, db, rtol=1e-5, atol=1e-6)
+    else:
+        assert np.abs(gx - dx).max() <= 1e-2 * np.abs(dx).max()
+        # db: JAX sums the bf16 gx to a bf16 gb (its bias is added in bf16); the port sums
+        # them in f64 and rounds the sum through bf16 as well, so it is held to the exact
+        # sum of JAX's own gx, and to JAX's db within the first-order test's bf16 tolerance
+        assert torch.equal(ours[1].bfloat16().float(), ours[1])
+        exact = dx.astype(np.float64).sum(axis=(0, 2, 3, 4))
+        assert np.abs(gb - exact).max() <= 1e-2 * np.abs(exact).max()
+        assert np.abs(gb - db).max() <= GRAD_TOL["bfloat16"] * np.abs(db).max()
+
+
+def test_grad_function_on_the_cpu_runs_the_plain_version():
+    x = torch.randn(2, 16, 2, 4, 4, requires_grad=True)
+    b = torch.randn(16, requires_grad=True)
+    counts = (fba.fused_bias_act_pixelnorm_grad.launches, fba.bias_act_pixelnorm_grad_plain.calls)
+    dx, db = torch.autograd.grad(fba.bias_act_pixelnorm(x, b).square().sum(), (x, b))
+    assert (fba.fused_bias_act_pixelnorm_grad.launches,
+            fba.bias_act_pixelnorm_grad_plain.calls) == (counts[0], counts[1] + 1)
+    ref = torch.autograd.grad(fba._oracle(x, b, 0.2, True).square().sum(), (x, b))
+    for a, r in zip((dx, db), ref):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
+    # the kernel wrapper itself never runs on a CPU tensor
+    with pytest.raises(ValueError, match="CUDA"):
+        fba.fused_bias_act_pixelnorm_grad(x.detach(), b.detach(), x.detach(), 0.2, True)

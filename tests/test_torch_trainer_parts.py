@@ -1,13 +1,14 @@
 """The trainer's parts in the port against the JAX package: the LR schedule, freezing,
 the EMA fold, one train step with frozen names and gradient histograms, the dataset's
-shuffle stream and splits, the trainer's config defaults, checkpoint names, pruning and
-auto-resume.
+shuffle stream and splits, the trainer's config defaults and conv-engine resolution,
+checkpoint names, pruning and auto-resume.
 
 The step is the phase-2 step of a tiny pgan fed the reference's own draws, from one
 converted state (tolerances as in ``tests/test_torch_train_step.py``: parameters rtol
 1e-3, atol 1e-6)."""
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -27,7 +28,8 @@ from saragan_tpu.train import checkpoint as jax_ckpt
 from saragan_tpu.train import init_train_state as jax_init_train_state
 from saragan_tpu.train import make_train_step as jax_make_train_step
 from saragan_tpu_torch import losses
-from saragan_tpu_torch.config import Config
+from saragan_tpu_torch.cli import build_parser, config_from_args
+from saragan_tpu_torch.config import Config, resolve_conv_engine
 from saragan_tpu_torch.convert import params_from_numpy, train_state_from_numpy
 from saragan_tpu_torch.data.dataset import NumpyPathDataset
 from saragan_tpu_torch.models import get_architecture
@@ -36,6 +38,7 @@ from saragan_tpu_torch.optim.ema import fold_ema
 from saragan_tpu_torch.optim.factory import AdamState, make_optimizers_from_config
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train.step import histogram, make_grads_fn, make_train_step
+from saragan_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
 
@@ -240,6 +243,45 @@ def test_trainer_config_fields_keep_the_reference_names_and_defaults():
         Config(single_chip_big_volume=True).finalize()
     with pytest.raises(ValueError, match="conv_engine"):
         Config(conv_engine="pallas").finalize()
+
+
+# ---------------------------------------------------------------------------
+# The trainer's conv engine: left unset, resolved by device, as the reference's
+# apply_runtime_opts picks one by backend (saragan_tpu/config.py:500-512)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("engine,device_type,resolved", [
+    ("unset", "cpu", "direct"), ("unset", "cuda", "flat"), ("direct", "cuda", "direct"),
+    ("direct", "cpu", "direct"), ("flat", "cpu", "flat"), ("flat", "cuda", "flat")])
+def test_conv_engine_resolution(engine, device_type, resolved):
+    assert resolve_conv_engine(engine, device_type) == resolved
+
+
+def _cli_config(tmp_path, *extra):
+    args = build_parser().parse_args([
+        "pgan", str(tmp_path), "--start_shape", "(1, 4, 4, 4)", "--final_shape", "(1, 16, 16, 16)",
+        "--starting_phase", "1", "--ending_phase", "2", "--latent_dim", "16",
+        "--noise_stddev", "0", "--logdir", str(tmp_path / "run"), *extra])
+    return config_from_args(args).finalize()
+
+
+def test_trainer_resolves_an_unset_engine_on_the_cpu_and_again_on_resume(tmp_path):
+    cfg = _cli_config(tmp_path, "--auto_resume")
+    assert cfg.conv_engine == "unset"
+    for _ in range(2):  # the first run, then an --auto_resume run of the same command
+        trainer = Trainer(dataclasses.replace(cfg), device="cpu", prefetch=False)
+        trainer.writer.close()
+        assert trainer.cfg.conv_engine == "direct"
+    with open(tmp_path / "run" / "events.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    assert [e["text"] for e in events if e["tag"] == "config/conv_engine"] == ["direct"] * 2
+
+
+@pytest.mark.parametrize("engine", ["flat", "direct"])
+def test_an_explicit_engine_wins(tmp_path, engine):
+    cfg = _cli_config(tmp_path, "--conv_engine", engine)
+    assert Trainer(cfg, device="cpu", verbose=False).cfg.conv_engine == engine
 
 
 # ---------------------------------------------------------------------------
