@@ -9,7 +9,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    no CUDA device -> exit 1 before anything else;
 2. build: nvcc compiles every CUDA source of the port (one process per source, all
    started together) and the build time is printed, with the registers and spills ptxas
-   reports for each tensor-core kernel and the CUDA-core forward;
+   reports for each conv kernel, and the count of tensor-core (HMMA) instructions in each
+   bf16 conv library's SASS (cuobjdump), which must not be 0;
 3. kernels against their plain PyTorch versions, on the card, at every shape the
    phase-6 batch-8 serving forward gives them (TF32 off):
    - fused bias+lrelu+pixel-norm (Triton): rtol 1e-5, atol 1e-6, pixel norm on and off;
@@ -52,7 +53,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    oracle's autograd's, the autograd.Function's backward and the bound;
 7. one f32 step's gradients under `flat` and `direct` from the same state and the same
    pre-drawn z and gamma: losses within 1e-3 relative, every gradient within
-   1e-3 * max|g|;
+   1e-3 * max|g|; under `flat` every conv (forward, dgrad, wgrad) through the CUDA-core
+   kernels; then the f32 gradient computation under `flat` timed (median of 5 after a
+   warm-up, CUDA events) on a line of its own;
 8. the trainer through its CLI (``cli.main`` in process, the slice's main path): the
    flagship configuration from phase 5 (batch 16) into phase 6 (batch 8), 32 + 32
    images per phase, no --conv_engine (so `flat`, the card's default: events.jsonl must
@@ -70,10 +73,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    --auto_resume it must exit 0 with a model_6.npz equal to the uninterrupted run's,
    every array bit for bit;
 10. kernel #3 (conv3d_flat_v2, CUDA C++, standalone as in the reference) at every
-   serving-forward shape in f32 and every forward and dgrad shape of the bf16 train step:
-   max|kernel - plain| <= 1e-4 (f32) or 1e-2 (bf16) * max|plain|, within the same limit
-   of kernel #1, bit-identical on a rerun; with its time, kernel #1's, F.conv3d's and the
-   bound;
+   serving-forward shape in f32 (CUDA cores) and every forward and dgrad shape of the bf16
+   train step (tensor cores): max|kernel - plain| <= 1e-4 (f32) or 1e-2 (bf16) *
+   max|plain|, within the same limit of kernel #1, bit-identical on a rerun, through the
+   route of its dtype; with its plan, its time, kernel #1's, F.conv3d's, the bound, its
+   TFLOP/s and share of the bound;
 11. kernel #5 (minibatch_stddev_stat, Triton, standalone) with group 4 at N 8 and 16,
    at the per-sample feature counts of the largest and smallest phase-6 D activation, f32
    and bf16 input: within 1e-5 of max|plain|, bit-identical on a rerun; with its time and
@@ -361,11 +365,24 @@ def serve_engine(model_path, cfg, engine):
 
 def _kernel_label(mangled):
     """A ptxas entry name shortened to the kernel and its template arguments."""
-    for name in ("conv3d_fwd_tc_kernel", "wgrad_tc_partial_kernel", "wgrad_tc_reduce_kernel",
-                 "conv3d_fwd_kernel"):
+    for name in ("conv3d_fwd_v2_tc_kernel", "conv3d_fwd_v2_kernel", "channels_last_kernel",
+                 "conv3d_fwd_tc_kernel", "wgrad_tc_partial_kernel", "wgrad_tc_reduce_kernel",
+                 "wgrad_partial_kernel", "wgrad_reduce_kernel", "conv3d_fwd_kernel"):
         if name in mangled:
             return f"{name}<{','.join(re.findall(r'Li(\d+)E', mangled.split(name, 1)[1]))}>"
     return mangled
+
+
+def tensor_core_instructions():
+    """{library: HMMA instructions in its SASS} for the bf16 conv libraries (cuobjdump,
+    from nvcc's toolkit)."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    counts = {}
+    for name in ("conv3d_fwd_tc", "conv3d_wgrad_tc", "conv3d_fwd_v2_tc"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts[name] = sum(1 for line in sass.splitlines() if "HMMA" in line)
+    return counts
 
 
 def zero_counts():
@@ -778,10 +795,18 @@ def compare_engines_f32(state0, real):
     print(f"f32 step flat vs direct: loss rel diffs {loss_rel}, worst gradient "
           f"max|diff|/max|g| {worst[0]:.3g} ({worst[1]}) over {len(gb)} tensors", flush=True)
     check(launches["flat"]["conv_simt"] == launches["flat"]["forward"] + launches["flat"]["dgrad"]
+          and launches["flat"]["wgrad_simt"] == launches["flat"]["wgrad"] > 0
           and launches["flat"]["fused_grad"] == launches["flat"]["fused"] > 0,
           f"f32 step [flat]: launches {launches['flat']}")
+    del ga, gb, res
+    # the f32 gradient computation under flat, the CLI's default dtype and engine on the card
+    grads_fn = make_grads_fn(arch, cfg, PHASE, static_alpha=None, conv_engine="flat")
+    flat_ms = time_ms(lambda: grads_fn(state0.g_params, state0.d_params, real, draws, 0.5),
+                      reps=5, warmup=1)
+    print(f"f32 gradient computation under flat (phase 6, batch 8): {flat_ms:.2f} ms (median of "
+          f"5 after a warm-up, CUDA events)", flush=True)
     return dict(loss_rel=loss_rel, worst_grad_rel=worst[0], worst_grad=worst[1],
-                flat_launches=launches["flat"])
+                flat_launches=launches["flat"], flat_grads_ms=flat_ms)
 
 
 def write_dataset(root: Path):
@@ -931,16 +956,20 @@ def check_conv_v2(items, dtype, detail):
     `weight` (launches per unit) and summed."""
     g = torch.Generator(device="cuda").manual_seed(5)
     limit = {torch.float32: 1e-4, torch.bfloat16: 1e-2}[dtype]
+    route = cf.conv_route(dtype)
     e = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, v1_ms=0.0, bound_ms=0.0, t_bytes=0.0,
-             t_ops=0.0, max_abs_err=0.0, max_rel_err=0.0, max_rel_diff_v1=0.0)
+             t_ops=0.0, t_flop=0.0, max_abs_err=0.0, max_rel_err=0.0, max_rel_diff_v1=0.0)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
         for role, xs, ws, weight in items:
             x = torch.randn(xs, generator=g, device="cuda").to(dtype)
             fan_in = ws[0] * ws[1] * ws[2] * ws[3]
             w = (torch.randn(ws, generator=g, device="cuda") * (2.0 / fan_in) ** 0.5).to(dtype)
+            routed = cf.launches_by_route(cf.conv3d_flat_v2_cuda)[route]
             y = cf.conv3d_flat_v2_cuda(x, w, role)
             again = cf.conv3d_flat_v2_cuda(x, w, role)
+            check(cf.launches_by_route(cf.conv3d_flat_v2_cuda)[route] == routed + 2,
+                  f"conv v2 {dtype} x{xs} w{ws}: not through the {route} route")
             y1 = cf.conv3d_flat_cuda(x, w, role)
             ref = cf.conv3d_flat_v2_plain(x, w)
             torch.cuda.synchronize()
@@ -960,16 +989,23 @@ def check_conv_v2(items, dtype, detail):
                      plain_ms=time_ms(lambda: cf.conv3d_flat_v2_plain(x, w), reps=2, warmup=0),
                      library_ms=time_ms(lambda: F.conv3d(x, wt, padding="same"), reps=5,
                                         warmup=1),
-                     bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops)
-            detail.append(dict(kernel="conv3d_flat_v2", role=role, dtype=str(dtype), x=list(xs),
-                               w=list(ws), weight=weight, max_abs_err=err, scale=scale,
-                               rel_diff_v1=v1_rel, **t))
+                     bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops,
+                     t_flop=2 * n * ws[-1] * c * ws[0] * ws[1] * ws[2] * math.prod(xs[2:]))
+            plan = (cf.conv_v2_tc_plan if route == "tc" else cf.conv_v2_simt_plan)(
+                xs, ws, sms=cf._sm_count(x.device))
+            plan_s = ", ".join(f"{k} {v}" for k, v in vars(plan).items())
+            detail.append(dict(kernel="conv3d_flat_v2", route=route, role=role, dtype=str(dtype),
+                               x=list(xs), w=list(ws), weight=weight, max_abs_err=err,
+                               scale=scale, rel_diff_v1=v1_rel, plan=plan_s,
+                               tflops=t["t_flop"] / t["ms"] / 1e9,
+                               share_of_bound=b_ms / t["ms"], **t))
             print(f"conv v2 {str(dtype)[6:]} {role} x{xs} w{ws} x{weight:g}: kernel "
                   f"{t['ms']:.4f} ms, kernel #1 {t['v1_ms']:.4f}, plain {t['plain_ms']:.4f}, "
                   f"F.conv3d {t['library_ms']:.4f}, bound {b_ms:.4f} "
                   f"({'ops' if t_ops > t_bytes else 'bytes'}), err {err:.3g} of {scale:.3g}, "
-                  f"bit-identical rerun", flush=True)
-            for k in ("ms", "plain_ms", "library_ms", "v1_ms", "bound_ms", "t_bytes", "t_ops"):
+                  f"bit-identical rerun{_rate_line(t)}; plan {plan_s}", flush=True)
+            for k in ("ms", "plain_ms", "library_ms", "v1_ms", "bound_ms", "t_bytes", "t_ops",
+                      "t_flop"):
                 e[k] += weight * t[k]
             e["max_abs_err"] = max(e["max_abs_err"], err)
             e["max_rel_err"] = max(e["max_rel_err"], err / scale)
@@ -1043,7 +1079,7 @@ def main() -> int:
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.1f} s", flush=True)
-        if name.endswith("_tc") or name == "conv3d_fwd":  # registers and spills
+        if name.startswith("conv3d_"):  # registers and spills
             ptxas[name] = _build.ptxas_report(r["log"])
             for row in ptxas[name]:
                 print(f"    {_kernel_label(row['function'])}: {row['registers']} registers, "
@@ -1051,6 +1087,11 @@ def main() -> int:
                       flush=True)
         else:
             print(r["log"][-2000:], flush=True)
+    hmma = tensor_core_instructions()
+    ptxas["hmma_instructions"] = hmma
+    print(f"tensor-core (HMMA) instructions in the SASS of the bf16 conv libraries: {hmma}",
+          flush=True)
+    check(all(hmma.values()), f"a bf16 conv library has no tensor-core instruction: {hmma}")
     phase_done("build")
 
     cfg = Config(**BENCH_CFG, starting_phase=PHASE, ending_phase=PHASE).finalize()
@@ -1129,8 +1170,8 @@ def main() -> int:
     per_step = (f"one phase-6 batch-8 bf16 train step under flat (sum over its launches); "
                 f"launches counted over {train_steps} steps")
     per_f32 = ("one phase-6 batch-8 f32 gradient computation of the train step under flat "
-               "(forward and dgrad, sum over their launches at the bf16 step's per-step "
-               "counts); launches counted over that one computation (phase 7)")
+               "(sum over the kernel's launches at the bf16 step's per-step counts, whose "
+               "shapes it shares); launches counted over that one computation (phase 7)")
     fwd32, dgrad32 = train_convs[("forward", "float32")], train_convs[("dgrad", "float32")]
     conv32 = {k: fwd32[k] + dgrad32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                   "t_bytes", "t_ops", "t_flop")}
@@ -1159,6 +1200,9 @@ def main() -> int:
             ("conv3d_flat[forward+dgrad,f32,train]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
              "saragan_tpu/ops/pallas_conv.py:124", conv32,
              f32_launches["forward"] + f32_launches["dgrad"], "library_ms", per_f32, 1),
+            ("conv3d_wgrad[f32,train]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad.cu",
+             "saragan_tpu/ops/pallas_conv.py:183", train_convs[("wgrad", "float32")],
+             f32_launches["wgrad"], "library_ms", per_f32, 1),
             ("conv3d_flat[forward,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
              "saragan_tpu/ops/pallas_conv.py:124", train_convs[("forward", "bfloat16")],
              train_launches["forward"], "library_ms", per_step, train_steps),
@@ -1171,10 +1215,10 @@ def main() -> int:
             ("conv3d_flat_v2[f32]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2.cu",
              "saragan_tpu/ops/pallas_conv.py:288", v2["f32"], v2_launches["f32"], "library_ms",
              per_v2, None),
-            ("conv3d_flat_v2[forward,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2.cu",
+            ("conv3d_flat_v2[forward,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2_tc.cu",
              "saragan_tpu/ops/pallas_conv.py:288", v2["forward"], v2_launches["forward"],
              "library_ms", per_v2, None),
-            ("conv3d_flat_v2[dgrad,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2.cu",
+            ("conv3d_flat_v2[dgrad,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2_tc.cu",
              "saragan_tpu/ops/pallas_conv.py:288", v2["dgrad"], v2_launches["dgrad"],
              "library_ms", per_v2, None),
             ("minibatch_stddev_stat", "triton", "saragan_tpu_torch/ops/minibatch_stddev.py",
@@ -1211,6 +1255,7 @@ def main() -> int:
                                          for h, r in trained[e][0].items()} for e in trained}),
           flush=True)
     print("f32 training-shape kernels: " + json.dumps(f32_train), flush=True)
+    print(f"f32 gradient computation under flat: {engines_f32['flat_grads_ms']:.2f} ms", flush=True)
     print("trainer: " + json.dumps(dict(
         launches=trainer["launches"], wall_s=trainer["wall_s"],
         phases={p: {k: v for k, v in r.items() if not k.endswith("_all")}

@@ -1,34 +1,38 @@
-// SAME, stride-1 3-D convolution forward, pipelined variant, in f32 or bf16 on CUDA cores,
-// for Hopper (sm_90a).
+// SAME, stride-1 3-D convolution forward, pipelined variant, in f32 on CUDA cores, for
+// Hopper (sm_90a).
 //
-// Replaces saragan_tpu/ops/pallas_conv.py::conv3d_flat_v2 (kernel body _fwd_v2_kernel):
+// Replaces saragan_tpu/ops/pallas_conv.py::conv3d_flat_v2 (kernel body _fwd_v2_kernel) for
+// f32:
 //   y[n, f, p] = sum_{kz,ky,kx} sum_c w[kz, ky, kx, c, f] * x[n, c, p + (kz, ky, kx) - k//2]
-// the same function as conv3d_fwd.cu (kernel #1), with x in NCDHW, w in (kd, kh, kw, C, F),
-// f32 accumulation and one rounding at the store.  Only odd kernel sizes (SAME = k//2 on
-// both sides).  Unlike the TPU kernel, which falls back to v1 when C is not a multiple of
-// the sublane count (a DMA alignment rule of the TPU), this kernel takes any C.
+// the same function as kernel #1 (conv3d_fwd.cu), with x in NCDHW, w in (kd, kh, kw, C, F)
+// and f32 accumulation.  Odd kernel sizes only (SAME = k//2 on both sides); any C and F.
+// bf16 goes to conv3d_fwd_v2_tc.cu (the tensor cores); tensor cores in f32 would mean
+// TF32, which the port keeps off.
 //
-// What makes v2 a kernel of its own is its design, which this source carries over:
-//   * the input stays in device memory and a double-buffered window copy prefetches the
-//     next work item while the current one computes (pallas_conv.py:246-267).  Here each
-//     block walks a sequence of position tiles; a work item is (tile, channel chunk), and
-//     its halo'd input window is copied into shared memory with cp.async (16- or 4-byte
-//     chunks, zero-filled outside the volume) into the stage the previous item freed, while
-//     the current item computes from the other stage (commit_group / wait_group);
-//   * for C <= 32 the K shifted (C, tile) slices are stacked into one (K*C, tile) im2col
-//     operand and contracted in one K*C-wide pass (pallas_conv.py:270-276).  Here the
-//     operand is built in shared memory from the staged window, in slabs of KS rows (a
-//     table of each row's window offset makes a slab entry one lookup), and each thread
-//     runs one reduction over all K*C rows; for C > 32 every tap is contracted on its own
-//     over a channel chunk, straight from the window.
-// Where a row's alignment does not allow cp.async (a bf16 volume of odd width, a pointer
-// that is not 4-byte aligned), the window is loaded with plain loads instead; the result
-// is the same.
-//
-// What bounds it: as kernel #1, operations.  Every product runs on CUDA cores in f32 (the
-// port keeps TF32 off; bf16 does not use the tensor cores yet), so the bound in bf16 is
-// the tensor cores' rate and this kernel is far from it.  No atomics: every output is
-// summed by one thread in a fixed order, so reruns are bit-identical.
+// What makes v2 a kernel of its own is the TPU kernel's window pipeline: the input stays in
+// device memory and asynchronous copies bring each work item's halo'd window into fast
+// memory, several items ahead, while the current one computes (pallas_conv.py:246-267).
+// Here, as in conv3d_fwd_v2_tc.cu:
+//   * blocks are persistent: the grid holds as many blocks as the SMs take at once (the
+//     host plan, ops/conv3d_flat.py::conv_v2_simt_plan), and block b walks the work items
+//     b, b + grid, ...; an item is one sample's 3-D box of output positions (fitted to the
+//     volume) and FT outputs, walked in channel chunks of CC;
+//   * each (item, chunk) stage (the halo'd x box of CC channels, 4-byte copies zero-filled
+//     outside the volume, and the chunk's K x CC x FT weights, 16-byte copies where F
+//     allows) lands by cp.async in a ring of STAGES = 3 shared-memory stages: stage t + 2 is
+//     in flight while stage t computes.  Where each staged row lies in the box is worked
+//     out once per block into a table, so staging does no division;
+//   * the arithmetic is kernel #1's: each thread keeps a register tile of VPT consecutive W
+//     outputs x FPT output channels (8 x 8 where a sample has outputs enough to fill the
+//     card with them, narrower, 4 x 4 / 4 x 2 / 4 x 1, as they get fewer), reads one
+//     staged x row per (channel, kz, ky) and reuses it across the KW taps, and reads its FPT
+//     weights as float4 (float2, float) words that the threads of a warp share; x rows
+//     have an odd stride, so a warp's reads spread over the banks.
+// What bounds it: 27*C multiply-adds per output for about 8 bytes in and out, so the CUDA
+// cores' rate (67 TFLOP/s).  The TPU kernel's im2col operand (C <= 32) is not built: on CUDA
+// cores each x value read from shared memory already feeds FPT x KW products.  Each output
+// is summed by one thread, channel by channel and tap by tap: the order depends on neither
+// the batch size nor a sample's slot, and reruns are bit-identical.  No atomics.
 
 #include <cuda_runtime.h>
 
@@ -36,174 +40,185 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "elem.cuh"
-
 namespace {
 
-using saragan::load_f32;
-using saragan::store_t;
+constexpr size_t MAX_SMEM = 232448;  // 227 KB usable by one block
+constexpr int STAGES = 3;            // the ring of (item, chunk) stages
 
-constexpr int P = 64;          // output positions per tile (TH x TW)
-constexpr int FT = 16;         // output channels per block
-constexpr int FPT = 4;         // output channels per thread
-constexpr int VPT = 2;         // consecutive W positions per thread
-constexpr int THREADS = (P / VPT) * (FT / FPT);  // 128: a warp per 4-channel group
-static_assert(THREADS % P == 0, "the im2col build gives each thread one position");
-constexpr int PADW = 8;        // staged columns left and right of the tile (>= kw/2)
-constexpr int KS = 32;         // im2col rows per slab
-constexpr size_t MAX_SMEM = 232448;
+struct Geo {
+  int C, D, H, W, F, KD, KH, taps;
+  int BD, BH, BW;        // output box
+  int SD, SH, SW, RS;    // staged box: SD x SH rows of SW columns at row stride RS (odd)
+  int PD, PH, PW;        // padding: k // 2
+  int nbd, nbh, nbw, f_tiles;  // boxes along D, H, W; output tiles
+  int CC, lcc, FT, lft, vw;    // channel chunk and output tile (powers of two), weight copy
+  int LW;                // x staging: lanes per row (a power of two)
+  int xs_floats, ws_floats;  // one stage of each (multiples of 4)
+  int rows;              // staged rows per chunk: CC * SD * SH (the row table's entries)
+  int nchunks, items;    // chunks per item; items: n * boxes * f_tiles, the f tile fastest
+};
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__host__ __device__ constexpr bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__host__ __device__ constexpr int ilog2(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
 }
 
-// One cp.async of VB bytes; src_bytes 0 zero-fills the destination.
-template <int VB>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
-  if constexpr (VB == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of BYTES (4 or 16); zeros when `in` is false (nothing is read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool in) {
+  const int src_bytes = in ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
   } else {
-    static_assert(VB == 4, "cp.async chunks of 16 or 4 bytes");
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
+    static_assert(BYTES == 4, "4 or 16 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
   }
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-struct Geometry {
-  int C, D, H, W, KD, KH, F;
-  int TH, TW;           // tile of TH x TW output positions in one depth slice
-  int tiles_h, tiles_w, tiles;
-  int CC, nchunks;      // channels per work item, chunks per tile
-  int HH, WW;           // staged rows per (channel, kz) and staged row length
-  int stage_elems;      // elements of one window stage (a multiple of 16 bytes)
-  int VB;               // cp.async chunk in bytes (16 or 4), or 0 for plain loads
-};
+// Work item `item` -> sample, box origin and first output channel.
+__device__ __forceinline__ void item_origin(const Geo& g, int item, int& n, int& d0, int& h0,
+                                            int& w0, int& f0) {
+  f0 = (item % g.f_tiles) * g.FT;
+  int b = item / g.f_tiles;
+  w0 = (b % g.nbw) * g.BW;
+  b /= g.nbw;
+  h0 = (b % g.nbh) * g.BH;
+  b /= g.nbh;
+  d0 = (b % g.nbd) * g.BD;
+  n = b / g.nbd;
+}
 
-// Copy (or zero) the halo'd window of work item (tile, chunk) into `win`.
-template <typename T, int VB>
-__device__ void load_window(const T* __restrict__ x, T* win, const Geometry& g, int n, int d0,
-                            int h0, int w0, int c0, int pd, int ph) {
-  constexpr int ESZ = sizeof(T);
+// Chunk [c0, c0 + CC) of sample n's box at (d0, h0, w0) into one stage: the halo'd x box
+// as xs[q * RS + sx], q = (cc * SD + sz) * SH + sy the row of the table (which packs cc,
+// sz, sy as cc << 16 | sz << 8 | sy), and the weights as ws[(tap * CC + cc) * FT + ff],
+// zero outside the volume and past C and F.  Commits nothing (the caller does).
+__device__ __forceinline__ void stage_chunk(const Geo& g, const int* tab,
+                                            const float* __restrict__ x,
+                                            const float* __restrict__ w, float* buf, int n,
+                                            int c0, int d0, int h0, int w0, int f0) {
   const size_t plane = static_cast<size_t>(g.H) * g.W;
-  const int rows = g.CC * g.KD * g.HH;
-  if constexpr (VB > 0) {
-    constexpr int VE = VB / ESZ;  // elements per chunk
-    const int per_row = g.WW / VE;
-    for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
-      const int r = i / per_row, j = i % per_row;
-      const int yy = r % g.HH;
-      const int t = r / g.HH;
-      const int zz = t % g.KD;
-      const int c = c0 + t / g.KD;
-      const int gd = d0 + zz - pd, gh = h0 + yy - ph, gw = w0 - PADW + j * VE;
-      // W is a multiple of VE and gw of VE as well: a chunk is wholly in or wholly out
-      const bool in = c < g.C && gd >= 0 && gd < g.D && gh >= 0 && gh < g.H && gw >= 0 &&
-                      gw < g.W;
-      const T* src = in ? x + ((static_cast<size_t>(n) * g.C + c) * g.D + gd) * plane +
-                              static_cast<size_t>(gh) * g.W + gw
-                        : x;
-      cp_async<VB>(win + static_cast<size_t>(r) * g.WW + j * VE, src, in ? VB : 0);
+  const float* xc = x + (static_cast<size_t>(n) * g.C + c0) * g.D * plane;
+  const uint32_t xb = smem_u32(buf);
+  for (int q = threadIdx.x / g.LW; q < g.rows; q += blockDim.x / g.LW) {
+    const int t = tab[q];
+    const int cc = t >> 16;
+    const int gd = d0 - g.PD + ((t >> 8) & 255), gh = h0 - g.PH + (t & 255);
+    const bool row_in = c0 + cc < g.C && gd >= 0 && gd < g.D && gh >= 0 && gh < g.H;
+    const float* src_row = xc + (static_cast<size_t>(cc) * g.D + gd) * plane +
+                           static_cast<size_t>(gh) * g.W;
+    const uint32_t dst = xb + static_cast<uint32_t>(q * g.RS) * 4u;
+    for (int sx = threadIdx.x & (g.LW - 1); sx < g.SW; sx += g.LW) {
+      const int gw = w0 + sx - g.PW;
+      const bool in = row_in && gw >= 0 && gw < g.W;
+      cp_async<4>(dst + sx * 4u, in ? src_row + gw : x, in);
+    }
+  }
+  const uint32_t wb = xb + static_cast<uint32_t>(g.xs_floats) * 4u;
+  if (g.vw == 4) {
+    const int lpr = g.lft - 2;  // float4 words per row: FT / 4
+    const int items = (g.taps * g.CC) << lpr;
+    for (int i = threadIdx.x; i < items; i += blockDim.x) {
+      const int j = i & ((1 << lpr) - 1);
+      const int t = i >> lpr;
+      const int c = c0 + (t & (g.CC - 1)), f = f0 + 4 * j;
+      const bool in = c < g.C && f < g.F;
+      const float* src = in ? w + (static_cast<size_t>(t >> g.lcc) * g.C + c) * g.F + f : w;
+      cp_async<16>(wb + static_cast<uint32_t>(t * g.FT + 4 * j) * 4u, src, in);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * g.WW; i += THREADS) {
-      const int r = i / g.WW, xx = i % g.WW;
-      const int yy = r % g.HH;
-      const int t = r / g.HH;
-      const int zz = t % g.KD;
-      const int c = c0 + t / g.KD;
-      const int gd = d0 + zz - pd, gh = h0 + yy - ph, gw = w0 - PADW + xx;
-      T v = store_t<T>(0.f);
-      if (c < g.C && gd >= 0 && gd < g.D && gh >= 0 && gh < g.H && gw >= 0 && gw < g.W)
-        v = x[((static_cast<size_t>(n) * g.C + c) * g.D + gd) * plane +
-              static_cast<size_t>(gh) * g.W + gw];
-      win[i] = v;
+    const int items = (g.taps * g.CC) << g.lft;
+    for (int i = threadIdx.x; i < items; i += blockDim.x) {
+      const int ff = i & (g.FT - 1);
+      const int t = i >> g.lft;
+      const int c = c0 + (t & (g.CC - 1)), f = f0 + ff;
+      const bool in = c < g.C && f < g.F;
+      const float* src = in ? w + (static_cast<size_t>(t >> g.lcc) * g.C + c) * g.F + f : w;
+      cp_async<4>(wb + static_cast<uint32_t>(i) * 4u, src, in);
     }
   }
 }
 
-// Weights of channels [c0, c0 + CC) and filters [f0, f0 + FT) as ws[(tap * CC + cc) * FT + ff],
-// f32, zero past the last channel or filter.
-template <typename T>
-__device__ void load_weights(const T* __restrict__ w, float* ws, int K, int C, int F, int c0,
-                             int CC, int f0) {
-  for (int i = threadIdx.x; i < K * CC * FT; i += THREADS) {
-    const int ff = i % FT;
-    const int t = i / FT;
-    const int cc = t % CC;
-    const int k = t / CC;
-    const int c = c0 + cc, f = f0 + ff;
-    ws[i] = (c < C && f < F) ? load_f32(w + (static_cast<size_t>(k) * C + c) * F + f) : 0.f;
+// FPT weights of one (tap, channel) row, as float4, float2 or float words.
+template <int FPT>
+__device__ __forceinline__ void load_w(const float* p, float (&wv)[FPT]) {
+  if constexpr (FPT % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < FPT / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(p)[q];
+      wv[4 * q] = v.x, wv[4 * q + 1] = v.y, wv[4 * q + 2] = v.z, wv[4 * q + 3] = v.w;
+    }
+  } else if constexpr (FPT == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    wv[0] = v.x, wv[1] = v.y;
+  } else {
+    wv[0] = p[0];
   }
 }
 
-template <typename T>
-__device__ void load_item_window(const T* __restrict__ x, T* win, const Geometry& g, int n,
-                                 int d0, int h0, int w0, int c0, int pd, int ph) {
-  switch (g.VB) {
-    case 16: load_window<T, 16>(x, win, g, n, d0, h0, w0, c0, pd, ph); break;
-    case 4: load_window<T, 4>(x, win, g, n, d0, h0, w0, c0, pd, ph); break;
-    default: load_window<T, 0>(x, win, g, n, d0, h0, w0, c0, pd, ph); break;
-  }
-}
-
-template <typename T, int KW, bool IM2COL>
-__global__ void __launch_bounds__(THREADS)
-conv3d_fwd_v2_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                     Geometry g) {
+template <int KW, int VPT, int FPT>
+__global__ void __launch_bounds__(VPT == 8 ? 256 : 128, VPT == 8 ? 2 : 4)
+conv3d_fwd_v2_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ y, const Geo g) {
   extern __shared__ float4 smem4[];
-  T* stage[2] = {reinterpret_cast<T*>(smem4),
-                 reinterpret_cast<T*>(smem4) + g.stage_elems};
-  float* ws = reinterpret_cast<float*>(reinterpret_cast<T*>(smem4) + 2 * g.stage_elems);
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int stage = g.xs_floats + g.ws_floats;
+  int* tab = reinterpret_cast<int*>(smem + STAGES * stage);
 
-  const int K = g.KD * g.KH * KW;
-  const int pd = g.KD / 2, ph = g.KH / 2, pw = KW / 2;
-  const int f0 = blockIdx.y * FT;
-  const int tid = threadIdx.x;
-  const int fg = tid / (P / VPT);             // warp: which FPT-wide channel group
-  const int p0 = (tid % (P / VPT)) * VPT;     // first of this thread's positions
-  const int ly = p0 / g.TW, lx = p0 % g.TW;   // TW is even: both positions share a row
-  float* col = ws + K * g.CC * FT;  // the im2col slab (IM2COL only)
-  int* offs = reinterpret_cast<int*>(col + KS * P);  // window offset of each im2col row
+  // thread -> (output-channel group, position group); the group fg is warp-uniform
+  // wherever a warp's threads cover positions only
+  const int wgs = g.BW / VPT;
+  const int tpos = g.BD * g.BH * wgs;
+  const int fg = threadIdx.x / tpos;
+  const int pt = threadIdx.x - fg * tpos;
+  const int lx = (pt % wgs) * VPT;
+  const int ly = (pt / wgs) % g.BH;
+  const int lz = pt / (wgs * g.BH);
 
-  if constexpr (IM2COL) {
-    load_weights(w, ws, K, g.C, g.F, 0, g.CC, f0);  // one chunk: the weights stay
-    for (int kk = tid; kk < K * g.CC; kk += THREADS) {
-      const int c = kk % g.CC;
-      const int tap = kk / g.CC;
-      const int kx = tap % KW;
-      const int ky = (tap / KW) % g.KH;
-      const int kz = tap / (KW * g.KH);
-      offs[kk] = ((c * g.KD + kz) * g.HH + ky) * g.WW + kx;
-    }
+  const int plane_rows = g.SD * g.SH;
+  for (int q = threadIdx.x; q < g.rows; q += blockDim.x) {
+    const int cc = q / plane_rows, rr = q - cc * plane_rows;
+    tab[q] = (cc << 16) | ((rr / g.SH) << 8) | (rr % g.SH);
   }
+  __syncthreads();
 
-  // work items of this block: tiles blockIdx.x, blockIdx.x + gridDim.x, ...; chunks inside
-  const int my_tiles = (g.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const int items = my_tiles * g.nchunks;
-
-  auto tile_origin = [&](int item, int& n, int& d0, int& h0, int& w0, int& c0) {
-    int t = blockIdx.x + (item / g.nchunks) * gridDim.x;
-    c0 = (item % g.nchunks) * g.CC;
-    const int tw = t % g.tiles_w;
-    t /= g.tiles_w;
-    const int th = t % g.tiles_h;
-    t /= g.tiles_h;
-    d0 = t % g.D;
-    n = t / g.D;
-    h0 = th * g.TH;
-    w0 = tw * g.TW;
+  // this block's stages: (item, chunk) for its items blockIdx.x + k * gridDim.x
+  const int mine = static_cast<int>(blockIdx.x) < g.items
+                       ? (g.items - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1
+                       : 0;
+  const int total = mine * g.nchunks;
+  auto issue = [&](int t) {
+    int n, d0, h0, w0, f0;
+    item_origin(g, blockIdx.x + (t / g.nchunks) * gridDim.x, n, d0, h0, w0, f0);
+    stage_chunk(g, tab, x, w, smem + (t % STAGES) * stage, n, (t % g.nchunks) * g.CC, d0, h0,
+                w0, f0);
   };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) issue(s);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
 
   float acc[VPT][FPT];
 #pragma unroll
@@ -211,217 +226,140 @@ conv3d_fwd_v2_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __rest
 #pragma unroll
     for (int f = 0; f < FPT; ++f) acc[v][f] = 0.f;
 
-  if (items > 0) {
-    int n, d0, h0, w0, c0;
-    tile_origin(0, n, d0, h0, w0, c0);
-    load_item_window(x, stage[0], g, n, d0, h0, w0, c0, pd, ph);
+  const int wstep = g.CC * g.FT;  // floats from one kx tap to the next
+  const size_t plane = static_cast<size_t>(g.H) * g.W;
+  for (int t = 0; t < total; ++t) {
+    cp_async_wait<STAGES - 2>();  // stage t has landed (this thread's copies) ...
+    __syncthreads();              // ... everyone's, and stage t - 1's slot is free
+    if (t + STAGES - 1 < total) issue(t + STAGES - 1);
     cp_async_commit();
-  }
 
-  for (int item = 0; item < items; ++item) {
-    // prefetch the next item into the stage the previous item released
-    if (item + 1 < items) {
-      int n, d0, h0, w0, c0;
-      tile_origin(item + 1, n, d0, h0, w0, c0);
-      load_item_window(x, stage[(item + 1) & 1], g, n, d0, h0, w0, c0, pd, ph);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    int n, d0, h0, w0, c0;
-    tile_origin(item, n, d0, h0, w0, c0);
-    if constexpr (!IM2COL) load_weights(w, ws, K, g.C, g.F, c0, g.CC, f0);
-    __syncthreads();
-    const T* win = stage[item & 1];
-
-    if constexpr (IM2COL) {
-      // one K*C-wide contraction over the im2col operand, built KS rows at a time: this
-      // thread fills position pb of rows r0, r0 + THREADS / P, ... from the row offsets
-      const int KC = K * g.CC;
-      const int pb = tid % P, r0 = tid / P;
-      const int poff = (pb / g.TW) * g.WW + pb % g.TW + PADW - pw;
-      for (int k0 = 0; k0 < KC; k0 += KS) {
-        for (int r = r0; r < KS; r += THREADS / P) {
-          const int kk = k0 + r;
-          col[r * P + pb] = kk < KC ? widen(win[offs[kk] + poff]) : 0.f;
-        }
-        __syncthreads();
-        const int kmax = min(KS, KC - k0);
-        for (int kk = 0; kk < kmax; ++kk) {
-          const float2 a = *reinterpret_cast<const float2*>(col + kk * P + p0);
-          const float4 b = *reinterpret_cast<const float4*>(ws + (k0 + kk) * FT + fg * FPT);
-          const float wv[FPT] = {b.x, b.y, b.z, b.w};
+    const int chunk = t % g.nchunks;
+    const float* xs = smem + (t % STAGES) * stage + (lz * g.SH + ly) * g.RS + lx;
+    const float* ws = smem + (t % STAGES) * stage + g.xs_floats + fg * FPT;
+    const int cn = min(g.CC, g.C - chunk * g.CC);  // the chunk's channels that exist
+    for (int cc = 0; cc < cn; ++cc) {
+      for (int kz = 0; kz < g.KD; ++kz) {
+        for (int ky = 0; ky < g.KH; ++ky) {
+          const float* row = xs + ((cc * g.SD + kz) * g.SH + ky) * g.RS;
+          float xr[VPT + KW - 1];
 #pragma unroll
-          for (int f = 0; f < FPT; ++f) {
-            acc[0][f] = fmaf(a.x, wv[f], acc[0][f]);
-            acc[1][f] = fmaf(a.y, wv[f], acc[1][f]);
-          }
-        }
-        __syncthreads();
-      }
-    } else {
-      // per tap: contract the chunk's channels straight from the shifted window rows
-      for (int cc = 0; cc < g.CC; ++cc) {
-        for (int kz = 0; kz < g.KD; ++kz) {
-          for (int ky = 0; ky < g.KH; ++ky) {
-            const T* row = win + ((cc * g.KD + kz) * g.HH + ly + ky) * g.WW + PADW - pw + lx;
-            float xr[VPT + KW - 1];
+          for (int j = 0; j < VPT + KW - 1; ++j) xr[j] = row[j];
+          const float* wt = ws + ((kz * g.KH + ky) * KW * g.CC + cc) * g.FT;
 #pragma unroll
-            for (int j = 0; j < VPT + KW - 1; ++j) xr[j] = widen(row[j]);
+          for (int kx = 0; kx < KW; ++kx) {
+            float wv[FPT];
+            load_w<FPT>(wt + kx * wstep, wv);
 #pragma unroll
-            for (int kx = 0; kx < KW; ++kx) {
-              const int tap = (kz * g.KH + ky) * KW + kx;
-              const float4 b =
-                  *reinterpret_cast<const float4*>(ws + (tap * g.CC + cc) * FT + fg * FPT);
-              const float wv[FPT] = {b.x, b.y, b.z, b.w};
+            for (int v = 0; v < VPT; ++v)
 #pragma unroll
-              for (int v = 0; v < VPT; ++v)
-#pragma unroll
-                for (int f = 0; f < FPT; ++f) acc[v][f] = fmaf(xr[v + kx], wv[f], acc[v][f]);
-            }
+              for (int f = 0; f < FPT; ++f) acc[v][f] = fmaf(xr[v + kx], wv[f], acc[v][f]);
           }
         }
       }
     }
 
-    if (item % g.nchunks == g.nchunks - 1) {  // the tile's last chunk: store, restart
-      const int gh = h0 + ly;
-      const size_t plane = static_cast<size_t>(g.H) * g.W;
+    if (chunk != g.nchunks - 1) continue;
+    // the item's last chunk: store and restart the sums
+    int n, d0, h0, w0, f0;
+    item_origin(g, blockIdx.x + (t / g.nchunks) * gridDim.x, n, d0, h0, w0, f0);
+    const int gd = d0 + lz, gh = h0 + ly;
+    const bool row_in = gd < g.D && gh < g.H;
 #pragma unroll
-      for (int f = 0; f < FPT; ++f) {
-        const int gf = f0 + fg * FPT + f;
+    for (int f = 0; f < FPT; ++f) {
+      const int gf = f0 + fg * FPT + f;
+      float* yrow = y + ((static_cast<size_t>(n) * g.F + gf) * g.D + gd) * plane +
+                    static_cast<size_t>(gh) * g.W;
 #pragma unroll
-        for (int v = 0; v < VPT; ++v) {
-          const int gw = w0 + lx + v;
-          if (gf < g.F && gh < g.H && gw < g.W)
-            y[((static_cast<size_t>(n) * g.F + gf) * g.D + d0) * plane +
-              static_cast<size_t>(gh) * g.W + gw] = store_t<T>(acc[v][f]);
-          acc[v][f] = 0.f;
-        }
+      for (int v = 0; v < VPT; ++v) {
+        const int gw = w0 + lx + v;
+        if (row_in && gf < g.F && gw < g.W) yrow[gw] = acc[v][f];
+        acc[v][f] = 0.f;
       }
     }
-    __syncthreads();  // the stage just read is the one the next iteration refills
   }
 }
 
-size_t round16(size_t bytes) { return (bytes + 15) & ~static_cast<size_t>(15); }
-
-// Shared memory of a configuration: two window stages, the weights, and for im2col the
-// slab and the offset of each of its K*C rows.
-size_t smem_bytes(const Geometry& g, int K, int esize, bool im2col) {
-  return 2 * static_cast<size_t>(g.stage_elems) * esize +
-         static_cast<size_t>(K) * g.CC * FT * sizeof(float) +
-         (im2col ? static_cast<size_t>(KS) * P * sizeof(float) +
-                       static_cast<size_t>(K) * g.CC * sizeof(int)
-                 : 0);
-}
-
-void set_chunks(Geometry& g, int CC, int esize) {
-  g.CC = CC;
-  g.nchunks = (g.C + CC - 1) / CC;
-  const size_t elems = static_cast<size_t>(CC) * g.KD * g.HH * g.WW;
-  g.stage_elems = static_cast<int>(round16(elems * esize) / esize);
-}
-
-template <typename T, int KW, bool IM2COL>
-int launch_cfg(const T* x, const T* w, T* y, const Geometry& g, size_t smem, int n_blocks,
-               int f_tiles, cudaStream_t stream) {
-  auto kernel = conv3d_fwd_v2_kernel<T, KW, IM2COL>;
+template <int KW, int VPT, int FPT>
+int launch(const float* x, const float* w, float* y, const Geo& g, int threads, int blocks,
+           size_t smem, cudaStream_t stream) {
+  const auto kernel = conv3d_fwd_v2_kernel<KW, VPT, FPT>;
+  if (threads > (VPT == 8 ? 256 : 128)) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<dim3(n_blocks, f_tiles), THREADS, smem, stream>>>(x, w, y, g);
+  kernel<<<blocks, threads, smem, stream>>>(x, w, y, g);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int KW>
-int launch(const T* x, const T* w, T* y, int n, int c, int d, int h, int wd, int kd, int kh,
-           int f, cudaStream_t stream) {
-  constexpr int ESZ = sizeof(T);
-  Geometry g{};
-  g.C = c, g.D = d, g.H = h, g.W = wd, g.KD = kd, g.KH = kh, g.F = f;
-  g.TW = wd <= 8 ? 8 : 32;
-  g.TH = P / g.TW;
-  g.tiles_h = (h + g.TH - 1) / g.TH;
-  g.tiles_w = (wd + g.TW - 1) / g.TW;
-  const long long tiles = static_cast<long long>(n) * d * g.tiles_h * g.tiles_w;
-  if (tiles <= 0 || tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  g.tiles = static_cast<int>(tiles);
-  g.HH = g.TH + kh - 1;
-  g.WW = g.TW + 2 * PADW;
-  const int K = kd * kh * KW;
-
-  // im2col for C <= 32 when its operand fits; otherwise per tap over channel chunks
-  bool im2col = c <= 32;
-  size_t smem = 0;
-  if (im2col) {
-    set_chunks(g, c, ESZ);
-    smem = smem_bytes(g, K, ESZ, true);
-    im2col = smem <= MAX_SMEM;
-  }
-  if (!im2col) {
-    int cc = 32;
-    for (;; cc /= 2) {
-      set_chunks(g, cc, ESZ);
-      smem = smem_bytes(g, K, ESZ, false);
-      if (smem <= MAX_SMEM) break;
-      if (cc == 1) return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-
-  // cp.async chunk: 16 or 4 bytes where every row start (a multiple of W elements from an
-  // aligned base), the tile origin and the halo pad allow it; else plain loads
-  const uintptr_t base = reinterpret_cast<uintptr_t>(x);
-  g.VB = 0;
-  for (int cand : {16, 4}) {
-    if ((static_cast<size_t>(wd) * ESZ) % cand == 0 && base % cand == 0 &&
-        (PADW * ESZ) % cand == 0 && (g.TW * ESZ) % cand == 0) {
-      g.VB = cand;
-      break;
-    }
-  }
-
-  const int f_tiles = (f + FT - 1) / FT;
-  // about 2048 blocks in all, several waves of the card; each walks its share of tiles
-  const long long cap = 2048 / f_tiles + 1;
-  const int n_blocks = static_cast<int>(tiles < cap ? tiles : cap);
-  return im2col ? launch_cfg<T, KW, true>(x, w, y, g, smem, n_blocks, f_tiles, stream)
-                : launch_cfg<T, KW, false>(x, w, y, g, smem, n_blocks, f_tiles, stream);
-}
-
-template <typename T>
-int dispatch_kw(const void* x, const void* w, void* y, int n, int c, int d, int h, int wd, int kd,
-                int kh, int kw, int f, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  T* yt = static_cast<T*>(y);
+template <int VPT, int FPT>
+int launch_kw(int kw, const float* x, const float* w, float* y, const Geo& g, int threads,
+              int blocks, size_t smem, cudaStream_t s) {
   switch (kw) {
-    case 1: return launch<T, 1>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
-    case 3: return launch<T, 3>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
-    case 5: return launch<T, 5>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
-    case 7: return launch<T, 7>(xt, wt, yt, n, c, d, h, wd, kd, kh, f, s);
+    case 1: return launch<1, VPT, FPT>(x, w, y, g, threads, blocks, smem, s);
+    case 3: return launch<3, VPT, FPT>(x, w, y, g, threads, blocks, smem, s);
+    case 5: return launch<5, VPT, FPT>(x, w, y, g, threads, blocks, smem, s);
+    case 7: return launch<7, VPT, FPT>(x, w, y, g, threads, blocks, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// x: (n, c, d, h, wd), w: (kd, kh, kw, c, f), y: (n, f, d, h, wd), all of the element type
-// `dtype` (0 f32, 1 bf16) and contiguous on the device of `stream`.  Returns a cudaError_t
-// (0 when the launch was accepted); the caller checks it.
-extern "C" int saragan_conv3d_fwd_v2(int dtype, const void* x, const void* w, void* y, int n,
-                                     int c, int d, int h, int wd, int kd, int kh, int kw, int f,
-                                     void* stream) {
-  if (kd % 2 == 0 || kh % 2 == 0 || kw % 2 == 0) return static_cast<int>(cudaErrorInvalidValue);
+// x: (n, c, d, h, wd), w: (kd, kh, kw, c, f), y: (n, f, d, h, wd), f32, contiguous on the
+// device of `stream`.  The plan (ops/conv3d_flat.py::conv_v2_simt_plan): the output box
+// (bd, bh, bw), the channel chunk cc, the output tile ft, the register tile vpt x fpt
+// (8 x 8, 4 x 4, 4 x 2 or 4 x 1), the weight copy vw (4: 16-byte copies, w 16-byte
+// aligned and f % 4 == 0; or 1), the persistent grid `blocks` and the shared bytes it
+// computed; a plan this kernel cannot run is refused.
+// Returns a cudaError_t (0 when the launch was accepted); the caller checks it.
+extern "C" int saragan_conv3d_fwd_v2(const void* x, const void* w, void* y, int n, int c, int d,
+                                     int h, int wd, int kd, int kh, int kw, int f, int bd,
+                                     int bh, int bw, int cc, int ft, int vpt, int fpt, int vw,
+                                     int blocks, long long smem, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || c <= 0 || d <= 0 || h <= 0 || wd <= 0 || f <= 0) return bad;
+  if (kd <= 0 || kh <= 0 || kw <= 0 || kd % 2 == 0 || kh % 2 == 0 || kw % 2 == 0) return bad;
+  if (!pow2(bd) || !pow2(bh) || !pow2(bw) || !pow2(cc) || !pow2(ft)) return bad;
+  if (!((vpt == 8 && fpt == 8) || (vpt == 4 && (fpt == 4 || fpt == 2 || fpt == 1)))) return bad;
+  if (bw % vpt != 0 || ft % fpt != 0 || ft < 4) return bad;
+  if (vw != 1 && !(vw == 4 && f % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0)) return bad;
+
+  Geo g{};
+  g.C = c, g.D = d, g.H = h, g.W = wd, g.F = f, g.KD = kd, g.KH = kh, g.taps = kd * kh * kw;
+  g.BD = bd, g.BH = bh, g.BW = bw;
+  g.SD = bd + kd - 1, g.SH = bh + kh - 1, g.SW = bw + kw - 1, g.RS = g.SW | 1;
+  g.PD = kd / 2, g.PH = kh / 2, g.PW = kw / 2;
+  if (g.SD > 255 || g.SH > 255 || cc > 32767) return bad;  // the row table's packing
+  g.nbd = (d + bd - 1) / bd, g.nbh = (h + bh - 1) / bh, g.nbw = (wd + bw - 1) / bw;
+  g.f_tiles = (f + ft - 1) / ft;
+  g.CC = cc, g.lcc = ilog2(cc), g.FT = ft, g.lft = ilog2(ft), g.vw = vw;
+  g.nchunks = (c + cc - 1) / cc;
+  const int threads = (bd * bh * bw / vpt) * (ft / fpt);
+  int lw = 1;
+  while (lw < g.SW && lw < 32 && lw < threads) lw *= 2;
+  g.LW = lw;
+  g.rows = cc * g.SD * g.SH;
+  g.xs_floats = round_up(g.rows * g.RS, 4);
+  g.ws_floats = g.taps * cc * ft;
+  const size_t need = STAGES * (static_cast<size_t>(g.xs_floats) + g.ws_floats) * sizeof(float) +
+                      static_cast<size_t>(g.rows) * sizeof(int);
+  if (need != static_cast<size_t>(smem) || need > MAX_SMEM) return bad;
+  const long long items = static_cast<long long>(n) * g.nbd * g.nbh * g.nbw * g.f_tiles;
+  if (items > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  g.items = static_cast<int>(items);
+  if (blocks <= 0 || blocks > g.items) return bad;
+
+  const float* xt = static_cast<const float*>(x);
+  const float* wt = static_cast<const float*>(w);
+  float* yt = static_cast<float*>(y);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == saragan::DTYPE_F32)
-    return dispatch_kw<float>(x, w, y, n, c, d, h, wd, kd, kh, kw, f, s);
-  if (dtype == saragan::DTYPE_BF16)
-    return dispatch_kw<__nv_bfloat16>(x, w, y, n, c, d, h, wd, kd, kh, kw, f, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (vpt == 8) return launch_kw<8, 8>(kw, xt, wt, yt, g, threads, blocks, need, s);
+  if (fpt == 4) return launch_kw<4, 4>(kw, xt, wt, yt, g, threads, blocks, need, s);
+  if (fpt == 2) return launch_kw<4, 2>(kw, xt, wt, yt, g, threads, blocks, need, s);
+  return launch_kw<4, 1>(kw, xt, wt, yt, g, threads, blocks, need, s);
 }
 
 extern "C" const char* saragan_cuda_error_string(int e) {

@@ -1,7 +1,8 @@
-// Shared pieces of the tensor-core conv kernels (conv3d_fwd_tc.cu, conv3d_wgrad_tc.cu):
-// thin wrappers of ldmatrix, mma.sync m16n8k16 (bf16 in, f32 accumulators) and cp.async,
-// and the stager that copies a halo'd 3-D box of one sample from NCDHW device memory
-// into shared memory channels-last.
+// Shared pieces of the tensor-core conv kernels (conv3d_fwd_tc.cu, conv3d_wgrad_tc.cu,
+// conv3d_fwd_v2_tc.cu): thin wrappers of ldmatrix, mma.sync m16n8k16 (bf16 in, f32
+// accumulators) and cp.async, the stager that copies a halo'd 3-D box of one sample from
+// NCDHW device memory into shared memory channels-last, and the implicit-GEMM forward's
+// weight staging and k-step loop.
 //
 // Why channels-last.  An mma fragment holds pairs of consecutive K elements, and both
 // kernels contract over channels (the forward) or read a channel tile per position (the
@@ -275,6 +276,89 @@ __device__ __forceinline__ void x_end(const BoxGeo& g, XRegs<MAXI>& r, const bf1
       }
     }
   }
+}
+
+// --- the implicit-GEMM forward's pieces (conv3d_fwd_tc.cu, conv3d_fwd_v2_tc.cu): M =
+// positions, N = outputs, K = (tap, channel).  `G` is a kernel's geometry: it holds a
+// BoxGeo `box` and F, KH, KW, taps, FT, lft (log2 FT), WRS (weight row stride, FT + 8) and
+// vw (weight vector width).
+
+// Weights of channels [c0, c0 + CC) and outputs [f0, f0 + FT) as ws[(tap * CC + cc) * WRS + ff],
+// zero past C and F: 16-byte cp.async where vw == 8, plain loads otherwise.
+template <int NTHREADS, class G>
+__device__ __forceinline__ void stage_w(const G& g, const bf16* __restrict__ w, bf16* ws, int c0,
+                                        int f0) {
+  const int C = g.box.C, CC = g.box.CC, lcc = g.box.lpairs + 1;  // CC and FT: powers of two
+  if (g.vw == 8) {
+    const int lpr = g.lft - 3;  // 16-byte vectors per row: FT / 8
+    const int items = (g.taps * CC) << lpr;
+    const uint32_t base = smem_u32(ws);
+    for (int i = threadIdx.x; i < items; i += NTHREADS) {
+      const int j = i & ((1 << lpr) - 1);
+      const int t = i >> lpr;
+      const int cc = t & (CC - 1);
+      const int tap = t >> lcc;
+      const int c = c0 + cc, f = f0 + 8 * j;
+      const bool in = c < C && f < g.F;
+      const bf16* src = in ? w + (static_cast<size_t>(tap) * C + c) * g.F + f : w;
+      cp_async<16>(base + (t * g.WRS + 8 * j) * 2, src, in);
+    }
+  } else {
+    const int items = (g.taps * CC) << g.lft;
+    for (int i = threadIdx.x; i < items; i += NTHREADS) {
+      const int ff = i & (g.FT - 1);
+      const int t = i >> g.lft;
+      const int cc = t & (CC - 1);
+      const int tap = t >> lcc;
+      const int c = c0 + cc, f = f0 + ff;
+      ws[t * g.WRS + ff] = (c < C && f < g.F)
+                               ? w[(static_cast<size_t>(tap) * C + c) * g.F + f]
+                               : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Walks a chunk's k steps, (tap, 16 channels), in the order of the weight rows: tap-major,
+// taps in (kz, ky, kx) order; `delta` is the tap's staged-row offset.
+struct KCursor {
+  int ks, kx, ky, delta;
+};
+
+template <class G>
+__device__ __forceinline__ void advance(KCursor& k, const G& g) {
+  k.ks += 16;
+  if (k.ks < g.box.CC) return;
+  k.ks = 0;
+  ++k.delta;
+  if (++k.kx < g.KW) return;
+  k.kx = 0;
+  k.delta += g.box.SW - g.KW;
+  if (++k.ky < g.KH) return;
+  k.ky = 0;
+  k.delta += (g.box.SH - g.KH) * g.box.SW;
+}
+
+// A fragments of the step at `k` for each m tile (lane base addresses `xrow`) and B
+// fragments of the step's 16 weight rows at `wrow`.
+template <int MT, int NT>
+__device__ __forceinline__ void load_frags(uint32_t (&a)[MT][4], uint32_t (&b)[NT / 2][4],
+                                           const uint32_t (&xrow)[MT], uint32_t wrow,
+                                           const KCursor& k, int RS) {
+  const uint32_t at = (k.delta * RS + k.ks) * 2;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xrow[mt] + at);
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) ldmatrix_x4_trans(b[np], wrow + np * 32);
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void mma_frags(float (&acc)[MT][NT][4], const uint32_t (&a)[MT][4],
+                                          const uint32_t (&b)[NT / 2][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      mma_16816(acc[mt][nt], a[mt], b[nt / 2][(nt & 1) * 2], b[nt / 2][(nt & 1) * 2 + 1]);
 }
 
 }  // namespace tc

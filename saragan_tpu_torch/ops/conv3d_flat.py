@@ -2,19 +2,20 @@
 their plain versions.
 
 Replaces the ``pallas`` conv engine of the reference, ``saragan_tpu/ops/pallas_conv.py``:
-``conv3d_flat`` (kernel ``_fwd_kernel``) and ``conv3d_flat_wgrad`` (kernel
-``_wgrad_kernel``), each by two CUDA kernels chosen by dtype, and the pipelined variant
-``conv3d_flat_v2`` (kernel ``_fwd_v2_kernel``) by ``csrc/conv3d_fwd_v2.cu``:
+``conv3d_flat`` (kernel ``_fwd_kernel``), ``conv3d_flat_wgrad`` (kernel ``_wgrad_kernel``)
+and the pipelined variant ``conv3d_flat_v2`` (kernel ``_fwd_v2_kernel``), each by two CUDA
+kernels chosen by dtype:
 
 * bf16 (the train step) goes to the tensor-core kernels, route ``"tc"``:
-  ``csrc/conv3d_fwd_tc.cu`` and ``csrc/conv3d_wgrad_tc.cu`` (``mma.sync`` bf16, f32
-  accumulators).  Their tiling plans are plain Python here (``conv_tc_plan``,
-  ``wgrad_tc_plan``), so the CPU tests reach them; the C side re-checks a plan and refuses
-  one it cannot run;
-* f32 (serving, the f32 train step) stays on the CUDA-core kernels, route ``"simt"``:
-  ``csrc/conv3d_fwd.cu`` (its plan, ``conv_simt_plan``, is Python too) and
-  ``csrc/conv3d_wgrad.cu``.  Tensor cores in f32 would mean TF32, which the port keeps
-  off on purpose.
+  ``csrc/conv3d_fwd_tc.cu``, ``csrc/conv3d_wgrad_tc.cu`` and ``csrc/conv3d_fwd_v2_tc.cu``
+  (``mma.sync`` bf16, f32 accumulators);
+* f32 (serving, the f32 train step) goes to the CUDA-core kernels, route ``"simt"``:
+  ``csrc/conv3d_fwd.cu``, ``csrc/conv3d_wgrad.cu`` and ``csrc/conv3d_fwd_v2.cu``.  Tensor
+  cores in f32 would mean TF32, which the port keeps off on purpose.
+
+Every kernel's tiling plan is plain Python here (``conv_tc_plan``, ``wgrad_tc_plan``,
+``conv_simt_plan``, ``wgrad_simt_plan``, ``conv_v2_tc_plan``, ``conv_v2_simt_plan``), so
+the CPU tests reach them; the C side re-checks a plan and refuses one it cannot run.
 
 v2 is standalone, as in the reference, where no conv engine reaches it
 (``saragan_tpu/ops/core.py:553``); the port's engines use kernels #1 and #2.  Each source
@@ -42,6 +43,7 @@ of ``ops/conv3d_grad.py``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from collections import Counter
@@ -54,7 +56,7 @@ import torch.nn.functional as F
 from saragan_tpu_torch.ops import _build
 
 _SUPPORTED_KW = (1, 3, 5, 7)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/elem.cuh
+_DTYPES = (torch.float32, torch.bfloat16)  # what the kernels take
 
 
 def _check_odd(kernel):
@@ -88,7 +90,7 @@ def _check_cuda_operands(name, tensors):
         raise ValueError(f"{name} needs its operands on one CUDA device; got "
                          f"{[str(t.device) for t in tensors]}")
     dtype = tensors[0].dtype
-    if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in tensors):
+    if dtype not in _DTYPES or any(t.dtype != dtype for t in tensors):
         raise TypeError(f"{name} takes float32 or bfloat16 operands of one type; got "
                         f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
@@ -476,6 +478,274 @@ def _conv_simt_plan(sample_shape, w_shape, w_align) -> ConvSimtPlan:
                         threads=(math.prod(box) // vpt) * (ft // fpt), vw=vw, smem=smem)
 
 
+# --- tiling plans of the pipelined variant #3 (csrc/conv3d_fwd_v2_tc.cu, conv3d_fwd_v2.cu) ---
+
+V2_STAGES = 3      # the ring of (item, chunk) stages in shared memory
+H100_SMS = 132     # streaming multiprocessors: the wrappers ask the device (``_sm_count``)
+
+
+def v2_tc_box(d: int, h: int, w: int, kernel) -> Tuple[int, int, int]:
+    """The box of positions one tensor-core v2 work item owns: 256 positions where the
+    sample's volume rounded up to powers of two holds them, 16 where it holds no more than
+    16, else 128; of those shapes the one that stages the fewest positions (x is staged
+    channels-last, so a staged position costs the same wherever it lies) per position in
+    the volume, then the widest W."""
+    room = _pow2_ceil(d) * _pow2_ceil(h) * _pow2_ceil(w)
+    positions = 16 if room <= 16 else 256 if room >= 256 else 128
+    kd, kh, kw = kernel
+    best = None
+    for lw in range(positions.bit_length()):
+        for lh in range(positions.bit_length() - lw):
+            bw, bh = 1 << lw, 1 << lh
+            bd = positions // (bw * bh)
+            useful = min(bd, d) * min(bh, h) * min(bw, w)
+            key = ((bd + kd - 1) * (bh + kh - 1) * (bw + kw - 1) / useful, -bw)
+            if best is None or key < best[0]:
+                best = (key, (bd, bh, bw))
+    return best[1]
+
+
+@dataclass(frozen=True)
+class ConvV2TcPlan:
+    """How ``csrc/conv3d_fwd_v2_tc.cu`` runs one bf16 conv: `blocks` persistent blocks walk
+    the work items (sample, box, f tile) in channel chunks, through a ring of
+    ``V2_STAGES`` shared-memory stages."""
+    box: Tuple[int, int, int]
+    boxes: Tuple[int, int, int]
+    cc: int        # input channels per chunk (16 or 32)
+    chunks: int
+    cp: int        # channels of the channels-last copy of x: C rounded up to 8
+    ft: int        # output channels per item
+    f_tiles: int
+    layout: int    # as ConvTcPlan.layout
+    nt: int        # n8 tiles per warp
+    vw: int        # weight copy: 8 (16-byte cp.async) or 1 (plain loads)
+    resident: int  # 1: one chunk; the block's weights are staged once, outside the ring
+    smem: int      # shared bytes per block
+    items: int     # n * boxes * f_tiles
+    blocks: int    # the persistent grid: one or two blocks per SM
+
+
+def conv_v2_tc_plan(x_shape, w_shape, w_align: int = 16, sms: int = H100_SMS) -> ConvV2TcPlan:
+    """The tensor-core v2 kernel's plan for x (N,C,D,H,W) and w (kd,kh,kw,C,F); `w_align`
+    is the weights' address alignment in bytes, `sms` the card's SM count.  The box, the
+    chunk and the tiles come from one sample's shape alone, so the summation order (chunks
+    in order, (tap, 16 channels) k steps within one) never depends on the batch; the batch
+    sets only the item count and the grid.  Prefers, as ``conv_tc_plan`` does, the widest
+    output tile, then the largest chunk, that lets two blocks share an SM.  Cached."""
+    t = _v2_tc_tiling(tuple(int(v) for v in x_shape[1:]), tuple(int(v) for v in w_shape),
+                      8 if int(w_shape[4]) % 8 == 0 and int(w_align) % 16 == 0 else 1)
+    items = int(x_shape[0]) * t.items
+    blocks = min(items, (2 if t.smem <= TWO_BLOCKS_SMEM else 1) * int(sms))
+    if t.resident:  # each block keeps one f tile: the grid is a multiple of the f tiles
+        blocks = max(t.f_tiles, blocks // t.f_tiles * t.f_tiles)
+    return dataclasses.replace(t, items=items, blocks=blocks)
+
+
+@functools.lru_cache(maxsize=4096)
+def _v2_tc_tiling(sample_shape, w_shape, vw) -> ConvV2TcPlan:
+    c, d, h, wd = sample_shape
+    kd, kh, kw, _, f = w_shape
+    kernel = (kd, kh, kw)
+    taps = kd * kh * kw
+    box = v2_tc_box(d, h, wd, kernel)
+    layout = _LAYOUTS[math.prod(box)]
+    ft_per_nt = 32 if layout == 1 else 8  # warps along N or along M
+    nts = (4, 2) if f > 2 * ft_per_nt else (2,)
+    ccs = (32, 16) if _round_up(c, 16) >= 32 else (16,)
+    spos = (box[0] + kd - 1) * (box[1] + kh - 1) * (box[2] + kw - 1)  # the position table
+    fits = []
+    for nt in nts:
+        for cc in ccs:
+            ft = ft_per_nt * nt
+            resident = int(c <= cc)
+            ws = _round_up(taps * cc * (ft + 8), 8)
+            stage = _stage_elems(box, kernel, cc) + (0 if resident else ws)
+            smem = (resident * ws + V2_STAGES * stage) * 2 + 4 * spos
+            if smem <= MAX_SMEM:
+                fits.append((smem > TWO_BLOCKS_SMEM, nt, cc, ft, resident, smem))
+    if not fits:
+        raise ValueError(f"conv3d_fwd_v2_tc has no tiling that fits shared memory for x "
+                         f"{sample_shape}, w {tuple(w_shape)}")
+    _, nt, cc, ft, resident, smem = min(fits, key=lambda t: t[0])  # stable: preferred order
+    boxes = _boxes((d, h, wd), box)
+    return ConvV2TcPlan(box=box, boxes=boxes, cc=cc, chunks=-(-c // cc), cp=_round_up(c, 8),
+                        ft=ft, f_tiles=-(-f // ft), layout=layout, nt=nt, vw=vw,
+                        resident=resident, smem=smem, items=math.prod(boxes) * -(-f // ft),
+                        blocks=0)
+
+
+@dataclass(frozen=True)
+class ConvV2SimtPlan:
+    """How ``csrc/conv3d_fwd_v2.cu`` runs one f32 conv: `blocks` persistent blocks walk the
+    work items (sample, box, f tile) in channel chunks, through a ring of ``V2_STAGES``
+    shared-memory stages."""
+    box: Tuple[int, int, int]
+    boxes: Tuple[int, int, int]
+    cc: int
+    chunks: int
+    ft: int
+    f_tiles: int
+    vpt: int
+    fpt: int
+    threads: int
+    vw: int        # weight copy: 4 (16-byte cp.async) or 1
+    smem: int      # the ring's stages and the row table
+    items: int
+    blocks: int
+
+
+def conv_v2_simt_plan(x_shape, w_shape, w_align: int = 16,
+                      sms: int = H100_SMS) -> ConvV2SimtPlan:
+    """The CUDA-core v2 kernel's plan for x (N,C,D,H,W) and w (kd,kh,kw,C,F): the register
+    tile and box of ``conv_simt_plan`` (one sample's shape alone), the largest channel
+    chunk whose ``V2_STAGES`` stages leave room for ``SIMT_BLOCKS_PER_SM`` blocks, and a
+    grid of that many blocks per SM.  Each output sums channel by channel, tap by tap,
+    whatever the plan.  Cached."""
+    tiling = _v2_simt_tiling(tuple(int(v) for v in x_shape[1:]),
+                             tuple(int(v) for v in w_shape),
+                             4 if int(w_shape[4]) % 4 == 0 and int(w_align) % 16 == 0 else 1)
+    items = int(x_shape[0]) * tiling.items
+    return dataclasses.replace(
+        tiling, items=items, blocks=min(items, SIMT_BLOCKS_PER_SM[tiling.vpt] * int(sms)))
+
+
+@functools.lru_cache(maxsize=4096)
+def _v2_simt_tiling(sample_shape, w_shape, vw) -> ConvV2SimtPlan:
+    c, d, h, wd = sample_shape
+    kd, kh, kw, _, f = w_shape
+    p = _conv_simt_plan(sample_shape, w_shape, 16)  # its tile, box and output tile
+    taps = kd * kh * kw
+    sd, sh, rs = p.box[0] + kd - 1, p.box[1] + kh - 1, (p.box[2] + kw - 1) | 1
+    budget = MAX_SMEM // SIMT_BLOCKS_PER_SM[p.vpt] - 1024
+    cc = _pow2_ceil(c)
+    while True:  # the ring's stages and the row table (csrc/conv3d_fwd_v2.cu: Geo)
+        smem = V2_STAGES * (_round_up(cc * sd * sh * rs, 4) + taps * cc * p.ft) * 4 + cc * sd * sh * 4
+        if smem <= budget or cc == 1:
+            break
+        cc //= 2
+    if smem > MAX_SMEM:
+        raise ValueError(f"conv3d_fwd_v2 has no tiling that fits shared memory for x "
+                         f"{sample_shape}, w {tuple(w_shape)}")
+    return ConvV2SimtPlan(box=p.box, boxes=p.boxes, cc=cc, chunks=-(-c // cc), ft=p.ft,
+                          f_tiles=p.f_tiles, vpt=p.vpt, fpt=p.fpt, threads=p.threads, vw=vw,
+                          smem=smem, items=math.prod(p.boxes) * p.f_tiles, blocks=0)
+
+
+# --- tiling plan of the CUDA-core wgrad kernel (csrc/conv3d_wgrad.cu) ---
+
+WGRAD_SIMT_THREADS = 384  # most threads per block (csrc/conv3d_wgrad.cu: MAX_THREADS)
+WGRAD_SIMT_FPT = 8        # outputs per thread
+SM_THREADS = 2048         # resident threads per SM
+SM_REGS = 65536           # registers per SM; the kernel holds at most 128 a thread
+WGRAD_SIMT_WORKSPACE_CAP = 16 << 20  # f32 partial sums (64 MB)
+WGRAD_REDUCE_GROUP = 32   # slots per partial sum of pass 2 (csrc/conv3d_wgrad.cu)
+
+
+@dataclass(frozen=True)
+class WgradSimtPlan:
+    """How ``csrc/conv3d_wgrad.cu`` runs one f32 wgrad: pass-1 blocks per (split, c tile,
+    f tile), each reducing `per_split` consecutive position boxes, its threads split into
+    `pg` position groups, each (split, position group) into its own workspace slot."""
+    box: Tuple[int, int, int]
+    boxes: Tuple[int, int, int]
+    ct: int          # input channels per block
+    c_tiles: int
+    ft: int          # output channels per block (8 per thread)
+    f_tiles: int
+    pg: int          # position groups per block
+    ry: int          # tap rows (ky) per thread: 3 where kh % 3 == 0 and kw <= 3, else 1
+    vpt: int         # W positions per inner step: 8 where the box is 8 wide or more, else 4
+    threads: int
+    tiles: int       # boxes over the batch
+    splits: int
+    per_split: int
+    vx: int          # x copy: 4 floats (16-byte cp.async) or 1
+    vdy: int         # dy copy: 4 floats or 1
+    smem: int        # two stages of x and dy boxes, the row table
+    ws_floats: int   # f32 workspace: (slots + groups) x taps x C x F, slots = splits x pg,
+                     # groups of 32 slots summed first where there are more than 32
+
+
+def _wgrad_x_stride(box, kernel) -> int:
+    """Floats per staged channel of the CUDA-core wgrad's x box (csrc/conv3d_wgrad.cu:
+    Geo.CS): rows of BW + 8 floats at a stride of an odd count of 16-byte words, an odd
+    count of rows per plane, and the channel stride congruent to KD planes mod 8 words."""
+    (bd, bh, bw), (kd, kh, _) = box, kernel
+    sd, shs, rq = bd + kd - 1, (bh + kh - 1) | 1, (bw + 8) // 4 | 1
+    box_q = sd * shs * rq
+    return 4 * (box_q + (kd * shs * rq - box_q) % 8)
+
+
+def wgrad_simt_plan(x_shape, dy_shape, kernel, x_align: int = 16,
+                    dy_align: int = 16) -> WgradSimtPlan:
+    """The CUDA-core wgrad kernel's plan for x (N,C,D,H,W), dy (N,F,D,H,W) and a
+    `kernel`-sized window.  Box, tiles, position groups and split are functions of the
+    shapes alone, so a given problem always sums in the same order; the operands'
+    alignments pick only their copy widths.  Prefers blocks of at least 128 threads, then
+    the most threads an SM holds at once (up to 384), then the fewest positions outside
+    the volume, then the fewest staged x floats per position (the most cube-like box: in
+    a sweep of boxes on the card, 4 x 4 x 16 was the fastest or within noise of it at the
+    step's 32²-128² shapes, PERF.md), then the most channels and position groups.
+    Cached."""
+    tiling = _wgrad_simt_tiling(tuple(int(v) for v in x_shape), int(dy_shape[1]),
+                                tuple(int(k) for k in kernel))
+    wide = int(x_shape[4]) % 4 == 0
+    return dataclasses.replace(tiling, vx=4 if wide and int(x_align) % 16 == 0 else 1,
+                               vdy=4 if wide and int(dy_align) % 16 == 0 else 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def _wgrad_simt_tiling(x_shape, f, kernel) -> WgradSimtPlan:
+    n, c, d, h, wd = x_shape
+    kd, kh, kw = kernel
+    taps = kd * kh * kw
+    ry = 3 if kh % 3 == 0 and kw <= 3 else 1
+    ft = 32 if f > 16 else 16 if f > 8 else 8
+    room = _pow2_ceil(d) * _pow2_ceil(h) * max(_pow2_ceil(wd), 4)
+    cands = []
+    for positions in {min(128, room), min(256, room)}:
+        for lw in range(2, positions.bit_length()):  # BW >= 4
+            for lh in range(positions.bit_length() - lw):
+                box = (positions // (1 << (lw + lh)), 1 << lh, 1 << lw)
+                useful = min(box[0], d) * min(box[1], h) * min(box[2], wd)
+                rows = (box[0] + kd - 1) * (box[1] + kh - 1)
+                staged = rows * (box[2] + 8)  # x floats staged per channel
+                cs = _wgrad_x_stride(box, kernel)
+                ct = min(_pow2_ceil(c), 64)
+                while ct >= 1:
+                    pg = box[0] * box[1]
+                    while pg >= 1:
+                        threads = (ft // WGRAD_SIMT_FPT) * pg * ct * kd * (kh // ry)
+                        smem = 2 * (ct * cs + ft * positions) * 4 + ct * rows * 4
+                        if threads <= WGRAD_SIMT_THREADS and smem <= MAX_SMEM:
+                            per_sm = min(MAX_SMEM // (smem + 1024), SM_THREADS // threads,
+                                         SM_REGS // (128 * threads))
+                            key = (threads < 128, -min(per_sm * threads, 384),
+                                   positions / useful, staged / useful, -ct, -pg, -box[2])
+                            cands.append((key, box, ct, pg, threads, smem))
+                        pg //= 2
+                    ct //= 2
+    if not cands:
+        raise ValueError(f"conv3d_wgrad has no tiling that fits for x {tuple(x_shape)}, "
+                         f"kernel {kernel}")
+    _, box, ct, pg, threads, smem = min(cands, key=lambda t: t[0])
+    c_tiles, f_tiles = -(-c // ct), -(-f // ft)
+    boxes = _boxes((d, h, wd), box)
+    tiles = n * math.prod(boxes)
+    kcf = taps * c * f
+    s = -(-WGRAD_TARGET_BLOCKS // (c_tiles * f_tiles))
+    s = min(s, max(1, WGRAD_SIMT_WORKSPACE_CAP // (pg * kcf)), tiles)
+    per_split = -(-tiles // s)
+    splits = -(-tiles // per_split)
+    groups = -(-splits * pg // WGRAD_REDUCE_GROUP)
+    return WgradSimtPlan(box=box, boxes=boxes, ct=ct, c_tiles=c_tiles, ft=ft, f_tiles=f_tiles,
+                         pg=pg, ry=ry, vpt=min(box[2], 8), threads=threads, tiles=tiles,
+                         splits=splits,
+                         per_split=per_split, vx=4, vdy=4, smem=smem,
+                         ws_floats=(splits * pg + (groups if groups > 1 else 0)) * kcf)
+
+
 def conv_route(dtype: torch.dtype) -> str:
     """Which kernels serve a dtype: "tc" (tensor cores) for bf16, "simt" (CUDA cores)
     for f32."""
@@ -535,20 +805,33 @@ conv3d_flat_cuda.by_shape = Counter()  # (role, x shape, w shape, dtype) -> laun
 
 
 def conv3d_flat_v2_cuda(x: torch.Tensor, w: torch.Tensor, role: str = "forward") -> torch.Tensor:
-    """Launch the pipelined forward kernel (``csrc/conv3d_fwd_v2.cu``) on PyTorch's
-    current stream.  `role` only labels the launch count ("forward" or "dgrad")."""
+    """Launch the pipelined forward kernel of x's dtype (``conv_route``: bf16
+    ``csrc/conv3d_fwd_v2_tc.cu`` with its channels-last pass into a scratch buffer from
+    PyTorch's allocator, f32 ``csrc/conv3d_fwd_v2.cu``) on PyTorch's current stream.
+    `role` only labels the launch count ("forward" or "dgrad")."""
     _check_shapes(x, w)
     _check_cuda_operands("conv3d_flat_v2_cuda", (x, w))
-    if w.shape[2] not in _SUPPORTED_KW:
-        raise ValueError(f"kernel width {w.shape[2]} not in {_SUPPORTED_KW}")
     n, c, d, h, wd = x.shape
     kd, kh, kw, _, f = w.shape
+    route = conv_route(x.dtype)
     y = torch.empty((n, f, d, h, wd), dtype=x.dtype, device=x.device)
-    lib = _v2_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.saragan_conv3d_fwd_v2(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                                    y.data_ptr(), n, c, d, h, wd, kd, kh, kw, f, stream)
-    _raise_on_error(lib, err, f"conv3d_fwd_v2 launch for x {tuple(x.shape)}, "
+    if route == "tc":
+        p = conv_v2_tc_plan(x.shape, w.shape, _alignment(w.data_ptr()), _sm_count(x.device))
+        xcl = torch.empty(n * d * h * wd * p.cp, dtype=x.dtype, device=x.device)
+        lib = _v2_tc_library()
+        err = lib.saragan_conv3d_fwd_v2_tc(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), xcl.data_ptr(), n, c, d, h, wd, kd, kh, kw,
+            f, *p.box, p.cc, p.ft, p.layout, p.nt, p.vw, p.resident, p.blocks, p.smem,
+            _stream(x))
+    else:
+        if kw not in _SUPPORTED_KW:
+            raise ValueError(f"kernel width {kw} not in {_SUPPORTED_KW}")
+        p = conv_v2_simt_plan(x.shape, w.shape, _alignment(w.data_ptr()), _sm_count(x.device))
+        lib = _v2_library()
+        err = lib.saragan_conv3d_fwd_v2(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, c, d, h,
+                                        wd, kd, kh, kw, f, *p.box, p.cc, p.ft, p.vpt, p.fpt,
+                                        p.vw, p.blocks, p.smem, _stream(x))
+    _raise_on_error(lib, err, f"conv3d_fwd_v2 ({route}) launch for x {tuple(x.shape)}, "
                               f"w {tuple(w.shape)}")
     conv3d_flat_v2_cuda.launches += 1
     conv3d_flat_v2_cuda.by_shape[(role, tuple(x.shape), tuple(w.shape), x.dtype)] += 1
@@ -583,15 +866,14 @@ def conv3d_flat_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor,
     else:
         if kw not in _SUPPORTED_KW:
             raise ValueError(f"kernel width {kw} not in {_SUPPORTED_KW}")
+        p = wgrad_simt_plan(x.shape, dy.shape, (kd, kh, kw), _alignment(x.data_ptr()),
+                            _alignment(dy.data_ptr()))
+        ws = torch.empty(p.ws_floats, dtype=torch.float32, device=x.device)
         lib = _wgrad_library()
-        floats = lib.saragan_conv3d_wgrad_workspace_floats(n, c, d, h, wd, kd, kh, kw, f)
-        if floats < 0:
-            raise ValueError(f"conv3d_wgrad does not take x {tuple(x.shape)}, dy "
-                             f"{tuple(dy.shape)}, kernel {(kd, kh, kw)}")
-        ws = torch.empty(floats, dtype=torch.float32, device=x.device)
-        err = lib.saragan_conv3d_wgrad(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-                                       ws.data_ptr(), floats, n, c, d, h, wd, kd, kh, kw, f,
-                                       _stream(x))
+        err = lib.saragan_conv3d_wgrad(
+            x.data_ptr(), dy.data_ptr(), dw.data_ptr(), ws.data_ptr(), p.ws_floats, n, c, d, h,
+            wd, kd, kh, kw, f, *p.box, p.ct, p.ft, p.pg, p.ry, p.vpt, p.splits, p.per_split,
+            p.vx, p.vdy, p.smem, _stream(x))
     _raise_on_error(lib, err, f"conv3d_wgrad ({route}) launch for x {tuple(x.shape)}, dy "
                               f"{tuple(dy.shape)}")
     conv3d_flat_wgrad_cuda.launches += 1
@@ -645,7 +927,20 @@ def _wgrad_tc_library() -> ctypes.CDLL:
 def _v2_library() -> ctypes.CDLL:
     lib = _build.load_library("conv3d_fwd_v2")
     fn = lib.saragan_conv3d_fwd_v2
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 18 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.saragan_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.saragan_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _v2_tc_library() -> ctypes.CDLL:
+    lib = _build.load_library("conv3d_fwd_v2_tc")
+    fn = lib.saragan_conv3d_fwd_v2_tc
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.saragan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.saragan_cuda_error_string.restype = ctypes.c_char_p
@@ -655,16 +950,20 @@ def _v2_library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _wgrad_library() -> ctypes.CDLL:
     lib = _build.load_library("conv3d_wgrad")
-    q = lib.saragan_conv3d_wgrad_workspace_floats
-    q.argtypes = [ctypes.c_int] * 9
-    q.restype = ctypes.c_longlong
     fn = lib.saragan_conv3d_wgrad
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 18
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.saragan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.saragan_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device: the v2 kernels' persistent grid."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _device_path(name, x):

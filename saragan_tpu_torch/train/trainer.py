@@ -153,9 +153,10 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         # the run's engine, resolved for the device where unset: what the steps, the
-        # events and a resumed run (which resolves the same way) see.  Written into the
-        # caller's config, as --auto_resume writes continue_path and starting_phase below
-        cfg.conv_engine = resolve_conv_engine(cfg.conv_engine, self.device.type)
+        # events and a resumed run (which resolves the same way) see.  Held here, not
+        # written into the caller's config, so that another Trainer built from the same
+        # config resolves its own
+        self.conv_engine = resolve_conv_engine(cfg.conv_engine, self.device.type)
         self.arch = get_architecture(cfg.architecture)
         self.dataset_factory = dataset_factory
         self.draws_fn = draws_fn
@@ -175,7 +176,7 @@ class Trainer:
                 self._auto_resume_note = (f"auto_resume: continuing from {ar.continue_path} "
                                           f"at phase {ar.starting_phase}")
         self.writer = summ.SummaryWriter(self.logdir if verbose else None)
-        self.writer.text("config/conv_engine", cfg.conv_engine, 0)
+        self.writer.text("config/conv_engine", self.conv_engine, 0)
         self.last_fid: Optional[float] = None
         self.last_img_s: float = 0.0
         self.state: Optional[TrainState] = None
@@ -304,9 +305,9 @@ class Trainer:
             with _train_numerics():
                 out = losses.forward_simultaneous(
                     lambda p, z: arch.generator(p, z, a, phase=phase, cfg=cfg,
-                                                conv_engine=cfg.conv_engine),
+                                                conv_engine=self.conv_engine),
                     lambda p, x: arch.discriminator(p, x, a, phase=phase, cfg=cfg,
-                                                    conv_engine=cfg.conv_engine),
+                                                    conv_engine=self.conv_engine),
                     g_params, d_params, real, draws, loss_fn=cfg.loss_fn,
                     gp_weight=cfg.gp_weight, noise_stddev=cfg.noise_stddev)
             return tuple(v.detach() for v in out)
@@ -331,7 +332,7 @@ class Trainer:
             return self.last_fid
         if self._auto_resume_note:
             self._log(self._auto_resume_note)
-        self._log(f"Conv engine: {cfg.conv_engine} on {self.device}")
+        self._log(f"Conv engine: {self.conv_engine} on {self.device}")
         start_train = time.time()
         global_step = 0
 
@@ -411,7 +412,7 @@ class Trainer:
 
         frozen = (self._prev_phase_names(phase, {**state.g_params, **state.d_params})
                   if cfg.mixing_nimg > 0 else frozenset())
-        engine = cfg.conv_engine
+        engine = self.conv_engine
         lazy_k = max(1, int(cfg.lazy_gp))
         steps = {}
 

@@ -6,6 +6,7 @@ dispatch by dtype: bf16 to the tensor-core route ("tc"), f32 to the CUDA-core ro
 here their plans, which the C side re-checks, and the wrappers' routing are held with a
 stubbed library."""
 
+import dataclasses
 import math
 from collections import Counter
 
@@ -250,13 +251,15 @@ class _StubLibrary:
 
 @pytest.fixture
 def stubbed(monkeypatch):
-    """The four conv libraries stubbed, operand checks that need CUDA tensors skipped."""
-    libs = {name: _StubLibrary() for name in ("fwd", "fwd_tc", "wgrad", "wgrad_tc")}
+    """The six conv libraries stubbed, operand checks that need CUDA tensors skipped."""
+    libs = {name: _StubLibrary() for name in ("fwd", "fwd_tc", "wgrad", "wgrad_tc", "v2",
+                                                "v2_tc")}
     for name, lib in libs.items():
         monkeypatch.setattr(cf, f"_{name}_library", lambda lib=lib: lib)
     monkeypatch.setattr(cf, "_check_cuda_operands", lambda name, tensors: None)
     monkeypatch.setattr(cf, "_stream", lambda x: 0)
-    for fn in (cf.conv3d_flat_cuda, cf.conv3d_flat_wgrad_cuda):
+    monkeypatch.setattr(cf, "_sm_count", lambda device: cf.H100_SMS)
+    for fn in (cf.conv3d_flat_cuda, cf.conv3d_flat_wgrad_cuda, cf.conv3d_flat_v2_cuda):
         monkeypatch.setattr(fn, "launches", 0)
         monkeypatch.setattr(fn, "by_shape", Counter())
     return libs
@@ -294,9 +297,11 @@ def test_wgrad_routes_bf16_to_tensor_cores_and_f32_to_cuda_cores(stubbed):
     assert args[4:] == (p.ws_floats, 2, 16, 4, 16, 16, 3, 3, 3, 32, *p.box, p.ct, p.ft, p.tpb,
                         p.splits, p.per_split, cf.TC_STAGERS[p.stager], p.ve, p.ve_dy, p.smem,
                         0)
-    assert [n for n, _ in stubbed["wgrad"].calls] == ["saragan_conv3d_wgrad_workspace_floats",
-                                                      "saragan_conv3d_wgrad"]
-    assert stubbed["wgrad"].calls[1][1][4:] == (1 << 20, 2, 16, 4, 16, 16, 3, 3, 3, 32, 0)
+    [(name, args)] = stubbed["wgrad"].calls
+    q = cf.wgrad_simt_plan(x.shape, dy.shape, (3, 3, 3))
+    assert name == "saragan_conv3d_wgrad"
+    assert args[4:] == (q.ws_floats, 2, 16, 4, 16, 16, 3, 3, 3, 32, *q.box, q.ct, q.ft, q.pg,
+                        q.ry, q.vpt, q.splits, q.per_split, q.vx, q.vdy, q.smem, 0)
     assert not stubbed["fwd"].calls and not stubbed["fwd_tc"].calls
 
 
@@ -320,3 +325,164 @@ def test_wgrad_stager_follows_the_output_tile(f, align, stager):
     cannot copy (2-byte vectors)."""
     p = cf.wgrad_tc_plan((8, 16, 8, 32, 32), (8, f, 8, 32, 32), (3, 3, 3), align, align)
     assert p.stager == stager
+
+
+# --- kernel #3 (conv3d_flat_v2) and the f32 wgrad (#2, CUDA cores) ---
+
+def check_v2_plans(xs, ws):
+    """Both v2 plans: shared memory and threads within the card's limits, the box covering
+    the volume once, the grid persistent, and the tiling (and with it every summation
+    order) a function of one sample's shape."""
+    n, c, d, h, wd = xs
+    f = ws[-1]
+    p = cf.conv_v2_tc_plan(xs, ws)
+    assert p.smem <= cf.MAX_SMEM and 32 * (8 if p.layout == 2 else 4) <= 1024
+    check_box(p.box, (d, h, wd))
+    assert p.layout == {128: 0, 16: 1, 256: 2}[math.prod(p.box)]
+    assert p.ft == (32 if p.layout == 1 else 8) * p.nt and p.nt in (2, 4)
+    assert p.cc in (16, 32) and p.chunks == -(-c // p.cc) and p.cp == -(-c // 8) * 8
+    assert p.resident == (p.chunks == 1) and p.f_tiles == -(-f // p.ft)
+    wstage = cf._round_up(math.prod(ws[:3]) * p.cc * (p.ft + 8), 8)
+    ring = 3 * (cf._stage_elems(p.box, ws[:3], p.cc) + (0 if p.resident else wstage))
+    spos = math.prod(b + k - 1 for b, k in zip(p.box, ws[:3]))
+    assert p.smem == 2 * (ring + p.resident * wstage) + 4 * spos
+    for extent, b, nb in zip((d, h, wd), p.box, p.boxes):
+        assert covers_once(extent, b, nb)
+    assert p.items == n * math.prod(p.boxes) * p.f_tiles < 2 ** 31
+    assert 1 <= p.blocks <= min(p.items, 2 * cf.H100_SMS)
+    if p.resident:  # each block keeps one f tile
+        assert p.blocks % p.f_tiles == 0
+    q = cf.conv_v2_simt_plan(xs, ws)
+    assert q.smem <= cf.MAX_SMEM // cf.SIMT_BLOCKS_PER_SM[q.vpt] - 1024 or q.cc == 1
+    assert q.smem <= cf.MAX_SMEM and q.threads <= cf.SIMT_THREADS[q.vpt] <= 1024
+    simt = cf.conv_simt_plan(xs, ws)
+    assert (q.box, q.ft, q.vpt, q.fpt, q.threads) == (simt.box, simt.ft, simt.vpt, simt.fpt,
+                                                      simt.threads)
+    rows = q.cc * (q.box[0] + ws[0] - 1) * (q.box[1] + ws[1] - 1)
+    assert q.smem == 3 * 4 * (cf._round_up(rows * ((q.box[2] + ws[2] - 1) | 1), 4)
+                              + math.prod(ws[:3]) * q.cc * q.ft) + 4 * rows
+    assert q.items == n * math.prod(q.boxes) * q.f_tiles
+    assert 1 <= q.blocks <= min(q.items, cf.SIMT_BLOCKS_PER_SM[q.vpt] * cf.H100_SMS)
+    for batch in (1, 8, 16, n + 3):
+        for plan, other in ((p, cf.conv_v2_tc_plan((batch, *xs[1:]), ws)),
+                            (q, cf.conv_v2_simt_plan((batch, *xs[1:]), ws))):
+            assert dataclasses.replace(other, items=plan.items, blocks=plan.blocks) == plan
+    return p, q
+
+
+def check_wgrad_simt_plan(xs, dys, k):
+    n, c, d, h, wd = xs
+    f = dys[1]
+    p = cf.wgrad_simt_plan(xs, dys, k)
+    assert p.smem <= cf.MAX_SMEM and 0 < p.threads <= cf.WGRAD_SIMT_THREADS <= 1024
+    assert all(b > 0 and b & (b - 1) == 0 for b in p.box) and p.box[2] >= 4
+    for extent, b, nb in zip((d, h, wd), p.box, p.boxes):
+        assert covers_once(extent, b, nb)
+    assert p.ry == (3 if k[1] % 3 == 0 and k[2] <= 3 else 1)
+    assert p.vpt == (8 if p.box[2] >= 8 else 4)
+    assert p.threads == p.ft // 8 * p.pg * p.ct * k[0] * (k[1] // p.ry)
+    assert p.pg <= p.box[0] * p.box[1] and p.c_tiles * p.ct >= c and p.f_tiles * p.ft >= f
+    assert p.tiles == n * math.prod(p.boxes)
+    assert (p.splits - 1) * p.per_split < p.tiles <= p.splits * p.per_split
+    slots = p.splits * p.pg
+    groups = -(-slots // 32)
+    assert p.ws_floats == (slots + (groups if groups > 1 else 0)) * math.prod(k) * c * f
+    assert slots * math.prod(k) * c * f <= 16 << 20 or p.splits == 1
+    # the split (and so the summation order) is a function of the shapes alone: the
+    # operands' alignments pick only their copy widths
+    for x_align, dy_align in ((4, 16), (16, 8), (4, 4), (16, 16)):
+        q = cf.wgrad_simt_plan(xs, dys, k, x_align, dy_align)
+        assert dataclasses.replace(q, vx=p.vx, vdy=p.vdy) == p
+        assert q.vx == (4 if wd % 4 == 0 and x_align == 16 else 1)
+        assert q.vdy == (4 if wd % 4 == 0 and dy_align == 16 else 1)
+    return p
+
+
+@pytest.mark.parametrize("batch", [8, 16])
+@pytest.mark.parametrize("phase", range(1, 9))
+def test_v2_and_f32_wgrad_plans_fit_every_flagship_shape(phase, batch, monkeypatch):
+    """Every forward and dgrad shape of the flagship step at phases 1-8 gets both v2 plans,
+    every wgrad shape the f32 wgrad's plan."""
+    convs, wgrads = step_shapes(phase, batch, monkeypatch)
+    for xs, ws in convs:
+        check_v2_plans(xs, ws)
+    for xs, dys, k in wgrads:
+        check_wgrad_simt_plan(xs, dys, k)
+
+
+@pytest.mark.parametrize("xs,ws", SERVING_CONVS)
+def test_v2_plans_fit_the_serving_planes(xs, ws):
+    p, _ = check_v2_plans(xs, ws)
+    # the 4x4 and 8x8 planes: one box per sample, not a mostly empty one
+    if xs[3:] in ((4, 4), (8, 8)):
+        assert p.boxes == (1, 1, 1)
+
+
+@pytest.mark.parametrize("spatial,kernel,box", [
+    ((1, 4, 4), (1, 3, 3), (1, 4, 4)),
+    ((2, 8, 8), (1, 3, 3), (2, 8, 8)),
+    ((32, 128, 128), (3, 3, 3), (8, 4, 8)),
+    ((3, 5, 37), (3, 3, 3), (2, 4, 32)),
+])
+def test_v2_tc_box_stages_the_fewest_positions(spatial, kernel, box):
+    assert cf.v2_tc_box(*spatial, kernel) == box
+
+
+def test_v2_tc_keeps_the_weights_resident_only_with_one_chunk():
+    one = cf.conv_v2_tc_plan((8, 16, 16, 64, 64), (3, 3, 3, 16, 48))
+    assert one.resident == 1 and one.chunks == 1 and one.blocks % one.f_tiles == 0
+    many = cf.conv_v2_tc_plan((8, 64, 16, 64, 64), (3, 3, 3, 64, 48))
+    assert many.resident == 0 and many.chunks > 1
+
+
+def test_odd_channels_and_outputs_take_a_v2_plan():
+    for c, f in ((1, 1), (4, 24), (24, 4), (48, 256), (256, 48)):
+        p = cf.conv_v2_tc_plan((2, c, 4, 16, 16), (3, 3, 3, c, f))
+        assert p.cp % 8 == 0 and p.cp >= c and p.vw == (8 if f % 8 == 0 else 1)
+        q = cf.conv_v2_simt_plan((2, c, 4, 16, 16), (3, 3, 3, c, f))
+        assert q.vw == (4 if f % 4 == 0 else 1)
+        w = cf.wgrad_simt_plan((2, c, 4, 16, 16), (2, f, 4, 16, 16), (3, 3, 3))
+        assert w.ft >= 8 and w.ct >= 1
+
+
+@pytest.mark.parametrize("kernel", [(1, 5, 7), (3, 3, 5), (5, 5, 1), (7, 3, 3)])
+def test_f32_wgrad_plan_takes_wide_kernels_one_tap_row_per_thread(kernel):
+    p = check_wgrad_simt_plan((2, 8, 6, 9, 20), (2, 12, 6, 9, 20), kernel)
+    assert p.ry == (3 if kernel[1] % 3 == 0 and kernel[2] <= 3 else 1)
+
+
+def test_v2_and_f32_wgrad_refuse_what_their_kernels_cannot_run(stubbed):
+    x = torch.zeros(2, 4, 3, 8, 8)
+    with pytest.raises(ValueError, match="odd"):
+        cf.conv3d_flat_v2_cuda(x, torch.zeros(2, 3, 3, 4, 4))
+    with pytest.raises(ValueError, match="odd"):
+        cf.conv3d_flat_wgrad_cuda(x, torch.zeros(2, 4, 3, 8, 8), (3, 4, 3))
+    with pytest.raises(ValueError, match="kernel width"):
+        cf.conv3d_flat_v2_cuda(x, torch.zeros(3, 3, 9, 4, 4))
+    with pytest.raises(ValueError, match="kernel width"):
+        cf.conv3d_flat_wgrad_cuda(x, torch.zeros(2, 4, 3, 8, 8), (3, 3, 9))
+    # weights that no shared-memory tiling holds
+    with pytest.raises(ValueError, match="shared memory"):
+        cf.conv_v2_tc_plan((1, 256, 8, 8, 8), (7, 7, 7, 256, 256))
+    with pytest.raises(ValueError, match="shared memory"):
+        cf.conv_v2_simt_plan((1, 4, 8, 8, 8), (9, 9, 9, 4, 64))
+    assert not any(lib.calls for lib in stubbed.values())
+
+
+def test_v2_routes_bf16_to_tensor_cores_and_f32_to_cuda_cores(stubbed):
+    x, w = torch.zeros(2, 16, 4, 16, 16), torch.zeros(3, 3, 3, 16, 32)
+    y = cf.conv3d_flat_v2_cuda(x.bfloat16(), w.bfloat16(), "dgrad")
+    assert y.shape == (2, 32, 4, 16, 16) and y.dtype == torch.bfloat16
+    cf.conv3d_flat_v2_cuda(x, w)
+    assert cf.launches_by_route(cf.conv3d_flat_v2_cuda) == {"tc": 1, "simt": 1}
+    [(name, args)] = stubbed["v2_tc"].calls
+    p = cf.conv_v2_tc_plan(x.shape, w.shape)
+    assert name == "saragan_conv3d_fwd_v2_tc"
+    assert args[4:] == (2, 16, 4, 16, 16, 3, 3, 3, 32, *p.box, p.cc, p.ft, p.layout, p.nt, p.vw,
+                        p.resident, p.blocks, p.smem, 0)
+    [(name, args)] = stubbed["v2"].calls
+    q = cf.conv_v2_simt_plan(x.shape, w.shape)
+    assert name == "saragan_conv3d_fwd_v2"
+    assert args[3:] == (2, 16, 4, 16, 16, 3, 3, 3, 32, *q.box, q.cc, q.ft, q.vpt, q.fpt, q.vw,
+                        q.blocks, q.smem, 0)
+    assert not stubbed["fwd"].calls and not stubbed["fwd_tc"].calls

@@ -1,7 +1,8 @@
 """The port's hand-written kernels against their plain versions on the card (the f32
 CUDA-core conv through each register tile, the bf16 tensor-core convs, on ragged,
 misaligned and small shapes, the wgrad's two stagers through its 16- and 32-output tiles,
-the fused op's forward and backward kernels; the standalone #3 and #5 too), the conv's
+the f32 wgrad, the fused op's forward and backward kernels; the standalone #3, through
+both routes, and #5 too), the conv's
 derivative algebra against cuDNN's double backward in f32 and bf16, one train step under
 ``flat``, and a two-step CLI trainer run.
 
@@ -188,6 +189,86 @@ def test_conv3d_v2_kernel_matches_plain_and_repeats(cuda, x_shape, w_shape, dtyp
     assert y.dtype == dtype and torch.equal(y, again)
     assert _rel_err(y, cf.conv3d_flat_v2_plain(x, w)) <= limit
     assert _rel_err(y, cf.conv3d_flat_cuda(x, w)) <= limit
+
+
+# kernel #3 through both routes (bf16: tensor cores; f32: CUDA cores) and the f32 wgrad
+# (#2): C, F in {1, 4, 16, 24, 48, 256}, ragged planes, kw in {1, 3, 5, 7}
+V2_CASES = [  # (n, c, f, (d, h, w), kernel)
+    (2, 1, 4, (3, 5, 37), (3, 3, 3)),
+    (1, 4, 1, (2, 9, 9), (1, 3, 5)),
+    (2, 16, 24, (4, 16, 16), (3, 3, 3)),
+    (1, 24, 16, (3, 7, 13), (3, 1, 7)),
+    (2, 48, 48, (2, 12, 20), (1, 3, 1)),
+    (1, 256, 256, (1, 4, 4), (1, 3, 3)),
+    (3, 256, 16, (2, 8, 8), (1, 3, 3)),
+    (1, 16, 256, (3, 9, 9), (3, 3, 3)),
+    (2, 24, 4, (5, 33, 70), (3, 5, 3)),
+    (1, 48, 1, (7, 40, 37), (3, 3, 3)),
+    (2, 16, 16, (8, 32, 32), (3, 3, 3)),
+]
+
+
+def _v2_operands(g, n, c, f, spatial, kernel, dtype, cuda):
+    x = torch.randn((n, c, *spatial), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((*kernel, c, f), generator=g, device=cuda)
+         * (2.0 / (c * math.prod(kernel))) ** 0.5).to(dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("n,c,f,spatial,kernel", V2_CASES)
+def test_v2_kernel_matches_plain_and_kernel1_and_repeats_bit_for_bit(cuda, dtype, limit, n, c, f,
+                                                                    spatial, kernel):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x, w = _v2_operands(g, n, c, f, spatial, kernel, dtype, cuda)
+    route = cf.conv_route(dtype)
+    launches = cf.launches_by_route(cf.conv3d_flat_v2_cuda)[route]
+    y, again = cf.conv3d_flat_v2_cuda(x, w), cf.conv3d_flat_v2_cuda(x, w)
+    torch.cuda.synchronize()
+    assert cf.launches_by_route(cf.conv3d_flat_v2_cuda)[route] == launches + 2
+    assert y.dtype == dtype and torch.isfinite(y).all().item() and torch.equal(y, again)
+    assert _rel_err(y, cf.conv3d_flat_v2_plain(x, w)) <= limit
+    assert _rel_err(y, cf.conv3d_flat_cuda(x, w)) <= limit
+    # a sample's outputs do not depend on the batch it is computed in
+    assert torch.equal(cf.conv3d_flat_v2_cuda(x[n - 1:].contiguous(), w), y[n - 1:])
+
+
+@pytest.mark.parametrize("n,c,f,spatial,kernel", V2_CASES)
+def test_f32_wgrad_kernel_matches_plain_and_repeats_bit_for_bit(cuda, n, c, f, spatial, kernel):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((n, c, *spatial), generator=g, device=cuda)
+    dy = torch.randn((n, f, *spatial), generator=g, device=cuda)
+    simt = cf.launches_by_route(cf.conv3d_flat_wgrad_cuda)["simt"]
+    dw, again = cf.conv3d_flat_wgrad_cuda(x, dy, kernel), cf.conv3d_flat_wgrad_cuda(x, dy, kernel)
+    torch.cuda.synchronize()
+    assert cf.launches_by_route(cf.conv3d_flat_wgrad_cuda)["simt"] == simt + 2
+    assert dw.shape == (*kernel, c, f) and torch.equal(dw, again)
+    assert _rel_err(dw, cf.conv3d_flat_wgrad_plain(x, dy, kernel)) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.float32, 2),
+                                          (torch.bfloat16, 1), (torch.bfloat16, 4)])
+def test_v2_and_f32_wgrad_take_misaligned_views(cuda, dtype, offset):
+    """Contiguous views `offset` elements into their storage: the weights' and dy's
+    narrower copies, the same results."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    shape, kernel, f = (2, 16, 3, 16, 16), (3, 3, 3), 32
+    wshape, dshape = (*kernel, 16, f), (2, f, 3, 16, 16)
+
+    def view(shape_, scale=1.0):
+        buf = (torch.randn(math.prod(shape_) + offset, generator=g, device=cuda) * scale).to(dtype)
+        return buf[offset:].view(shape_)
+
+    x, w, dy = view(shape), view(wshape, 0.1), view(dshape)
+    assert w.data_ptr() % 16 != 0
+    limit = 1e-4 if dtype == torch.float32 else 1e-2
+    y = cf.conv3d_flat_v2_cuda(x, w)
+    assert _rel_err(y, cf.conv3d_flat_v2_plain(x, w)) <= limit
+    assert torch.equal(y, cf.conv3d_flat_v2_cuda(x.clone(), w.clone()))
+    if dtype == torch.float32:
+        dw = cf.conv3d_flat_wgrad_cuda(x, dy, kernel)
+        assert _rel_err(dw, cf.conv3d_flat_wgrad_plain(x, dy, kernel)) <= 1e-4
+        assert torch.equal(dw, cf.conv3d_flat_wgrad_cuda(x.clone(), dy.clone(), kernel))
 
 
 # the tensor-core kernels (bf16): C, F from 4 to 256, 4x4, 8x8 and ragged (5, 7, 9) planes,

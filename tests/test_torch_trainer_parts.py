@@ -272,7 +272,7 @@ def test_trainer_resolves_an_unset_engine_on_the_cpu_and_again_on_resume(tmp_pat
     for _ in range(2):  # the first run, then an --auto_resume run of the same command
         trainer = Trainer(dataclasses.replace(cfg), device="cpu", prefetch=False)
         trainer.writer.close()
-        assert trainer.cfg.conv_engine == "direct"
+        assert trainer.conv_engine == "direct" and trainer.cfg.conv_engine == "unset"
     with open(tmp_path / "run" / "events.jsonl") as f:
         events = [json.loads(line) for line in f]
     assert [e["text"] for e in events if e["tag"] == "config/conv_engine"] == ["direct"] * 2
@@ -281,7 +281,23 @@ def test_trainer_resolves_an_unset_engine_on_the_cpu_and_again_on_resume(tmp_pat
 @pytest.mark.parametrize("engine", ["flat", "direct"])
 def test_an_explicit_engine_wins(tmp_path, engine):
     cfg = _cli_config(tmp_path, "--conv_engine", engine)
-    assert Trainer(cfg, device="cpu", verbose=False).cfg.conv_engine == engine
+    assert Trainer(cfg, device="cpu", verbose=False).conv_engine == engine
+
+
+def test_a_trainer_leaves_an_unset_engine_unset_for_the_next_trainer(tmp_path, monkeypatch):
+    """Two Trainers from one Config (HPO trials, phase-chaining scripts): the first, on
+    the CPU, resolves `direct` without writing it into the Config, so the second, on a
+    CUDA device, resolves its own engine, `flat`."""
+    import saragan_tpu_torch.train.trainer as trainer_mod
+
+    cfg = _cli_config(tmp_path)
+    first = Trainer(cfg, device="cpu", verbose=False)
+    assert first.conv_engine == "direct" and cfg.conv_engine == "unset"
+    # a CUDA device without a card: only the device's type reaches the engine choice
+    monkeypatch.setattr(trainer_mod, "resolve_device", lambda device: torch.device("cuda"))
+    second = Trainer(cfg, device="cuda", verbose=False)
+    assert second.conv_engine == "flat" and cfg.conv_engine == "unset"
+    assert first.conv_engine == "direct"
 
 
 # ---------------------------------------------------------------------------
