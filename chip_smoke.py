@@ -9,11 +9,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    no CUDA device -> exit 1 before anything else;
 2. build: nvcc compiles every CUDA source of the port (one process per source, all
    started together) and the build time is printed, with the registers and spills ptxas
-   reports for each conv kernel, and the count of tensor-core (HMMA) instructions in each
-   bf16 conv library's SASS (cuobjdump), which must not be 0;
+   reports for each conv kernel and each fused bias+lrelu+pixel-norm kernel, and the count
+   of tensor-core (HMMA) instructions in each bf16 conv library's SASS (cuobjdump), which
+   must not be 0;
 3. kernels against their plain PyTorch versions, on the card, at every shape the
    phase-6 batch-8 serving forward gives them (TF32 off):
-   - fused bias+lrelu+pixel-norm (Triton): rtol 1e-5, atol 1e-6, pixel norm on and off;
+   - fused bias+lrelu+pixel-norm (CUDA C++, csrc/fused_bias_act.cu): rtol 1e-5, atol
+     1e-6, pixel norm on and off; a sample computed alone bit-equal to its slot in the
+     batch of 8; timed three ways (``tools/profile_fused.time_three_ways``: per-call
+     events, device time of calls queued behind a sleep, host enqueue time);
    - conv3d forward (CUDA C++, CUDA cores): max|kernel - plain| <= 1e-4 * max|plain|,
      bit-identical on a rerun, with its plan, TFLOP/s and share of the bound;
    with each kernel's time, its plain version's time, F.conv3d's time (the library
@@ -49,8 +53,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    its rounding error scales with them), gb within rtol 1e-5 plus 1e-5 * ||gx_c||_2 (a
    sum of N * S terms: a
    reordered f32 sum differs by a multiple of that, not of |gb_c|); bf16 within 1e-2 *
-   max|reference|; gx and gb bit-identical on a rerun; its time, its plain version's, the
-   oracle's autograd's, the autograd.Function's backward and the bound;
+   max|reference|; gx and gb bit-identical on a rerun; y (bf16) and gx (f32 and bf16) of
+   a sample computed alone bit-equal to its slot in the batch of 8; one launch per
+   backward call (torch.profiler); the forward's and the backward's three times
+   (``time_three_ways``), the plain version's, the oracle's autograd's, the
+   autograd.Function's backward and the bound;
 7. one f32 step's gradients under `flat` and `direct` from the same state and the same
    pre-drawn z and gamma: losses within 1e-3 relative, every gradient within
    1e-3 * max|g|; under `flat` every conv (forward, dgrad, wgrad) through the CUDA-core
@@ -117,6 +124,8 @@ from saragan_tpu_torch.ops import conv3d_flat as cf
 from saragan_tpu_torch.ops import fused_bias_act as fba
 from saragan_tpu_torch.ops import minibatch_stddev as mb
 from saragan_tpu_torch.tools.generate import _load_generator_params, make_keyed_sampler
+from saragan_tpu_torch.tools.profile_fused import kernel_label as fused_label
+from saragan_tpu_torch.tools.profile_fused import time_three_ways
 from saragan_tpu_torch.tools.profile_serving import BENCH_CFG, time_ms
 from saragan_tpu_torch.tools.profile_training import (HALVES, bench_train_config,
                                                        launch_counts, profile_one_step,
@@ -149,6 +158,7 @@ TRAINER_ARGS = [
     "--summary_small_every_nsteps", "16",
     "--summary_large_every_nsteps", "32", "--checkpoint_every_nsteps", "32"]
 PHASE6_START = 64  # global image count at which phase 6 begins (32 + 32 at phase 5)
+FUSED_SOURCE = "saragan_tpu_torch/csrc/fused_bias_act.cu"
 STANDALONE_3 = "standalone: no path of the JAX package runs it (saragan_tpu/ops/core.py:553)"
 STANDALONE_5 = ("standalone: no path of the JAX package runs it (the D's minibatch_stddev_layer "
                 "is plain jnp, saragan_tpu/ops/pallas_kernels.py:163-168)")
@@ -180,9 +190,19 @@ def bound(nbytes, nops, peak_flops=F32_FLOPS):
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
+def _alone_equals_slot(fn, *batch, slot=5):
+    """`fn` of sample `slot` computed alone is bit-equal to its slot of `fn` on the batch,
+    for every tensor output that has a batch dimension."""
+    full = fn(*batch)
+    alone = fn(*(t[slot:slot + 1].contiguous() if t.ndim > 1 else t for t in batch))
+    full, alone = (full, alone) if isinstance(full, tuple) else ((full,), (alone,))
+    return all(torch.equal(a, f[slot:slot + 1]) for a, f in zip(alone, full) if f.ndim > 1)
+
+
 def check_fused(fused_shapes, detail):
     g = torch.Generator(device="cuda").manual_seed(0)
-    entry = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+    entry = dict(ms=0.0, device_ms=0.0, host_us=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+                 t_ops=0.0, max_abs_err=0.0)
     for shape, count in Counter(fused_shapes).items():
         x = torch.randn(shape, generator=g, device="cuda")
         b = torch.randn(shape[1], generator=g, device="cuda")
@@ -195,7 +215,11 @@ def check_fused(fused_shapes, detail):
             check(excess <= 0 and torch.isfinite(y).all().item(),
                   f"fused kernel {shape} pixelnorm={pixelnorm}: tolerance exceeded by {excess}")
             entry["max_abs_err"] = max(entry["max_abs_err"], err.max().item())
-        ms = time_ms(lambda: fba.fused_bias_act_pixelnorm(x, b, 0.2, True))
+            check(_alone_equals_slot(lambda xx, bb: fba.fused_bias_act_pixelnorm(
+                xx, bb, 0.2, pixelnorm), x, b),
+                f"fused kernel {shape} pixelnorm={pixelnorm}: a sample alone differs from its "
+                f"slot in the batch")
+        t = time_three_ways(lambda: fba.fused_bias_act_pixelnorm(x, b, 0.2, True))
         plain_ms = time_ms(lambda: fba.bias_act_pixelnorm_plain(x, b, 0.2, True))
         n, c = shape[:2]
         s = x[0, 0].numel()
@@ -203,11 +227,14 @@ def check_fused(fused_shapes, detail):
         # the mean and rsqrt.  One read of x and b, one write of y.
         b_ms, t_bytes, t_ops = bound((2 * n * c * s + c) * 4, 6 * n * c * s + 2 * n * s)
         detail.append(dict(kernel="fused_bias_act_pixelnorm", shape=list(shape), calls=count,
-                           ms=ms, plain_ms=plain_ms, bound_ms=b_ms))
-        print(f"fused {shape} x{count}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms", flush=True)
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                     ("t_bytes", t_bytes), ("t_ops", t_ops)):
+                           ms=t["ms"], device_ms=t["device_ms"], host_us=t["host_us"],
+                           queued_ahead=t["queued_ahead"], plain_ms=plain_ms, bound_ms=b_ms))
+        print(f"fused {shape} x{count}: kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} ms, "
+              f"host {t['host_us']:.1f} us), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms, "
+              f"alone = its slot", flush=True)
+        for k, v in (("ms", t["ms"]), ("device_ms", t["device_ms"]), ("host_us", t["host_us"]),
+                     ("plain_ms", plain_ms), ("bound_ms", b_ms), ("t_bytes", t_bytes),
+                     ("t_ops", t_ops)):
             entry[k] += count * v
     return entry
 
@@ -285,7 +312,7 @@ def serve_engine(model_path, cfg, engine):
     url = f"http://127.0.0.1:{srv.server_address[1]}"
     try:
         t0 = time.perf_counter()
-        service.warmup()  # compiles the Triton kernel on first use
+        service.warmup()  # loads the kernels' libraries on first use
         warm_s = time.perf_counter() - t0
         check(_get(url + "/healthz")["status"] == "ok", "healthz")
         info = _get(url + "/info")
@@ -365,6 +392,8 @@ def serve_engine(model_path, cfg, engine):
 
 def _kernel_label(mangled):
     """A ptxas entry name shortened to the kernel and its template arguments."""
+    if "fused_" in mangled:
+        return fused_label(mangled)
     for name in ("conv3d_fwd_v2_tc_kernel", "conv3d_fwd_v2_kernel", "channels_last_kernel",
                  "conv3d_fwd_tc_kernel", "wgrad_tc_partial_kernel", "wgrad_tc_reduce_kernel",
                  "wgrad_partial_kernel", "wgrad_reduce_kernel", "conv3d_fwd_kernel"):
@@ -673,10 +702,11 @@ def check_train_fused(fused_shapes, detail):
     autograd.Function's backward.  Returns (forward entry, backward entry), each summed
     over the step's launches."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    fwd = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
-    bwd = dict(ms=0.0, plain_ms=0.0, oracle_autograd_ms=0.0, function_backward_ms=0.0,
-               bound_ms=0.0, t_bytes=0.0, t_ops=0.0, max_abs_err=0.0, gb_max_abs_err=0.0,
-               kernels_per_call={})
+    fwd = dict(ms=0.0, device_ms=0.0, host_us=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+               t_ops=0.0, max_abs_err=0.0)
+    bwd = dict(ms=0.0, device_ms=0.0, host_us=0.0, plain_ms=0.0, oracle_autograd_ms=0.0,
+               function_backward_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0, max_abs_err=0.0,
+               gb_max_abs_err=0.0, kernels_per_call={})
     for shape, count in Counter(fused_shapes).items():
         x32 = torch.randn(shape, generator=g, device="cuda")
         b = torch.randn(shape[1], generator=g, device="cuda")
@@ -689,6 +719,8 @@ def check_train_fused(fused_shapes, detail):
         check(err <= 1e-2 * ref.float().abs().max().item() and torch.isfinite(y).all().item(),
               f"fused bf16 {shape}: max|err| {err}")
         fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+        check(_alone_equals_slot(lambda xx, bb: fba.fused_bias_act_pixelnorm(xx, bb, 0.2, True),
+                                 x, b), f"fused bf16 {shape}: a sample alone differs from its slot")
         errs = {}
         for dtype, xd, gyd in ((torch.float32, x32, gy32), (torch.bfloat16, x, gy)):
             gx, gb = fba.fused_bias_act_pixelnorm_grad(xd, b, gyd, 0.2, True)
@@ -701,6 +733,9 @@ def check_train_fused(fused_shapes, detail):
                   f"fused backward {dtype} {shape}: two runs differ")
             check(torch.isfinite(gx).all().item() and torch.isfinite(gb).all().item(),
                   f"fused backward {dtype} {shape}: not finite")
+            check(_alone_equals_slot(lambda xx, bb, gg: fba.fused_bias_act_pixelnorm_grad(
+                xx, bb, gg, 0.2, True), xd, b, gyd),
+                f"fused backward {dtype} {shape}: gx of a sample alone differs from its slot")
             terms = _gx_terms(xd, b, gyd)
             for name, (rgx, rgb) in (("plain", plain), ("oracle autograd", oracle)):
                 errs[(str(dtype)[6:], name)] = _check_grad(
@@ -715,18 +750,18 @@ def check_train_fused(fused_shapes, detail):
         yo = fba._oracle(xo, bo, 0.2, True)
         if not bwd["kernels_per_call"]:
             # the backward before this kernel (the oracle recomputed, then its autograd)
-            # against this one (its two launches, the gx pass and the gb pass)
+            # against this one (one launch: gx, and gb finished by the last block)
             bwd["kernels_per_call"] = dict(
                 oracle_backward=count_kernels(lambda: torch.autograd.grad(
                     fba._oracle(xo, bo, 0.2, True), (xo, bo), gy)),
                 kernel=count_kernels(
                     lambda: fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)))
             print(f"fused backward kernels per call: {bwd['kernels_per_call']}", flush=True)
-            check(bwd["kernels_per_call"]["kernel"]["launch_calls"] == 2,
-                  f"fused backward: {bwd['kernels_per_call']['kernel']} per call, not 2 launches")
-        t = dict(ms=time_ms(lambda: fba.fused_bias_act_pixelnorm(x, b, 0.2, True)),
+            check(bwd["kernels_per_call"]["kernel"]["launch_calls"] == 1,
+                  f"fused backward: {bwd['kernels_per_call']['kernel']} per call, not 1 launch")
+        t = dict(**time_three_ways(lambda: fba.fused_bias_act_pixelnorm(x, b, 0.2, True)),
                  plain_ms=time_ms(lambda: fba.bias_act_pixelnorm_plain(x, b, 0.2, True)))
-        tb = dict(ms=time_ms(lambda: fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)),
+        tb = dict(**time_three_ways(lambda: fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)),
                   plain_ms=time_ms(lambda: fba.bias_act_pixelnorm_grad_plain(x, b, gy, 0.2, True)),
                   oracle_autograd_ms=time_ms(lambda: torch.autograd.grad(
                       yo, (xo, bo), gy, retain_graph=True)),
@@ -745,14 +780,17 @@ def check_train_fused(fused_shapes, detail):
         detail.append(dict(kernel="fused_bias_act_pixelnorm_grad", shape=list(shape),
                            calls=count, errors={f"{k[0]} vs {k[1]}": v for k, v in errs.items()},
                            **tb))
-        print(f"fused bf16 {shape} x{count}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
-              f"bound {t['bound_ms']:.4f}, err {err:.3g}; backward kernel {tb['ms']:.4f} ms, "
+        print(f"fused bf16 {shape} x{count}: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms, host {t['host_us']:.1f} us), plain {t['plain_ms']:.4f}, "
+              f"bound {t['bound_ms']:.4f}, err {err:.3g}; backward kernel {tb['ms']:.4f} ms "
+              f"(device {tb['device_ms']:.4f} ms, host {tb['host_us']:.1f} us), "
               f"plain {tb['plain_ms']:.4f}, oracle autograd {tb['oracle_autograd_ms']:.4f}, "
               f"Function backward {tb['function_backward_ms']:.4f}, bound {tb['bound_ms']:.4f}, "
-              f"max|err| (gx, gb) {errs}, bit-identical rerun", flush=True)
+              f"max|err| (gx, gb) {errs}, bit-identical rerun, alone = its slot", flush=True)
         for entry, times in ((fwd, t), (bwd, tb)):
             for k, v in times.items():
-                entry[k] += count * v
+                if k != "queued_ahead":
+                    entry[k] += count * v
     return fwd, bwd
 
 
@@ -1079,7 +1117,7 @@ def main() -> int:
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.1f} s", flush=True)
-        if name.startswith("conv3d_"):  # registers and spills
+        if name.startswith(("conv3d_", "fused_")):  # registers and spills
             ptxas[name] = _build.ptxas_report(r["log"])
             for row in ptxas[name]:
                 print(f"    {_kernel_label(row['function'])}: {row['registers']} registers, "
@@ -1185,17 +1223,17 @@ def main() -> int:
                  f"check")
     kernels = []
     for name, route, source, replaces, e, launches, library, per_what, unit in (
-            ("fused_bias_act_pixelnorm", "triton", "saragan_tpu_torch/ops/fused_bias_act.py",
+            ("fused_bias_act_pixelnorm", "cuda", FUSED_SOURCE,
              "saragan_tpu/ops/pallas_kernels.py:112", fused, main_launches["fused"], None, per,
              dispatches),
             ("conv3d_flat", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
              "saragan_tpu/ops/pallas_conv.py:124", conv, main_launches["conv"], "library_ms", per,
              dispatches),
-            ("fused_bias_act_pixelnorm[train,bf16]", "triton",
-             "saragan_tpu_torch/ops/fused_bias_act.py", "saragan_tpu/ops/pallas_kernels.py:112",
-             train_fused, train_launches["fused"], None, per_step, train_steps),
-            ("fused_bias_act_pixelnorm_grad[train,bf16]", "triton",
-             "saragan_tpu_torch/ops/fused_bias_act.py", "saragan_tpu/ops/pallas_kernels.py:123",
+            ("fused_bias_act_pixelnorm[train,bf16]", "cuda", FUSED_SOURCE,
+             "saragan_tpu/ops/pallas_kernels.py:112", train_fused, train_launches["fused"], None,
+             per_step, train_steps),
+            ("fused_bias_act_pixelnorm_grad[train,bf16]", "cuda", FUSED_SOURCE,
+             "saragan_tpu/ops/pallas_kernels.py:123",
              train_fused_grad, train_launches["fused_grad"], None, per_step, train_steps),
             ("conv3d_flat[forward+dgrad,f32,train]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
              "saragan_tpu/ops/pallas_conv.py:124", conv32,
@@ -1232,8 +1270,8 @@ def main() -> int:
                  library_ms=e[library] if library else None, per=per_what)
         if unit:
             k["launches_per_unit"] = launches / unit
-        for extra in ("v1_ms", "max_rel_diff_v1", "oracle_autograd_ms", "function_backward_ms",
-                      "gb_max_abs_err", "kernels_per_call"):
+        for extra in ("device_ms", "host_us", "v1_ms", "max_rel_diff_v1", "oracle_autograd_ms",
+                      "function_backward_ms", "gb_max_abs_err", "kernels_per_call"):
             if extra in e:
                 k[extra] = e[extra]
         if "t_flop" in e:  # the conv rows: the rate

@@ -1,10 +1,10 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its own into
-``build/lib<name>_<digest>.so``, where the digest covers the source, the shared headers
-(``csrc/*.cuh``) and the flags, so a changed source never loads a stale library.  The
-build happens at first use, on the machine with the card; nothing here runs at import
-time.
+``build/lib<name>_<digest>.so`` (nvcc's output beside it, ``.log``), where the digest
+covers the source, the shared headers (``csrc/*.cuh``) and the flags, so a changed source
+never loads a stale library.  The build happens at first use, on the machine with the
+card; nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -81,10 +81,17 @@ def build_all() -> Dict[str, dict]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return report
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (``-Xptxas -v``) from the build of ``csrc/<name>.cu``, kept beside its
+    library."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def ptxas_report(log: str) -> list:

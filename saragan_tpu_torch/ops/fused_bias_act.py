@@ -1,17 +1,21 @@
-"""Fused bias + leaky ReLU + pixel norm: the Triton kernels (forward and backward), their
+"""Fused bias + leaky ReLU + pixel norm: the CUDA kernels (forward and backward), their
 plain versions and the ``autograd.Function``s the generator calls.
 
-Replaces ``saragan_tpu/ops/pallas_kernels.py::fused_bias_act_pixelnorm`` (Pallas body
-``_fused_kernel``, custom JVP ``_fused_jvp``), which follows every generator conv:
+Replaces ``saragan_tpu/ops/pallas_kernels.py::fused_bias_act_pixelnorm`` (entry ``:112``,
+Pallas body ``_fused_kernel`` ``:55-98``, custom JVP ``_fused_jvp`` ``:123-131``), which
+follows every generator conv:
 
     y = lrelu(x + b, alpha);  y = y * rsqrt(mean_c(y^2) + 1e-8)   per voxel
 
-What bounds both kernels on the H100: a few operations per byte, so device memory.  The
-forward reads x once and writes y once.  Program (n, j) loads a (BLOCK_C, BLOCK_S) tile
-that holds every channel of BLOCK_S voxels; the tile strides C by S, so each channel's
-row is a contiguous, coalesced run of voxels, and the channel reduction stays in
-registers.  BLOCK_C * BLOCK_S is kept near 8K elements (C=256 at 4x4 voxels up to C=16 at
-524,288).
+Both kernels are in ``csrc/fused_bias_act.cu`` (CUDA C++ for sm_90a, loaded with ctypes
+through ``ops/_build.py``).  What bounds them on the H100: a few operations per byte, so
+device memory; the forward reads x and writes y once, the backward reads x and gy and
+writes gx once.  Persistent blocks walk items of TV voxels of one sample (every channel);
+an item's rows land in shared memory through a two-stage ring of 16-byte ``cp.async``
+copies, the thread that owns a voxel sums its channel terms in registers in the order
+c = 0 .. C-1, and the block stores the rows back in 16-byte words.  The tiling is plain
+Python (``fused_plan``), so the CPU tests reach it; a voxel's sums never depend on it, so
+a sample's y and gx do not depend on N, on its slot or on the plan.
 
 Rounding, as the reference settles it: the primal is the kernel's, everything in f32
 (the f32 bias unrounded) and one rounding to x.dtype at the store;
@@ -24,14 +28,13 @@ with u = x + b and a = lrelu(u) in x.dtype, g = gy in f32:
     r = rsqrt(mean_c a^2 + 1e-8),  s = sum_c g a,  ga = r g - a r^3 s / C  (to x.dtype)
     gx = where(u >= 0, ga, ga * alpha)  (x.dtype),   gb = sum_{n, voxels} gx
 
-The backward kernel computes that closed form in one pass over x and gy (the same tile as
-the forward, statistics recomputed in registers), writes gx, and writes each program's
-per-channel sums of gx to a workspace; a second launch adds the workspace rows in a fixed
-order into gb, with no atomics.  gb is accumulated in f64, rounded to f32 and then through
-x.dtype, as the oracle's is (it adds the bias in x.dtype), by the kernel and by its plain
-version ``bias_act_pixelnorm_grad_plain`` alike, so their sums agree whatever order each
-takes.  Two launches per call where the VJP of the oracle in
-torch ops took about twenty.
+The backward kernel computes that closed form in one pass over x and gy and writes gx;
+each block also sums gx per channel in f64 (its lanes' partials added in a fixed order)
+into one workspace row, and the last block to finish (a ticket on a per-device counter)
+adds the rows in row order into gb, with no atomic sum: one launch per call, and gx and
+gb repeat bit for bit.  gb is rounded to f32 and then through x.dtype, as the oracle's is
+(it adds the bias in x.dtype), by the kernel and by its plain version
+``bias_act_pixelnorm_grad_plain`` alike, so their sums agree whatever order each takes.
 
 ``FusedBiasActPixelnorm`` pairs the forward kernel with ``FusedBiasActPixelnormGrad``,
 whose forward is the backward kernel (its plain version on a CPU or meta tensor) and whose
@@ -42,17 +45,16 @@ themselves; ``bias_act_pixelnorm`` applies the Function.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import NamedTuple
+import math
+from dataclasses import dataclass
 
 import torch
 
+from saragan_tpu_torch.ops import _build
+from saragan_tpu_torch.ops.conv3d_flat import _raise_on_error, _sm_count, _stream
 from saragan_tpu_torch.ops.core import in_dtype
-
-_TILE_ELEMS = 8192       # forward tile: BLOCK_C * BLOCK_S
-_GRAD_TILE_ELEMS = 4096  # backward tile: x, gy and their statistics live in registers
-_GRAD_PROGRAMS = 1024    # backward programs to aim for over the batch
-_BIAS_BLOCK_R = 32       # workspace rows per step of the gb pass
 
 
 def _oracle(x: torch.Tensor, b: torch.Tensor, alpha_lr: float, pixelnorm: bool,
@@ -115,121 +117,139 @@ bias_act_pixelnorm_grad_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _triton_kernels():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def fused_kernel(x_ptr, b_ptr, y_ptr, C, S, alpha, eps,
-                     PIXELNORM: tl.constexpr, BLOCK_C: tl.constexpr, BLOCK_S: tl.constexpr):
-        n = tl.program_id(0)
-        sb = tl.program_id(1)
-        offs_c = tl.arange(0, BLOCK_C)
-        offs_s = sb * BLOCK_S + tl.arange(0, BLOCK_S)
-        mask_c = offs_c < C
-        mask = mask_c[:, None] & (offs_s < S)[None, :]
-        offs = n.to(tl.int64) * C * S + offs_c[:, None].to(tl.int64) * S + offs_s[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        b = tl.load(b_ptr + offs_c, mask=mask_c, other=0.0).to(tl.float32)
-        y = x + b[:, None]
-        y = tl.where(y >= 0, y, y * alpha)
-        if PIXELNORM:
-            # masked channels and voxels hold 0 and add nothing to the sum
-            m = tl.sum(y * y, axis=0) / C
-            y = y * tl.rsqrt(m + eps)[None, :]
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
-    def fused_grad_kernel(x_ptr, b_ptr, gy_ptr, gx_ptr, ws_ptr, C, S, SB_PER_PROG, alpha, eps,
-                          PIXELNORM: tl.constexpr, BLOCK_C: tl.constexpr,
-                          BLOCK_S: tl.constexpr):
-        # program (n, j): voxel blocks [j * SB_PER_PROG, (j + 1) * SB_PER_PROG) of sample n
-        n = tl.program_id(0)
-        j = tl.program_id(1)
-        xdt = x_ptr.dtype.element_ty
-        offs_c = tl.arange(0, BLOCK_C)
-        mask_c = offs_c < C
-        b = tl.load(b_ptr + offs_c, mask=mask_c, other=0.0).to(xdt).to(tl.float32)
-        rows = n.to(tl.int64) * C * S + offs_c[:, None].to(tl.int64) * S
-        part = tl.zeros((BLOCK_C,), tl.float64)
-        for i in range(SB_PER_PROG):
-            offs_s = (j * SB_PER_PROG + i) * BLOCK_S + tl.arange(0, BLOCK_S)
-            mask = mask_c[:, None] & (offs_s < S)[None, :]
-            offs = rows + offs_s[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            g = tl.load(gy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            # bias and leaky ReLU rounded to x.dtype, as the oracle computes them
-            u = (x + b[:, None]).to(xdt).to(tl.float32)
-            pos = u >= 0
-            if PIXELNORM:
-                a = tl.where(pos, u, (u * alpha).to(xdt).to(tl.float32))
-                r = tl.rsqrt(tl.sum(a * a, axis=0) / C + eps)
-                s = tl.sum(g * a, axis=0)
-                ga = g * r[None, :] - a * (r * r * r * s / C)[None, :]
-            else:
-                ga = g
-            ga = ga.to(xdt).to(tl.float32)
-            gx = tl.where(pos, ga, (ga * alpha).to(xdt).to(tl.float32))
-            tl.store(gx_ptr + offs, gx.to(xdt), mask=mask)
-            part += tl.sum(tl.where(mask, gx, 0.0).to(tl.float64), axis=1)
-        tl.store(ws_ptr + (n * tl.num_programs(1) + j).to(tl.int64) * C + offs_c, part,
-                 mask=mask_c)
-
-    @triton.jit
-    def fused_grad_bias_kernel(ws_ptr, x_ptr, gb_ptr, C, R, BLOCK_R: tl.constexpr,
-                               BLOCK_C: tl.constexpr):
-        # workspace rows 0..R-1 in order, BLOCK_R at a time: a fixed summation order;
-        # x_ptr is read for its dtype only, through which the sum is rounded
-        offs_c = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        mask_c = offs_c < C
-        acc = tl.zeros((BLOCK_R, BLOCK_C), tl.float64)
-        for start in range(0, R, BLOCK_R):
-            offs_r = start + tl.arange(0, BLOCK_R)
-            acc += tl.load(ws_ptr + offs_r[:, None].to(tl.int64) * C + offs_c[None, :],
-                           mask=(offs_r < R)[:, None] & mask_c[None, :], other=0.0)
-        gb = tl.sum(acc, axis=0).to(tl.float32).to(x_ptr.dtype.element_ty)
-        tl.store(gb_ptr + offs_c, gb.to(tl.float32), mask=mask_c)
-
-    return fused_kernel, fused_grad_kernel, fused_grad_bias_kernel
-
-
-@functools.lru_cache(maxsize=None)
 def _slope(alpha_lr: float, dtype: torch.dtype) -> float:
     """The leaky-ReLU slope rounded to `dtype` (``in_dtype``), once per pair."""
     return in_dtype(alpha_lr, dtype)
 
 
-def _next_pow2(v: int) -> int:
+# --- tiling plan of csrc/fused_bias_act.cu ---
+
+FUSED_THREADS = 256          # threads per block (the source's THREADS)
+FUSED_BLOCKS_PER_SM = 2      # persistent blocks per SM (its __launch_bounds__ minimum)
+FUSED_MAX_TV = 1024          # voxels per item: at most 4 per thread
+FUSED_MAX_CPT = 4            # channel rows a thread sums in gb's pass
+FUSED_MAX_CHANNELS = FUSED_MAX_CPT * FUSED_THREADS
+FUSED_STAGE_BYTES = 32 << 10  # one ring stage (x, and gy in the backward) aims at this
+# values a thread keeps in registers on the register path: y (forward), or u and g
+# (backward) of each of its voxels and channels
+FUSED_REGISTER_VALUES = {False: 64, True: 32}
+MAX_SMEM = 232448            # shared memory one block can use (227 KB)
+SM_SMEM = 233472             # shared memory of one SM (228 KB), 1 KB of it per block reserved
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << (max(1, v).bit_length() - 1)
+
+
+def _pow2_ceil(v: int) -> int:
     return 1 << max(0, (v - 1).bit_length())
 
 
-class _Tiles(NamedTuple):
-    block_c: int
-    block_s: int
-    programs_s: int   # programs along the voxels of one sample
-    sb_per_prog: int  # voxel blocks per program (backward)
-    num_warps: int
+@dataclass(frozen=True)
+class FusedPlan:
+    """How ``csrc/fused_bias_act.cu`` runs one call at C channels and S voxels per
+    channel row: items of `tv` voxels of one sample (`tiles` per sample; item i is
+    sample i // tiles, voxels from (i % tiles) * tv), walked by ``blocks(n)`` persistent
+    blocks, block k taking items k, k + grid, ...  In the backward's gb pass lane l
+    (thread + m * FUSED_THREADS) adds channel l // lanes, voxels l % lanes, + lanes, ...
+    Nothing here depends on N but the grid."""
+    c: int
+    s: int
+    esize: int
+    backward: bool
+    tv: int         # voxels per item, a power of two
+    tiles: int      # items per sample: ceil(S / tv)
+    vpt: int        # voxels per thread: tv / FUSED_THREADS, at least 1
+    rs: int         # shared row stride in elements: tv + one 16-byte word
+    lanes: int      # backward: lanes per channel row in gb's pass (1 in the forward)
+    async16: bool   # rows copied as 16-byte cp.async words, else element by element
+    cu: int         # with pixel norm: C where a thread keeps its voxels' channels in
+                    # registers (C = 16 or 32, 16-byte words, FUSED_REGISTER_VALUES), else 0
+    smem: int       # bytes: two stages, the bias, per-voxel statistics, the backward's f64
+                    # partials, a flag
+    blocks_per_sm: int
+    sms: int
+
+    def blocks(self, n: int) -> int:
+        """The grid, and the backward's workspace rows (one per block)."""
+        return min(n * self.tiles, self.blocks_per_sm * self.sms)
 
 
-@functools.lru_cache(maxsize=1024)
-def _forward_tiles(c: int, s: int) -> _Tiles:
-    block_c = _next_pow2(c)
-    block_s = max(16, min(_next_pow2(s), _TILE_ELEMS // block_c))
-    return _Tiles(block_c, block_s, -(-s // block_s), 1,
-                  8 if block_c * block_s >= 4096 else 4)
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
 
 
-@functools.lru_cache(maxsize=1024)
-def _grad_tiles(n: int, c: int, s: int) -> _Tiles:
-    """The backward's tile, and how many voxel blocks each program walks: enough
-    programs to fill the card (``_GRAD_PROGRAMS`` over the batch), few workspace rows."""
-    block_c = _next_pow2(c)
-    block_s = max(16, min(_next_pow2(s), _GRAD_TILE_ELEMS // block_c))
-    blocks = -(-s // block_s)
-    want = max(1, min(blocks, -(-_GRAD_PROGRAMS // n)))
-    per_prog = -(-blocks // want)
-    return _Tiles(block_c, block_s, -(-blocks // per_prog), per_prog,
-                  8 if block_c * block_s >= 4096 else 4)
+def _fused_smem(c: int, tv: int, esize: int, backward: bool) -> int:
+    """Bytes of dynamic shared memory (the source's ``layout``)."""
+    tensors = 2 if backward else 1
+    stage = c * (tv + 16 // esize) * esize * tensors
+    stat = _round16(2 * stage + 4 * c)
+    part = _round16(stat + 4 * tv * tensors)
+    flag = part + (8 * max(c, FUSED_THREADS) if backward else 0)
+    return flag + 16
+
+
+@functools.lru_cache(maxsize=4096)
+def fused_plan(c: int, s: int, dtype: torch.dtype, sm_count: int, backward: bool = False,
+               aligned: bool = True) -> FusedPlan:
+    """The tiles of one call: x (N, C, *spatial) with S = prod(spatial), in `dtype` (f32
+    or bf16).  An item holds about ``FUSED_STAGE_BYTES`` of rows (at least one 16-byte
+    word per row, at most ``FUSED_MAX_TV`` voxels and no more than S needs); rows move as
+    16-byte words where `aligned` (every operand's base on 16 bytes) and S * size is a
+    multiple of 16, else element by element.  Cached."""
+    if dtype not in _ESIZE:
+        raise ValueError(f"the fused kernels take float32 or bfloat16, not {dtype}")
+    if not 1 <= c <= FUSED_MAX_CHANNELS or s < 1:
+        raise ValueError(f"the fused kernels take 1 to {FUSED_MAX_CHANNELS} channels and at "
+                         f"least one voxel; got C={c}, S={s}")
+    esize = _ESIZE[dtype]
+    ve = 16 // esize
+    tv = _pow2_floor(FUSED_STAGE_BYTES // (c * esize * (2 if backward else 1)))
+    tv = max(ve, min(tv, FUSED_MAX_TV, _pow2_ceil(s)))
+    rs = tv + ve
+    lanes = min(_pow2_floor(FUSED_THREADS // c), tv) if backward and c <= FUSED_THREADS else 1
+    smem = _fused_smem(c, tv, esize, backward)
+    if smem > MAX_SMEM:
+        raise ValueError(f"the fused kernels have no tiling that fits shared memory for C={c}")
+    vpt = max(1, tv // FUSED_THREADS)
+    async16 = bool(aligned) and (s * esize) % 16 == 0
+    registers = c in (16, 32) and async16 and c * vpt <= FUSED_REGISTER_VALUES[backward]
+    return FusedPlan(c=c, s=s, esize=esize, backward=backward, tv=tv, tiles=-(-s // tv),
+                     vpt=vpt, rs=rs, lanes=lanes, async16=async16, cu=c if registers else 0,
+                     smem=smem,
+                     blocks_per_sm=max(1, min(FUSED_BLOCKS_PER_SM, SM_SMEM // (smem + 1024))),
+                     sms=int(sm_count))
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("fused_bias_act")
+    # pointers; bf16, n, c, s, alpha, eps; the plan's ints (forward: pixelnorm, tv, cu,
+    # async16, blocks; backward: pixelnorm, tv, cu, lanes, async16, blocks); smem, stream
+    shape = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+             ctypes.c_float]
+    tail = [ctypes.c_longlong, ctypes.c_void_p]
+    lib.saragan_fused_bias_act_fwd.argtypes = ([ctypes.c_void_p] * 3 + shape
+                                               + [ctypes.c_int] * 5 + tail)
+    lib.saragan_fused_bias_act_bwd.argtypes = ([ctypes.c_void_p] * 7 + shape
+                                               + [ctypes.c_int] * 6 + tail)
+    lib.saragan_fused_bias_act_fwd.restype = lib.saragan_fused_bias_act_bwd.restype = ctypes.c_int
+    lib.saragan_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.saragan_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_counters = {}  # (device index, stream) -> the backward's int32 ticket counter
+
+
+def _counter(x: torch.Tensor, stream: int) -> torch.Tensor:
+    """The backward's ticket counter for x's device and this stream: zeroed once; the
+    last block of every launch sets it back to 0."""
+    key = (x.device.index, stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros(1, dtype=torch.int32, device=x.device)
+    return _counters[key]
 
 
 def _check_operands(name: str, x: torch.Tensor, b: torch.Tensor, *rest: torch.Tensor):
@@ -240,6 +260,8 @@ def _check_operands(name: str, x: torch.Tensor, b: torch.Tensor, *rest: torch.Te
     if x.ndim < 3 or b.shape != (x.shape[1],):
         raise ValueError(f"x must be (N, C, *spatial) and b (C,); got {tuple(x.shape)}, "
                          f"{tuple(b.shape)}")
+    if x.dtype not in _ESIZE:
+        raise ValueError(f"{name} takes float32 or bfloat16 x, not {x.dtype}")
     if any(t.shape != x.shape or t.dtype != x.dtype for t in rest):
         raise ValueError(f"{name}: gy must have x's shape and dtype")
     if not all(t.is_contiguous() for t in (x, *rest)):
@@ -249,19 +271,29 @@ def _check_operands(name: str, x: torch.Tensor, b: torch.Tensor, *rest: torch.Te
                                   f"FusedBiasActPixelnorm")
 
 
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def fused_bias_act_pixelnorm(x: torch.Tensor, b: torch.Tensor, alpha_lr: float,
                              pixelnorm: bool, eps: float = 1e-8) -> torch.Tensor:
-    """Launch the forward kernel: x (N, C, *spatial) contiguous on a CUDA device, b (C,)
-    (read in f32, unrounded, whatever x's dtype)."""
+    """Launch the forward kernel on PyTorch's current stream: x (N, C, *spatial)
+    contiguous on a CUDA device, f32 or bf16, b (C,) (read in f32, unrounded, whatever x's
+    dtype)."""
     _check_operands("fused_bias_act_pixelnorm", x, b)
     n, c = x.shape[:2]
-    s = x[0, 0].numel()
-    t = _forward_tiles(c, s)
+    s = math.prod(x.shape[2:])
     y = torch.empty_like(x)
-    _triton_kernels()[0][(n, t.programs_s)](
-        x, b.to(torch.float32).contiguous(), y, c, s, float(alpha_lr), float(eps),
-        PIXELNORM=bool(pixelnorm), BLOCK_C=t.block_c, BLOCK_S=t.block_s,
-        num_warps=t.num_warps)
+    if y.numel() == 0:
+        return y
+    p = fused_plan(c, s, x.dtype, _sm_count(x.device), False, _aligned(x))
+    b32 = b.to(torch.float32).contiguous()
+    lib = _library()
+    err = lib.saragan_fused_bias_act_fwd(
+        x.data_ptr(), b32.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), n, c, s,
+        float(alpha_lr), float(eps), int(bool(pixelnorm)), p.tv, p.cu if pixelnorm else 0,
+        int(p.async16), p.blocks(n), p.smem, _stream(x))
+    _raise_on_error(lib, err, f"fused_bias_act forward launch for x {tuple(x.shape)} {x.dtype}")
     fused_bias_act_pixelnorm.launches += 1
     return y
 
@@ -271,25 +303,29 @@ fused_bias_act_pixelnorm.launches = 0
 
 def fused_bias_act_pixelnorm_grad(x: torch.Tensor, b: torch.Tensor, gy: torch.Tensor,
                                   alpha_lr: float, pixelnorm: bool, eps: float = 1e-8):
-    """Launch the backward kernel and its gb pass: x and gy (N, C, *spatial) of one dtype,
-    contiguous on a CUDA device, b (C,).  Returns (gx in x.dtype, gb in b.dtype: summed in
-    f64, rounded through x.dtype).  Counts one launch per call."""
+    """Launch the backward kernel on PyTorch's current stream: x and gy (N, C, *spatial)
+    of one dtype (f32 or bf16), contiguous on a CUDA device, b (C,).  Returns (gx in
+    x.dtype, gb in b.dtype: summed in f64, rounded through x.dtype).  One launch per call;
+    its f64 workspace (one row per block) comes from PyTorch's allocator."""
     _check_operands("fused_bias_act_pixelnorm_grad", x, b, gy)
     n, c = x.shape[:2]
-    s = x[0, 0].numel()
-    t = _grad_tiles(n, c, s)
+    s = math.prod(x.shape[2:])
     gx = torch.empty_like(x)
-    rows = n * t.programs_s
-    ws = torch.empty((rows, c), dtype=torch.float64, device=x.device)
+    if gx.numel() == 0:
+        return gx, torch.zeros_like(b)
+    stream = _stream(x)
+    p = fused_plan(c, s, x.dtype, _sm_count(x.device), True, _aligned(x, gy))
+    blocks = p.blocks(n)
+    ws = torch.empty((blocks, c), dtype=torch.float64, device=x.device)
     gb = torch.empty(c, dtype=torch.float32, device=x.device)
-    _, grad, bias = _triton_kernels()
-    grad[(n, t.programs_s)](x, b.to(torch.float32).contiguous(), gy, gx, ws, c, s,
-                            t.sb_per_prog, _slope(float(alpha_lr), x.dtype), float(eps),
-                            PIXELNORM=bool(pixelnorm), BLOCK_C=t.block_c, BLOCK_S=t.block_s,
-                            num_warps=t.num_warps)
-    block_c = min(t.block_c, 64)
-    bias[(-(-c // block_c),)](ws, x, gb, c, rows, BLOCK_R=_BIAS_BLOCK_R, BLOCK_C=block_c,
-                              num_warps=4)
+    b32 = b.to(torch.float32).contiguous()
+    lib = _library()
+    err = lib.saragan_fused_bias_act_bwd(
+        x.data_ptr(), b32.data_ptr(), gy.data_ptr(), gx.data_ptr(), gb.data_ptr(), ws.data_ptr(),
+        _counter(x, stream).data_ptr(), int(x.dtype == torch.bfloat16), n, c, s,
+        _slope(float(alpha_lr), x.dtype), float(eps), int(bool(pixelnorm)), p.tv,
+        p.cu if pixelnorm else 0, p.lanes, int(p.async16), blocks, p.smem, stream)
+    _raise_on_error(lib, err, f"fused_bias_act backward launch for x {tuple(x.shape)} {x.dtype}")
     fused_bias_act_pixelnorm_grad.launches += 1
     return gx, gb.to(b.dtype)
 

@@ -51,8 +51,8 @@ def time_ms(fn, reps=20, warmup=3):
 def _group(name: str) -> str:
     if "conv3d_fwd_kernel" in name:
         return "conv3d_flat (CUDA kernel)"
-    if name == "fused_kernel":
-        return "fused_bias_act_pixelnorm (Triton)"
+    if "fused_fwd_kernel" in name:
+        return "fused_bias_act_pixelnorm (CUDA kernel)"
     if any(t in name for t in ("xmma", "cudnn", "implicit_gemm", "conv", "dgrad", "fprop")):
         return "cuDNN convolutions"
     return "other"

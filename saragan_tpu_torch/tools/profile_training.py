@@ -90,10 +90,10 @@ def kernel_group(name: str) -> str:
         return "conv3d_flat forward+dgrad (CUDA)"
     if "wgrad_partial_kernel" in name or "wgrad_reduce_kernel" in name:
         return "conv3d_wgrad (CUDA)"
-    if name == "fused_kernel":
-        return "fused_bias_act_pixelnorm (Triton)"
-    if name in ("fused_grad_kernel", "fused_grad_bias_kernel"):
-        return "fused_bias_act_pixelnorm backward (Triton)"
+    if "fused_fwd_kernel" in name:
+        return "fused_bias_act_pixelnorm (CUDA)"
+    if "fused_bwd_kernel" in name:
+        return "fused_bias_act_pixelnorm backward (CUDA)"
     if any(t in name for t in ("xmma", "cudnn", "implicit_gemm", "conv", "dgrad", "fprop",
                                "wgrad")):
         return "cuDNN convolutions"

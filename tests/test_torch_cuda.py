@@ -1,10 +1,11 @@
 """The port's hand-written kernels against their plain versions on the card (the f32
 CUDA-core conv through each register tile, the bf16 tensor-core convs, on ragged,
 misaligned and small shapes, the wgrad's two stagers through its 16- and 32-output tiles,
-the f32 wgrad, the fused op's forward and backward kernels; the standalone #3, through
-both routes, and #5 too), the conv's
-derivative algebra against cuDNN's double backward in f32 and bf16, one train step under
-``flat``, and a two-step CLI trainer run.
+the f32 wgrad, the fused op's forward and backward kernels at C from 1 to 512 and N = 1,
+a sample alone against its slot in a batch, misaligned views and one launch per call;
+the standalone #3, through both routes, and #5 too), the conv's derivative algebra
+against cuDNN's double backward in f32 and bf16, one train step under ``flat``, and a
+two-step CLI trainer run.
 
 Needs an NVIDIA GPU, nvcc and triton; skipped without them.  This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -13,6 +14,7 @@ neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
 """
 
 import math
+import time
 
 import pytest
 import torch
@@ -120,7 +122,8 @@ def test_conv3d_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 300, 3, 3), (2, 16, 3, 5, 7),
-                                   (1, 256, 1, 4, 4)])
+                                   (1, 256, 1, 4, 4), (1, 1, 3, 7), (3, 1, 2, 8, 8),
+                                   (2, 512, 2, 4, 4), (1, 512, 35), (1, 300, 2, 8, 8)])
 @pytest.mark.parametrize("pixelnorm", [True, False])
 def test_fused_kernel_matches_plain(cuda, shape, pixelnorm):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -418,7 +421,10 @@ def _gb_tol(gx):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,pixelnorm", [((2, 16, 3, 8, 8), True), ((8, 256, 1, 4, 4), True),
                                              ((2, 33, 5, 7), True), ((1, 16, 4, 64, 64), True),
-                                             ((2, 20, 3, 9), False)])
+                                             ((2, 20, 3, 9), False), ((1, 1, 4, 9), True),
+                                             ((3, 1, 2, 8, 8), True), ((2, 300, 3, 7), True),
+                                             ((1, 512, 4, 8), True), ((2, 512, 2, 4, 4), True),
+                                             ((1, 300, 2, 8, 8), False)])
 def test_fused_backward_kernel_matches_plain_and_repeats(cuda, shape, pixelnorm, dtype):
     g = torch.Generator(device=cuda).manual_seed(15)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
@@ -446,6 +452,87 @@ def test_fused_backward_runs_the_kernel_not_the_plain_version(cuda):
     torch.autograd.grad(fba.bias_act_pixelnorm(x, b).square().sum(), (x, b))
     assert (fba.fused_bias_act_pixelnorm_grad.launches,
             fba.bias_act_pixelnorm_grad_plain.calls) == (counts[0] + 1, counts[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 16, 4, 32, 32), (8, 64, 2, 8, 8), (8, 256, 1, 4, 4),
+                                   (8, 33, 5, 7), (8, 300, 2, 4, 4)])
+def test_fused_kernels_sample_alone_equals_its_slot_in_the_batch(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    b = torch.randn(shape[1], generator=g, device=cuda)
+    gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    y = fba.fused_bias_act_pixelnorm(x, b, 0.2, True)
+    gx, _ = fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)
+    for k in (0, 5, 7):
+        assert torch.equal(fba.fused_bias_act_pixelnorm(x[k:k + 1], b, 0.2, True), y[k:k + 1])
+        gx1, _ = fba.fused_bias_act_pixelnorm_grad(x[k:k + 1], b, gy[k:k + 1], 0.2, True)
+        assert torch.equal(gx1, gx[k:k + 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_take_misaligned_views(cuda, dtype):
+    """A contiguous view that starts off a 16-byte boundary goes element by element."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    shape = (2, 16, 4, 16, 16)
+    n = math.prod(shape)
+    x = torch.randn(n + 1, generator=g, device=cuda).to(dtype)[1:].view(shape)
+    gy = torch.randn(n + 1, generator=g, device=cuda).to(dtype)[1:].view(shape)
+    b = torch.randn(16, generator=g, device=cuda)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    y = fba.fused_bias_act_pixelnorm(x, b, 0.2, True)
+    ref = fba.bias_act_pixelnorm_plain(x, b, 0.2, True)
+    gx, gb = fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)
+    rgx, rgb = fba.bias_act_pixelnorm_grad_plain(x, b, gy, 0.2, True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(gx, rgx, rtol=1e-5, atol=1e-6)
+        assert ((gb - rgb).abs().double() <= 1e-5 * rgb.abs() + _gb_tol(gx)).all()
+    else:
+        assert _rel_err(y, ref) <= 1e-2 and _rel_err(gx, rgx) <= 1e-2 and _rel_err(gb, rgb) <= 1e-2
+    # the aligned copy takes the 16-byte path and gives the same values
+    assert torch.equal(fba.fused_bias_act_pixelnorm(x.clone(), b, 0.2, True), y)
+    assert torch.equal(fba.fused_bias_act_pixelnorm_grad(x.clone(), b, gy.clone(), 0.2, True)[0], gx)
+
+
+def test_fused_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.randn(2, 16, 4, 8, device=cuda)
+    b = torch.randn(16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fba.fused_bias_act_pixelnorm(x.transpose(2, 3), b, 0.2, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fba.fused_bias_act_pixelnorm_grad(x.transpose(2, 3), b, x.transpose(2, 3), 0.2, True)
+    with pytest.raises(ValueError, match="dtype"):
+        fba.fused_bias_act_pixelnorm_grad(x, b, x.bfloat16(), 0.2, True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fba.fused_bias_act_pixelnorm(x.half(), b, 0.2, True)
+    with pytest.raises(ValueError, match="b \\(C,\\)"):
+        fba.fused_bias_act_pixelnorm(x, b[:8], 0.2, True)
+    with pytest.raises(NotImplementedError, match="autograd graph"):
+        fba.fused_bias_act_pixelnorm(x, b.clone().requires_grad_(True), 0.2, True)
+
+
+def test_fused_kernels_launch_once_per_call(cuda):
+    from saragan_tpu_torch.tools.profile_training import launch_counts
+
+    x = torch.randn(2, 16, 4, 16, 16, device=cuda).bfloat16()
+    gy = torch.randn_like(x)
+    b = torch.randn(16, device=cuda)
+    fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)  # the counter exists
+    for fn, name in ((lambda: fba.fused_bias_act_pixelnorm(x, b, 0.2, True), "fused_fwd_kernel"),
+                     (lambda: fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True),
+                      "fused_bwd_kernel")):
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(0.02)  # device events a little off the call stay inside the trace
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        kernels, launch_calls = launch_counts(prof)
+        assert launch_calls == 1 and kernels == 1
+        assert any(name in e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
