@@ -63,32 +63,44 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    1e-3 * max|g|; under `flat` every conv (forward, dgrad, wgrad) through the CUDA-core
    kernels; then the f32 gradient computation under `flat` timed (median of 5 after a
    warm-up, CUDA events) on a line of its own;
-8. the trainer through its CLI (``cli.main`` in process, the slice's main path): the
-   flagship configuration from phase 5 (batch 16) into phase 6 (batch 8), 32 + 32
-   images per phase, no --conv_engine (so `flat`, the card's default: events.jsonl must
-   say so), bf16, the fused op on, on a seeded npy dataset written to a
-   temp dir (16 volumes of 16x64x64 and 16 of 32x128x128).  It must exit normally and
+8. the trainer through its CLI (``cli.main`` in process): the flagship configuration
+   from phase 5 (batch 16) into phase 6 (batch 8), 32 + 32 images per phase, no
+   --conv_engine (so `flat`, the card's default: events.jsonl must say so), bf16, the
+   fused op on, on a seeded npy dataset written to a temp dir (16 volumes of 16x64x64 and
+   16 of 32x128x128), with the metric passes (--calc_metrics, FID over random features,
+   SWD, SSIM, PSNR; once per phase and at each phase's end).  It must exit normally and
    write model_5.npz and model_6.npz; phase 6 must hold every phase-5 name of model_5.npz
    bit for bit through its frozen mixing half (its cadence checkpoint after that half);
-   events.jsonl must hold finite Loss/d_loss, Loss/g_loss and Loss/gp in both phases and
-   a histogram event; kernels #1 (forward and dgrad), #2 and #4 (and its backward) must
-   have run, the convs
-   through the tensor-core route only, and no plain version.  Prints ms/step per phase and half (CUDA events, median after the
-   first), img/s and the phase's peak memory;
+   events.jsonl must hold finite Loss/d_loss, Loss/g_loss and Loss/gp in both phases, a
+   histogram event, and finite fid, fid_EMA, PSNR, ssim, swd_mean and their end-of-phase
+   _validation / _test tags in both phases; kernels #1 (forward and dgrad), #2 and #4 (and
+   its backward) must have run, the convs through the tensor-core route only, and no plain
+   version.  Prints ms/step per phase and half (CUDA events, median after the first),
+   img/s, the phase's peak memory, and the ms per step without the metric passes and
+   with their host time spread over the steps;
 9. bitwise resume: the same command in a subprocess with --full_state_checkpoints gets
    a SIGTERM once phase 6 printed its second step line and must exit 75; rerun with
    --auto_resume it must exit 0 with a model_6.npz equal to the uninterrupted run's,
    every array bit for bit;
+9b. metrics (the slice's own path, counts set to 0 before it): ``generate()``'s report
+   at phase 6 for 8 volumes of 32x128x128 from the serving generator, every metric on,
+   FID over random features (the --allow_uncalibrated_fid route), then FID over the
+   Inception network with random parameters from an npz: values finite, FID(real, real)
+   at most 1e-2 of FID(real, fake), the fused kernel and no plain version run; Inception
+   features of 8 slices on the card within 1e-3 * max|CPU| of the CPU's; seconds of
+   extraction (card) against the numpy/scipy arithmetic (host);
 10. kernel #3 (conv3d_flat_v2, CUDA C++, standalone as in the reference) at every
    serving-forward shape in f32 (CUDA cores) and every forward and dgrad shape of the bf16
    train step (tensor cores): max|kernel - plain| <= 1e-4 (f32) or 1e-2 (bf16) *
    max|plain|, within the same limit of kernel #1, bit-identical on a rerun, through the
    route of its dtype; with its plan, its time, kernel #1's, F.conv3d's, the bound, its
    TFLOP/s and share of the bound;
-11. kernel #5 (minibatch_stddev_stat, Triton, standalone) with group 4 at N 8 and 16,
-   at the per-sample feature counts of the largest and smallest phase-6 D activation, f32
-   and bf16 input: within 1e-5 of max|plain|, bit-identical on a rerun; with its time and
-   bound (bytes / 3.35 TB/s);
+11. kernel #5 (minibatch_stddev_stat, CUDA C++, csrc/minibatch_stddev.cu, standalone)
+   with group 4 at N 8 and 16, at the per-sample feature counts of the largest and
+   smallest phase-6 D activation, f32 and bf16 input, and group 3 (not a template size)
+   at N 12: within 1e-5 of max|plain|, bit-identical on a rerun, one launch per call
+   (counted, and one launch call in a torch.profiler trace); timed three ways
+   (``time_three_ways``) with its bound (bytes / 3.35 TB/s);
 12. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
@@ -96,6 +108,7 @@ Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import math
@@ -123,9 +136,15 @@ from saragan_tpu_torch.ops import _build
 from saragan_tpu_torch.ops import conv3d_flat as cf
 from saragan_tpu_torch.ops import fused_bias_act as fba
 from saragan_tpu_torch.ops import minibatch_stddev as mb
-from saragan_tpu_torch.tools.generate import _load_generator_params, make_keyed_sampler
+from saragan_tpu_torch.data import get_numpy_dataset, stdnormal_to_8bit_numpy
+from saragan_tpu_torch.metrics import fid as mfid
+from saragan_tpu_torch.metrics import inception as minc
+from saragan_tpu_torch.metrics import skim, swd
+from saragan_tpu_torch.tools.generate import (_load_generator_params, generate,
+                                              make_keyed_sampler)
 from saragan_tpu_torch.tools.profile_fused import kernel_label as fused_label
 from saragan_tpu_torch.tools.profile_fused import time_three_ways
+from saragan_tpu_torch.tools.profile_mbstd import mbstd_inputs
 from saragan_tpu_torch.tools.profile_serving import BENCH_CFG, time_ms
 from saragan_tpu_torch.tools.profile_training import (HALVES, bench_train_config,
                                                        launch_counts, profile_one_step,
@@ -158,7 +177,15 @@ TRAINER_ARGS = [
     "--summary_small_every_nsteps", "16",
     "--summary_large_every_nsteps", "32", "--checkpoint_every_nsteps", "32"]
 PHASE6_START = 64  # global image count at which phase 6 begins (32 + 32 at phase 5)
+# the in-process trainer run (not the resume pair) also runs the metric passes: FID over
+# random features, SWD, SSIM and PSNR, once per phase (every 64 images) and at each
+# phase's end on the validation and test splits
+METRIC_ARGS = ["--calc_metrics", "--compute_FID", "--allow_uncalibrated_fid", "--compute_swds",
+               "--compute_ssims", "--compute_psnrs", "--metrics_every_nsteps", "64"]
+METRIC_TAGS = ("fid", "fid_EMA", "PSNR", "ssim", "swd_mean", "fid_validation",
+               "PSNR_validation", "ssim_validation", "swd_mean_validation", "fid_test")
 FUSED_SOURCE = "saragan_tpu_torch/csrc/fused_bias_act.cu"
+MBSTD_SOURCE = "saragan_tpu_torch/csrc/minibatch_stddev.cu"
 STANDALONE_3 = "standalone: no path of the JAX package runs it (saragan_tpu/ops/core.py:553)"
 STANDALONE_5 = ("standalone: no path of the JAX package runs it (the D's minibatch_stddev_layer "
                 "is plain jnp, saragan_tpu/ops/pallas_kernels.py:163-168)")
@@ -421,7 +448,7 @@ def zero_counts():
         fn.by_shape.clear()
     fba.fused_bias_act_pixelnorm.launches = 0
     fba.fused_bias_act_pixelnorm_grad.launches = 0
-    mb.minibatch_stddev_stat_triton.launches = 0
+    mb.minibatch_stddev_stat_cuda.launches = 0
     for fn in (cf.conv3d_flat_plain, cf.conv3d_flat_wgrad_plain, cf.conv3d_flat_v2_plain,
                fba.bias_act_pixelnorm_plain, fba.bias_act_pixelnorm_grad_plain,
                mb.minibatch_stddev_stat_plain):
@@ -441,7 +468,7 @@ def read_counts():
                 fused=fba.fused_bias_act_pixelnorm.launches,
                 fused_grad=fba.fused_bias_act_pixelnorm_grad.launches,
                 v2=cf.conv3d_flat_v2_cuda.launches,
-                mbstd=mb.minibatch_stddev_stat_triton.launches,
+                mbstd=mb.minibatch_stddev_stat_cuda.launches,
                 plain=(cf.conv3d_flat_plain.calls + cf.conv3d_flat_wgrad_plain.calls
                        + fba.bias_act_pixelnorm_plain.calls
                        + fba.bias_act_pixelnorm_grad_plain.calls + cf.conv3d_flat_v2_plain.calls
@@ -870,11 +897,12 @@ def _events(logdir: Path):
 
 
 def run_trainer(data: Path, logdir: Path):
-    """The main path of this slice: the trainer through ``cli.main``, in process, counts
-    set to 0 just before and read just after.  Returns (report, launches)."""
+    """The trainer through ``cli.main``, in process, with the metric passes
+    (``METRIC_ARGS``), counts set to 0 just before and read just after.  Returns (report,
+    launches)."""
     zero_counts()
     t0 = time.perf_counter()
-    cli.main(trainer_args(data, logdir))
+    cli.main(trainer_args(data, logdir, *METRIC_ARGS))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = read_counts()
@@ -928,6 +956,19 @@ def run_trainer(data: Path, logdir: Path):
         peak = [e["value"] for e in after if e["tag"] == "memory/phase_peak_bytes"]
         check(len(peak) == 1, f"trainer phase {phase}: peak memory events {peak}")
         row["peak_mib"] = peak[0] / 2 ** 20
+        # the metric passes: their tags, and the ms per step with their host time spread
+        # over the phase's steps against the steps alone
+        for tag in METRIC_TAGS:
+            vals = [e["value"] for e in after if e["tag"] == tag]
+            check(vals and all(math.isfinite(v) for v in vals),
+                  f"trainer phase {phase}: metric {tag} {vals}")
+        row["metrics"] = {tag: [e["value"] for e in after if e["tag"] == tag][-1]
+                          for tag in METRIC_TAGS}
+        metric_s = [e["value"] for e in after if e["tag"] == "Timing/metrics_s"]
+        steps = [e["value"] for e in ev if e["tag"].startswith("Timing/step_ms_")]
+        row["metric_passes_s"] = metric_s
+        row["ms_per_step_without_metrics"] = statistics.median(steps)
+        row["ms_per_step_with_metrics"] = (sum(steps) + 1e3 * sum(metric_s)) / len(steps)
         report["phases"][phase] = row
         print(f"trainer phase {phase}: mixing {row['mixing_ms_per_step']:.2f} ms/step, "
               f"stabilizing {row['stabilizing_ms_per_step']:.2f} ms/step (median after the "
@@ -935,7 +976,10 @@ def run_trainer(data: Path, logdir: Path):
               f"{[round(v, 2) for v in row['stabilizing_ms_all']]}; steps without summary "
               f"{row['mixing_plain_ms']} / {row['stabilizing_plain_ms']}), "
               f"img/s {row['img_s']}, "
-              f"peak {row['peak_mib']:.0f} MiB", flush=True)
+              f"peak {row['peak_mib']:.0f} MiB; ms/step {row['ms_per_step_without_metrics']:.2f} "
+              f"without the metric passes (median), {row['ms_per_step_with_metrics']:.2f} with "
+              f"their host time ({[round(v, 2) for v in metric_s]} s) spread over the "
+              f"{len(steps)} steps; metrics {row['metrics']}", flush=True)
     print(f"trainer: {wall_s:.1f} s wall for phases 5 and 6, launches {counts}", flush=True)
     return report
 
@@ -1051,45 +1095,152 @@ def check_conv_v2(items, dtype, detail):
     return e
 
 
-def check_mbstd(cfg, detail):
-    """Kernel #5, group 4, at N = 8 and 16 and the per-sample feature counts of the
-    largest and smallest activation of the phase-6 pgan D, f32 and bf16 input."""
-    fs = cfg.resolved_filter_spec()
-
-    def sp(p):
-        return [d * 2 ** (p - 1) for d in cfg.base_shape[1:]]
-
-    shapes = {"largest": (fs[PHASE - 1][1], *sp(PHASE)), "smallest": (fs[0][0], *sp(1))}
+def check_mbstd(detail):
+    """Kernel #5 through ``minibatch_stddev_stat_cuda`` at ``profile_mbstd.mbstd_inputs``:
+    group 4 at N 8 and 16, the per-sample feature counts of the largest and smallest
+    phase-6 D activation, f32 and bf16, and group 3 (not a template size of the kernel)
+    at N 12.  Sums over the eight group-4 inputs, as earlier runs summed them."""
     g = torch.Generator(device="cuda").manual_seed(6)
-    e = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
-    for which, feat in shapes.items():
-        for n in (8, 16):
-            for dtype in (torch.float32, torch.bfloat16):
-                x = torch.randn((n, *feat), generator=g, device="cuda").to(dtype)
-                s = mb.minibatch_stddev_stat_triton(x)
-                again = mb.minibatch_stddev_stat_triton(x)
-                ref = mb.minibatch_stddev_stat_plain(x)
-                torch.cuda.synchronize()
-                check(torch.equal(s, again), f"mbstd {dtype} {tuple(x.shape)}: reruns differ")
-                err = (s - ref).abs().max().item()
-                check(err <= 1e-5 * ref.abs().max().item(),
-                      f"mbstd {dtype} {tuple(x.shape)}: max|err| {err}")
-                nbytes = x.numel() * x.element_size() + s.numel() * 4
-                b_ms, t_bytes, t_ops = bound(nbytes, 5 * x.numel(), F32_FLOPS)
-                t = dict(ms=time_ms(lambda: mb.minibatch_stddev_stat_triton(x)),
-                         plain_ms=time_ms(lambda: mb.minibatch_stddev_stat_plain(x), reps=5,
-                                          warmup=1),
-                         bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops)
-                detail.append(dict(kernel="minibatch_stddev_stat", shape=list(x.shape),
-                                   dtype=str(dtype), which=which, max_abs_err=err, **t))
-                print(f"mbstd {str(dtype)[6:]} {tuple(x.shape)} ({which}): kernel "
-                      f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, bound {b_ms:.4f} "
-                      f"({'bytes' if t_bytes >= t_ops else 'ops'}), err {err:.3g}, "
-                      f"bit-identical rerun", flush=True)
-                for k in ("ms", "plain_ms", "bound_ms", "t_bytes", "t_ops"):
-                    e[k] += t[k]
-                e["max_abs_err"] = max(e["max_abs_err"], err)
+    e = dict(ms=0.0, device_ms=0.0, host_us=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+             t_ops=0.0, max_abs_err=0.0)
+    for which, shape, dtype, group in mbstd_inputs():
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        before = mb.minibatch_stddev_stat_cuda.launches
+        s = mb.minibatch_stddev_stat_cuda(x, group)
+        again = mb.minibatch_stddev_stat_cuda(x, group)
+        ref = mb.minibatch_stddev_stat_plain(x, group)
+        torch.cuda.synchronize()
+        label = f"mbstd {dtype} {tuple(x.shape)} G {group}"
+        check(mb.minibatch_stddev_stat_cuda.launches == before + 2, f"{label}: launch count")
+        check(torch.equal(s, again), f"{label}: reruns differ")
+        err = (s - ref).abs().max().item()
+        check(err <= 1e-5 * ref.abs().max().item(), f"{label}: max|err| {err}")
+        calls = count_kernels(lambda: mb.minibatch_stddev_stat_cuda(x, group))
+        check(calls["launch_calls"] == 1, f"{label}: {calls} launches per call")
+        nbytes = x.numel() * x.element_size() + s.numel() * 4
+        b_ms, t_bytes, t_ops = bound(nbytes, 5 * x.numel(), F32_FLOPS)
+        t = time_three_ways(lambda: mb.minibatch_stddev_stat_cuda(x, group))
+        t.update(plain_ms=time_ms(lambda: mb.minibatch_stddev_stat_plain(x, group), reps=5,
+                                  warmup=1),
+                 bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops)
+        detail.append(dict(kernel="minibatch_stddev_stat", shape=list(x.shape),
+                           dtype=str(dtype), group_size=group, which=which, max_abs_err=err,
+                           plan=str(mb.mbstd_plan(shape[0], x[0].numel(), dtype, group,
+                                                  cf._sm_count(x.device))),
+                           **calls, **t))
+        print(f"{label} ({which}): ms {t['ms']:.4f}, device_ms {t['device_ms']:.4f}, host_us "
+              f"{t['host_us']:.1f}, plain {t['plain_ms']:.4f}, bound {b_ms:.4f} "
+              f"({'bytes' if t_bytes >= t_ops else 'ops'}), err {err:.3g}, bit-identical "
+              f"rerun, {calls['launch_calls']} launch call / {calls['kernels']} kernel per call",
+              flush=True)
+        if group == 4:
+            for k in ("ms", "device_ms", "host_us", "plain_ms", "bound_ms", "t_bytes", "t_ops"):
+                e[k] += t[k]
+        e["max_abs_err"] = max(e["max_abs_err"], err)
     return e
+
+
+class _TimedExtractor:
+    """A feature extractor whose extract() calls are timed (host clock; the call returns
+    numpy, so the card's work is inside)."""
+
+    def __init__(self, extractor):
+        self.extractor, self.seconds, self.images = extractor, 0.0, 0
+
+    def extract(self, images):
+        t0 = time.perf_counter()
+        out = self.extractor.extract(images)
+        self.seconds += time.perf_counter() - t0
+        self.images += len(images)
+        return out
+
+
+def check_metrics(data: Path, params, cfg, tmp: Path):
+    """The metrics slice at full width: ``generate()``'s report at phase 6 for 8 volumes
+    of 32x128x128 (one batch of 8) from the serving generator on the trainer's npy
+    pyramid, every metric on, FID over the random-feature extractor (the
+    --allow_uncalibrated_fid route); then FID-only over the Inception network with random
+    parameters written to an npz.  Every value finite; FID(real, real) at most 1e-2 of
+    FID(real, fake) for both extractors; Inception pool3 features of 8 slices on the card
+    within 1e-3 * max|CPU| of the CPU's.  Prints the seconds of feature extraction (on
+    the card) against the numpy/scipy metric arithmetic (on the host)."""
+    zero_counts()
+    model = ckpt.save_params(str(tmp / f"model_{PHASE}"), params, ema=params)
+    npz = minc.save_inception_npz(minc.random_inception_params(0), str(tmp / "inception.npz"))
+    everything = dict(compute_FID=True, compute_swds=True, compute_ssims=True,
+                      compute_psnrs=True, compute_mses=True, compute_nrmses=True)
+    out = dict(volumes=BATCH, slices_per_volume=cfg.current_shape(PHASE, 1)[2])
+    for name, extra, compute in (
+            ("random", dict(allow_uncalibrated_fid=True), everything),
+            ("inception", dict(inception_weights=npz), dict(compute_FID=True))):
+        rcfg = dataclasses.replace(cfg, **extra)
+        extractor = _TimedExtractor(mfid.default_extractor(
+            allow_uncalibrated=rcfg.allow_uncalibrated_fid, npz_path=rcfg.inception_weights,
+            device="cuda"))
+        check(isinstance(extractor.extractor, mfid.RandomConvFeatures if name == "random"
+                         else mfid.InceptionFeatures), f"metrics: extractor for {name}")
+        t0 = time.perf_counter()
+        report = generate("pgan", str(data), model, str(tmp / f"report_{name}"), cfg=rcfg,
+                          phase=PHASE, num_samples=BATCH, batch_size=BATCH, seed=0,
+                          compute_metrics=compute, device="cuda", extractor=extractor)
+        wall = time.perf_counter() - t0
+        want = {"fid"} | ({"swd", "psnr", "ssim", "mse", "nrmse"} if compute is everything
+                          else set())
+        check(set(report) == want and all(math.isfinite(v) for v in report.values()),
+              f"metrics ({name}): report {report}")
+        # the same real batch (the dataset's seeded stream) against itself
+        real = get_numpy_dataset(PHASE, cfg.starting_phase, cfg.start_shape, str(data), None,
+                                 seed=0).batch(BATCH).astype(np.float32)
+        extracted, sliced, t1 = extractor.seconds, extractor.images, time.perf_counter()
+        fid_same = mfid.calculate_fid_given_batch_volumes(real, real, extractor,
+                                                          verbose=False)
+        frechet_s = time.perf_counter() - t1 - (extractor.seconds - extracted)
+        check(abs(fid_same) <= 1e-2 * report["fid"],
+              f"metrics ({name}): FID(real, real) {fid_same} against FID(real, fake) "
+              f"{report['fid']}")
+        row = dict(report=report, fid_real_real=fid_same, wall_s=wall,
+                   extraction_s=extracted, slices=sliced,
+                   extract_ms_per_volume=1e3 * extracted / (2 * BATCH),
+                   host_s=dict(frechet_distance=frechet_s))
+        if compute is everything:  # the host's metric arithmetic on the report's arrays
+            fake = np.stack([np.load(tmp / f"report_{name}" / f"fake_0000_{j}.npy")[None]
+                             for j in range(BATCH)])
+            host = row["host_s"]
+            for metric, fn in (("swd", lambda: swd.get_swd_for_volumes(real, fake)),
+                               ("ssim", lambda: skim.get_ssim(real, fake)),
+                               ("psnr", lambda: skim.get_psnr(real, fake)),
+                               ("mse", lambda: skim.get_mean_squared_error(real, fake)),
+                               ("nrmse", lambda: skim.get_normalized_root_mse(real, fake))):
+                t1 = time.perf_counter()
+                fn()
+                host[metric] = time.perf_counter() - t1
+        out[name] = row
+        print(f"metrics ({name} features): report {report}; FID(real, real) {fid_same:.4g}; "
+              f"generate() {wall:.2f} s, of which extraction {extracted:.2f} s on the card for "
+              f"{sliced} slices ({row['extract_ms_per_volume']:.1f} ms per "
+              f"{out['slices_per_volume']}-slice volume); host numpy/scipy seconds on the same "
+              f"arrays {json.dumps({k: round(v, 3) for k, v in row['host_s'].items()})}",
+              flush=True)
+
+    counts = read_counts()
+    check(counts["fused"] > 0 and counts["plain"] == 0,
+          f"metrics: generate() sampled without the fused kernel or through a plain version "
+          f"({counts})")
+    out["launches"] = counts
+
+    # the Inception features of 8 slices, card against CPU
+    slices = stdnormal_to_8bit_numpy(np.repeat(real[0, 0, :8, :, :, None], 3, axis=-1))
+    slices = slices.astype(np.float32)
+    p = minc.load_inception_npz(npz)
+    on_card = minc.InceptionPool3Features(p, device="cuda").extract(slices)
+    on_cpu = minc.InceptionPool3Features(p, device="cpu").extract(slices)
+    diff = float(np.abs(on_card - on_cpu).max())
+    scale = float(np.abs(on_cpu).max())
+    check(diff <= 1e-3 * scale, f"metrics: Inception features card vs CPU {diff} of {scale}")
+    out["inception_card_vs_cpu"] = dict(max_abs_diff=diff, scale=scale)
+    print(f"metrics: Inception pool3 of 8 slices, card against CPU: max|diff| {diff:.3g} of "
+          f"{scale:.3g}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1117,7 +1268,7 @@ def main() -> int:
     ptxas = {}
     for name, r in report.items():
         print(f"  {name}: {r['seconds']:.1f} s", flush=True)
-        if name.startswith(("conv3d_", "fused_")):  # registers and spills
+        if name.startswith(("conv3d_", "fused_", "minibatch_")):  # registers and spills
             ptxas[name] = _build.ptxas_report(r["log"])
             for row in ptxas[name]:
                 print(f"    {_kernel_label(row['function'])}: {row['registers']} registers, "
@@ -1179,6 +1330,8 @@ def main() -> int:
         phase_done("trainer")
         resume = check_bitwise_resume(tmp / "data", tmp / "resumed", tmp / "run")
         phase_done("bitwise resume")
+        metrics = check_metrics(tmp / "data", params, cfg, tmp)
+        phase_done("metrics")
 
     # kernel #3 (standalone) at the serving shapes (f32) and the train step's forward and
     # dgrad shapes (bf16), and kernel #5 (standalone)
@@ -1194,8 +1347,8 @@ def main() -> int:
         before = cf.conv3d_flat_v2_cuda.launches
         v2[key] = check_conv_v2(shapes, dtype, detail)
         v2_launches[key] = cf.conv3d_flat_v2_cuda.launches - before
-    mbstd = check_mbstd(cfg, detail)
-    mbstd_launches = mb.minibatch_stddev_stat_triton.launches
+    mbstd = check_mbstd(detail)
+    mbstd_launches = mb.minibatch_stddev_stat_cuda.launches
     phase_done("standalone kernels")
 
     main_launches = served["flat"][2]
@@ -1218,9 +1371,9 @@ def main() -> int:
     per_v2 = (f"{STANDALONE_3}; ms per phase-6 batch-8 f32 serving forward / bf16 train step "
               f"(sum over the shapes kernel #1 runs at); launches of this entry's own standalone "
               f"check, its timing repeats included")
-    per_mbstd = (f"{STANDALONE_5}; ms summed over 8 inputs (N 8 and 16, the largest and "
-                 f"smallest phase-6 D activation, f32 and bf16); launches of this standalone "
-                 f"check")
+    per_mbstd = (f"{STANDALONE_5}; ms, device_ms and host_us summed over 8 inputs (group 4, "
+                 f"N 8 and 16, the largest and smallest phase-6 D activation, f32 and bf16); "
+                 f"launches of this standalone check (a ninth input of group 3 included)")
     kernels = []
     for name, route, source, replaces, e, launches, library, per_what, unit in (
             ("fused_bias_act_pixelnorm", "cuda", FUSED_SOURCE,
@@ -1259,7 +1412,7 @@ def main() -> int:
             ("conv3d_flat_v2[dgrad,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2_tc.cu",
              "saragan_tpu/ops/pallas_conv.py:288", v2["dgrad"], v2_launches["dgrad"],
              "library_ms", per_v2, None),
-            ("minibatch_stddev_stat", "triton", "saragan_tpu_torch/ops/minibatch_stddev.py",
+            ("minibatch_stddev_stat", "cuda", MBSTD_SOURCE,
              "saragan_tpu/ops/pallas_kernels.py:159", mbstd, mbstd_launches, None, per_mbstd,
              None)):
         check(launches > 0, f"{name}: not launched")
@@ -1286,7 +1439,7 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train, ptxas=ptxas,
         serving={e: served[e][1] for e in served}, training=training,
-        engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume,
+        engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume, metrics=metrics,
         seconds=seconds), indent=1))
     print(f"serving: " + json.dumps({e: served[e][1] for e in served}), flush=True)
     print("training: " + json.dumps({e: {h: dict(step_ms=r["step_ms"], peak_mib=r["peak_mib"])
@@ -1298,6 +1451,7 @@ def main() -> int:
         launches=trainer["launches"], wall_s=trainer["wall_s"],
         phases={p: {k: v for k, v in r.items() if not k.endswith("_all")}
                 for p, r in trainer["phases"].items()})), flush=True)
+    print("metrics: " + json.dumps({k: v for k, v in metrics.items()}), flush=True)
     print("seconds: " + json.dumps(seconds), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

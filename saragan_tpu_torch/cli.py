@@ -7,11 +7,11 @@ The flag names, defaults and None-able types are the reference's.  Added:
 ``--conv_engine {direct,flat}`` (cuDNN, or the hand-written kernels; without it the
 trainer takes ``flat`` on a CUDA device and ``direct`` on the CPU) and ``--device`` (CUDA
 unless named; ``--device cpu`` trains on the CPU).  ``main`` builds the
-``Trainer`` and runs it, as the reference's harness does without HPO; on a SIGTERM or
-SIGINT it prints the resume hint and exits 75.  Flags of options the port does not run
-yet (``--optuna_ntrials``, ``--calc_metrics``, ``--profile_dir``, ``--horovod``,
-``--single_chip_big_volume``, ``--dataset imagenet``) are accepted and raise
-``NotImplementedError`` naming ROADMAP.md.
+``Trainer`` and runs it, as the reference's harness does without HPO (with
+``--calc_metrics``, with ``make_metrics_callback(cfg)`` as its metrics callback); on a
+SIGTERM or SIGINT it prints the resume hint and exits 75.  Flags of options the port does
+not run yet (``--optuna_ntrials``, ``--horovod``, ``--single_chip_big_volume``,
+``--dataset imagenet``) are accepted and raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -146,12 +146,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--d_use_different_beta2", default=False, action="store_true")
     p.add_argument("--d_adam_beta2", type=none_or_float, default=0.9)
     # summaries
-    p.add_argument("--calc_metrics", default=False, action="store_true",
-                   help="metrics: not ported")
+    p.add_argument("--calc_metrics", default=False, action="store_true")
+    p.add_argument("--compute_metrics_train", default=False, action="store_true")
+    p.add_argument("--disable_compute_metrics_validation", dest="compute_metrics_validation",
+                   default=True, action="store_false")
+    p.add_argument("--disable_compute_metrics_test", dest="compute_metrics_test",
+                   default=True, action="store_false")
     p.add_argument("--disable_grad_histograms", dest="grad_histograms", default=True,
                    action="store_false")
     p.add_argument("--summary_small_every_nsteps", default=32, type=int)
     p.add_argument("--summary_large_every_nsteps", default=64, type=int)
+    p.add_argument("--num_metric_samples", type=none_or_int, default=None)
+    p.add_argument("--metrics_every_nsteps", default=128, type=int)
+    p.add_argument("--metrics_batch_size", default=16, type=int)
+    for m in ("FID", "swds", "ssims", "psnrs", "mses", "nrmses"):
+        p.add_argument(f"--compute_{m}", default=False, action="store_true")
+    p.add_argument("--inception_weights", default=None, type=none_or_str,
+                   help="converted pt_inception-2015-12-05 npz for calibrated FID")
+    p.add_argument("--allow_uncalibrated_fid", default=False, action="store_true",
+                   help="allow random-feature FID when no Inception weights are "
+                        "available (run-internal values only)")
     p.add_argument("--optuna_ntrials", default=None, type=none_or_int,
                    help="HPO: not ported")
     # input normalization
@@ -162,7 +176,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--transfer_dtype", default="auto",
                    choices=["auto", "float32", "float16", "bfloat16"],
                    help="host->device batch dtype; auto = bfloat16 under bfloat16 compute")
-    p.add_argument("--profile_dir", default=None, type=str, help="not ported")
+    p.add_argument("--profile_dir", default=None, type=str,
+                   help="write a torch.profiler trace of steps 5-10 of the first phase here")
     p.add_argument("--conv_engine", default="unset", choices=["direct", "flat"],
                    help="every 3-D conv through cuDNN (direct) or the hand-written "
                         "kernels (flat); unset: flat on a CUDA device, direct on the CPU")
@@ -188,7 +203,14 @@ def main(argv=None):
             raise ValueError(f"--{field} is unset (None): pass --{field} explicitly")
     from saragan_tpu_torch.train.trainer import Trainer, TrainingInterrupted
 
-    trainer = Trainer(cfg, device=args.device)
+    metrics_cb = None
+    if cfg.calc_metrics:
+        from saragan_tpu_torch.metrics.save_metrics import make_metrics_callback
+
+        # resolved before training: compute_FID without Inception weights fails here
+        # (UncalibratedFIDError) unless --allow_uncalibrated_fid
+        metrics_cb = make_metrics_callback(cfg, device=args.device)
+    trainer = Trainer(cfg, device=args.device, metrics_callback=metrics_cb)
     try:
         return trainer.run()
     except TrainingInterrupted as e:

@@ -9,9 +9,9 @@ down to every conv, never a process-wide gate.  Left "unset", the trainer resolv
 for its device (``resolve_conv_engine``), as the reference's ``apply_runtime_opts`` picks
 an engine by backend.  Fields of options the port does not run
 yet (``remat``, ``remat_offload``, ``gradient_accumulation > 1``, ``use_spectral_norm``,
-other optimizers than Adam, ``calc_metrics``, ``profile_dir``, ``horovod``,
-``single_chip_big_volume``, the ImageNet dataset) are kept so a configuration reads the
-same in both packages; the code that meets them raises and names ROADMAP.md.
+other optimizers than Adam, ``horovod``, ``single_chip_big_volume``, the ImageNet
+dataset) are kept so a configuration reads the same in both packages; the code that meets
+them raises and names ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -148,13 +148,27 @@ class Config:
     # fake and real critic passes as one D call over both batches
     batched_passes: bool = True
     # --- trainer (saragan_tpu/config.py:145-153,203-250) ---
-    calc_metrics: bool = False  # metrics/ are not ported (ROADMAP queue 1 item 11)
+    calc_metrics: bool = False  # the metric pass every metrics_every_nsteps and per phase
+    compute_metrics_train: bool = False  # end-of-phase metrics on the train split
+    compute_metrics_validation: bool = True
+    compute_metrics_test: bool = True
     grad_histograms: bool = True  # per-variable gradient histograms on summary steps
     summary_small_every_nsteps: int = 32
     summary_large_every_nsteps: int = 64
+    num_metric_samples: Optional[int] = None  # None: one batch of the phase
+    metrics_every_nsteps: int = 128
+    metrics_batch_size: int = 16
+    compute_FID: bool = False
+    inception_weights: Optional[str] = None  # converted pt_inception npz (metrics/inception)
+    allow_uncalibrated_fid: bool = False  # opt in to random-feature FID (run-internal only)
+    compute_swds: bool = False
+    compute_ssims: bool = False
+    compute_psnrs: bool = False
+    compute_mses: bool = False
+    compute_nrmses: bool = False
     # host->device batch dtype; "auto" = bfloat16 under bfloat16 compute, else float32
     transfer_dtype: str = "auto"
-    profile_dir: Optional[str] = None  # not ported
+    profile_dir: Optional[str] = None  # torch.profiler trace of steps 5-10 of the first phase
     full_state_checkpoints: bool = False  # cadence checkpoints also save the full state
     graceful_shutdown: bool = True  # SIGTERM/SIGINT: finish the step, checkpoint, exit 75
     auto_resume: bool = False  # continue from the newest resume point in the logdir

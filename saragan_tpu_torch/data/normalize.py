@@ -1,6 +1,15 @@
-"""Input normalization (own copy of ``saragan_tpu/data/normalize.py:17-44``)."""
+"""Input normalization (own copy of ``saragan_tpu/data/normalize.py:10-44``)."""
 
 from __future__ import annotations
+
+import numpy as np
+
+
+def stdnormal_to_8bit_numpy(normalized_input):
+    """Map standard-normal data to [0, 255] ints: 0 -> 128, +-2 SD -> 0 / 256, then clip
+    (the FID preprocessing of the reference's dataset.py:15-26)."""
+    image_8bit = np.clip((64 * normalized_input + 128), 0, 255)
+    return image_8bit.astype(int)
 
 
 def _check(mean, stddev):

@@ -1,4 +1,4 @@
-"""Minibatch standard-deviation statistic: the Triton kernel and its plain version.
+"""Minibatch standard-deviation statistic: the CUDA kernel, its plan and its plain version.
 
 Replaces ``saragan_tpu/ops/pallas_kernels.py::minibatch_stddev_stat`` (Pallas body
 ``_mbstd_kernel``): for x of shape (N, ...) and G = min(group_size, N), the samples form
@@ -9,21 +9,40 @@ The result is (groups, 1) f32.  As in the reference it is standalone: no discrim
 either package calls it (the reference's ``minibatch_stddev_layer`` is plain jnp, and
 this kernel has no gradient).
 
-What bounds it on the H100: one pass over the bytes of x with a few operations per
-element, so device memory.  A reduction, hence Triton.  Pass 1: program (m, j) loads the
-G samples of group m over BLOCK_F features, reduces over the group and writes the block's
-sum of the per-feature stddevs to a workspace.  Pass 2: program m sums its workspace row
-in a fixed order and divides by F.  No atomics, so a rerun is bit-identical.
+The kernel is ``csrc/minibatch_stddev.cu`` (CUDA C++ for sm_90a, loaded with ctypes
+through ``ops/_build.py``).  What bounds it on the H100: one pass over the bytes of x with
+a few operations per element, so device memory; at the small inputs, the launch.  A lane
+reads its features of an item's G rows with one 16-byte load per row and keeps the
+group's values in registers (G = 1, 2, 4, 8 are template sizes, any other G up to 8 runs
+over 8 guarded rows; a larger G reads the rows twice); each item's f64 sum of the
+per-feature stddevs lands in one workspace entry per (group, chunk), and the last block
+to finish (a ticket counter) adds each group's entries in a fixed order.  One launch per
+call, no atomic sum, so a rerun is bit-identical and the result does not depend on the
+grid.  The workspace and the counter are cached per (device, stream).  The plan (vector
+width, template G, vectors per item, grid) is plain Python, ``mbstd_plan``, so the CPU
+tests reach it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
-_BLOCK_F = 1024
-_BLOCK_R = 1024
+from saragan_tpu_torch.ops import _build
+from saragan_tpu_torch.ops.conv3d_flat import _raise_on_error, _sm_count, _stream
+
+# --- the plan of csrc/minibatch_stddev.cu ---
+
+MBSTD_THREADS = 256        # threads per block (the source's THREADS)
+MBSTD_WARPS = MBSTD_THREADS // 32
+MBSTD_CHUNK_VECTORS = 8    # vectors a lane takes of an item where the items fill the grid
+MBSTD_TEMPLATE_G = (1, 2, 4, 8)
+MBSTD_MAX_REG_G = 8        # the largest group a thread holds in registers
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # the source's Dtype
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 
 
 def _groups(x: torch.Tensor, group_size: int):
@@ -32,6 +51,68 @@ def _groups(x: torch.Tensor, group_size: int):
     if g < 1 or n % g:
         raise ValueError(f"batch {n} is not a multiple of the group size {g}")
     return g, n // g
+
+
+@dataclass(frozen=True)
+class MbstdPlan:
+    """How ``csrc/minibatch_stddev.cu`` runs one call: N samples of `feat` features in
+    `groups` groups of `g`.  An item is `chunk` features (MBSTD_WARPS warps x 32 lanes x
+    `cv` vectors of `vec` values) of one group; item i is group i // chunks, features from
+    (i % chunks) * chunk; `blocks` blocks walk them, block b taking items b, b + blocks,
+    ...  The workspace holds one f64 per item."""
+    g: int
+    groups: int
+    feat: int
+    vec: int      # values per load: 16 bytes' worth where rows start on 16 bytes, else 1
+    gt: int       # the template G (1, 2, 4 or 8); 0: any G <= 8 (8 guarded rows in
+                  # registers); -1: any G, the rows read twice
+    cv: int       # vectors a lane takes of an item
+    chunk: int
+    chunks: int   # items per group
+    items: int
+    blocks: int
+
+
+def mbstd_blocks_per_sm(gt: int, vec: int) -> int:
+    """Blocks an SM holds (the source's ``__launch_bounds__``): 2 where a thread keeps more
+    than 32 values of its group in registers (gt 0 or -1, a G that is not a template size,
+    counts as 8), else 4."""
+    return 2 if (gt if gt > 0 else MBSTD_MAX_REG_G) * vec > 32 else 4
+
+
+@functools.lru_cache(maxsize=4096)
+def mbstd_plan(n: int, feat: int, dtype: torch.dtype, group_size: int, sm_count: int,
+               aligned: bool = True) -> MbstdPlan:
+    """The plan of one call on x (n, ...) with `feat` features per sample in `dtype` (f32,
+    bf16 or f16).  Rows move as 16-byte words where `aligned` (x's base on 16 bytes) and a
+    row is a whole number of words, else element by element.  A lane takes
+    MBSTD_CHUNK_VECTORS vectors of an item where the items still give every block of a
+    full grid one, else the most of 4, 2, 1 that do (1 at the least): a small input spreads
+    over more warps instead of one warp's chain of loads.  The grid is the fewest blocks
+    that walk the items in as many rounds as a full grid would, so that no block takes
+    more items than another but one.  Cached."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"minibatch_stddev_stat takes f32, bf16 or f16, not {dtype}")
+    if feat < 1:
+        raise ValueError("minibatch_stddev_stat needs at least one feature per sample")
+    g = min(group_size, n)
+    if g < 1 or n % g:
+        raise ValueError(f"batch {n} is not a multiple of the group size {g}")
+    groups = n // g
+    esize = _ESIZE[dtype]
+    vec = 16 // esize if aligned and (feat * esize) % 16 == 0 else 1
+    gt = g if g in MBSTD_TEMPLATE_G else 0 if g <= MBSTD_MAX_REG_G else -1
+    grid = mbstd_blocks_per_sm(gt, vec) * int(sm_count)
+    cv = next((c for c in (MBSTD_CHUNK_VECTORS, 4, 2)
+               if groups * -(-feat // (MBSTD_THREADS * c * vec)) >= grid), 1)
+    chunk = MBSTD_THREADS * cv * vec
+    chunks = -(-feat // chunk)
+    items = groups * chunks
+    if items >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"minibatch_stddev_stat: {items} items exceed the kernel's int range")
+    rounds = -(-items // grid)
+    return MbstdPlan(g=g, groups=groups, feat=feat, vec=vec, gt=gt, cv=cv, chunk=chunk,
+                     chunks=chunks, items=items, blocks=-(-items // rounds))
 
 
 def minibatch_stddev_stat_plain(x: torch.Tensor, group_size: int = 4,
@@ -50,75 +131,71 @@ minibatch_stddev_stat_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _triton_kernels():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def mbstd_partial_kernel(x_ptr, ws_ptr, FEAT, GROUPS, NBLK, eps,
-                             G: tl.constexpr, BLOCK_F: tl.constexpr):
-        m = tl.program_id(0)
-        j = tl.program_id(1)
-        offs = j * BLOCK_F + tl.arange(0, BLOCK_F)
-        mask = offs < FEAT
-        s1 = tl.zeros((BLOCK_F,), tl.float32)
-        for i in tl.static_range(G):
-            row = (i * GROUPS + m).to(tl.int64) * FEAT
-            s1 += tl.load(x_ptr + row + offs, mask=mask, other=0.0).to(tl.float32)
-        mu = s1 / G
-        s2 = tl.zeros((BLOCK_F,), tl.float32)
-        for i in tl.static_range(G):
-            row = (i * GROUPS + m).to(tl.int64) * FEAT
-            d = tl.load(x_ptr + row + offs, mask=mask, other=0.0).to(tl.float32) - mu
-            s2 += d * d
-        sd = tl.sqrt(s2 / G + eps)
-        sd = tl.where(mask, sd, 0.0)
-        tl.store(ws_ptr + m * NBLK + j, tl.sum(sd, axis=0))
-
-    @triton.jit
-    def mbstd_reduce_kernel(ws_ptr, out_ptr, NBLK, FEAT, BLOCK_R: tl.constexpr):
-        m = tl.program_id(0)
-        acc = tl.zeros((BLOCK_R,), tl.float32)
-        for start in range(0, NBLK, BLOCK_R):
-            offs = start + tl.arange(0, BLOCK_R)
-            acc += tl.load(ws_ptr + m * NBLK + offs, mask=offs < NBLK, other=0.0)
-        tl.store(out_ptr + m, tl.sum(acc, axis=0) / FEAT)
-
-    return mbstd_partial_kernel, mbstd_reduce_kernel
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("minibatch_stddev")
+    # x, ws, counter, out; dtype, n, feat; g, vec, gt, cv, blocks; eps, stream
+    lib.saragan_mbstd.argtypes = ([ctypes.c_void_p] * 4
+                                  + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+                                  + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    lib.saragan_mbstd.restype = ctypes.c_int
+    lib.saragan_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.saragan_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
-def minibatch_stddev_stat_triton(x: torch.Tensor, group_size: int = 4,
-                                 eps: float = 1e-8) -> torch.Tensor:
-    """Launch the two Triton passes: x (N, ...) contiguous on a CUDA device, f32 or bf16
-    (f16 too); returns (groups, 1) f32.  Counts one launch per call."""
+_scratch_cache = {}  # (device index, stream) -> (f64 workspace, int32 ticket counter)
+
+
+def _scratch(x: torch.Tensor, stream: int, entries: int):
+    """The workspace (at least `entries` f64) and the ticket counter for x's device and
+    this stream: the counter is zeroed once and the last block of every launch sets it
+    back to 0; the workspace grows when a call needs more."""
+    key = (x.device.index, stream)
+    ws, counter = _scratch_cache.get(key, (None, None))
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if ws is None or ws.numel() < entries:
+        ws = torch.empty(entries, dtype=torch.float64, device=x.device)
+    _scratch_cache[key] = (ws, counter)
+    return ws, counter
+
+
+def minibatch_stddev_stat_cuda(x: torch.Tensor, group_size: int = 4,
+                               eps: float = 1e-8) -> torch.Tensor:
+    """Launch the kernel on PyTorch's current stream: x (N, ...) contiguous on a CUDA
+    device, f32, bf16 or f16; returns (groups, 1) f32.  One launch per call, counted."""
     if not x.is_cuda:
-        raise ValueError(f"minibatch_stddev_stat_triton needs a CUDA tensor; got {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise TypeError(f"minibatch_stddev_stat_triton takes f32, bf16 or f16; got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("minibatch_stddev_stat_triton needs a contiguous x")
-    g, groups = _groups(x, group_size)
-    feat = x[0].numel()
-    nblk = -(-feat // _BLOCK_F)
-    ws = torch.empty((groups, nblk), dtype=torch.float32, device=x.device)
-    out = torch.empty((groups, 1), dtype=torch.float32, device=x.device)
-    partial, reduce = _triton_kernels()
-    partial[(groups, nblk)](x, ws, feat, groups, nblk, float(eps), G=g, BLOCK_F=_BLOCK_F,
-                            num_warps=4)
-    reduce[(groups,)](ws, out, nblk, feat, BLOCK_R=_BLOCK_R, num_warps=4)
-    minibatch_stddev_stat_triton.launches += 1
+        raise ValueError(f"minibatch_stddev_stat_cuda needs a CUDA tensor; got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"minibatch_stddev_stat_cuda takes f32, bf16 or f16; got {x.dtype}")
+    if x.ndim < 1 or not x.is_contiguous():
+        raise ValueError("minibatch_stddev_stat_cuda needs a contiguous x of shape (N, ...)")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("minibatch_stddev_stat has no gradient (as in the reference)")
+    n = x.shape[0]
+    feat = x[0].numel() if n else 0
+    p = mbstd_plan(n, feat, x.dtype, group_size, _sm_count(x.device), x.data_ptr() % 16 == 0)
+    stream = _stream(x)
+    ws, counter = _scratch(x, stream, p.items)
+    out = torch.empty((p.groups, 1), dtype=torch.float32, device=x.device)
+    lib = _library()
+    err = lib.saragan_mbstd(x.data_ptr(), ws.data_ptr(), counter.data_ptr(), out.data_ptr(),
+                            _DTYPES[x.dtype], n, feat, p.g, p.vec, p.gt, p.cv, p.blocks,
+                            float(eps), stream)
+    _raise_on_error(lib, err, f"minibatch_stddev launch for x {tuple(x.shape)} {x.dtype}")
+    minibatch_stddev_stat_cuda.launches += 1
     return out
 
 
-minibatch_stddev_stat_triton.launches = 0
+minibatch_stddev_stat_cuda.launches = 0
 
 
 def minibatch_stddev_stat(x: torch.Tensor, group_size: int = 4,
                           eps: float = 1e-8) -> torch.Tensor:
-    """The per-group statistic, (groups, 1) f32: the Triton kernel for CUDA tensors, the
+    """The per-group statistic, (groups, 1) f32: the CUDA kernel for CUDA tensors, the
     plain version for CPU (and meta) tensors."""
     if x.is_cuda:
-        return minibatch_stddev_stat_triton(x, group_size, eps)
+        return minibatch_stddev_stat_cuda(x, group_size, eps)
     if x.device.type in ("cpu", "meta"):
         return minibatch_stddev_stat_plain(x, group_size, eps)
     raise ValueError(f"minibatch_stddev_stat has no path for device {x.device}")

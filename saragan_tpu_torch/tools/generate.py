@@ -2,8 +2,9 @@
 
 ``make_keyed_sampler`` builds the per-sample-keyed sampler the HTTP service runs;
 ``generate_minimal`` restores G from a checkpoint, samples, inverts the input
-normalization and writes ``.npy`` volumes.  The full metric report of the reference's
-``generate()`` waits for the metrics port.
+normalization and writes ``.npy`` volumes; ``generate`` writes the full report: PNG
+mosaics of real and fake batches, the fakes as ``.npy`` and the means of the enabled
+metrics (FID, SWD, PSNR, SSIM, MSE, NRMSE) in ``summary.txt``.
 
 Samplers run the serving configuration: fused transitions and the fused
 bias+act+pixel-norm kernel forced on, f32 end to end, under inference mode and with
@@ -19,7 +20,7 @@ import argparse
 import contextlib
 import dataclasses
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -27,10 +28,16 @@ import torch
 from saragan_tpu_torch._device import resolve_device
 from saragan_tpu_torch.config import Config
 from saragan_tpu_torch.core import filter_params
-from saragan_tpu_torch.data import invert_normalize_numpy
+from saragan_tpu_torch.data import get_numpy_dataset, invert_normalize_numpy, normalize_numpy
+from saragan_tpu_torch.metrics import (calculate_fid_given_batch_volumes, get_mean_squared_error,
+                                       get_normalized_root_mse, get_psnr, get_ssim,
+                                       get_swd_for_volumes)
+from saragan_tpu_torch.metrics.fid import default_extractor
+from saragan_tpu_torch.metrics.save_metrics import metric_flags
 from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.ops.core import CONV_ENGINES
 from saragan_tpu_torch.train import checkpoint as ckpt
+from saragan_tpu_torch.train.summaries import grid_to_uint8, image_grid, png_bytes
 
 _FETCH_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16}
 
@@ -148,6 +155,76 @@ def generate_minimal(architecture: str, model_path: str, output_dir: str, *, cfg
     return paths
 
 
+def _save_png(path: str, grid: np.ndarray):
+    """An image_grid mosaic as an 8-bit grayscale PNG, min-max scaled."""
+    with open(path, "wb") as f:
+        f.write(png_bytes(grid_to_uint8(grid)))
+
+
+def generate(architecture: str, dataset_path: str, model_path: str, output_dir: str, *,
+             cfg: Config, phase: Optional[int] = None, num_samples: int = 16,
+             batch_size: int = 4, seed: int = 0,
+             compute_metrics: Optional[Dict[str, bool]] = None, use_ema: bool = True,
+             device=None, conv_engine: str = "direct", extractor=None) -> Dict[str, float]:
+    """The inference report (the reference's generate.py:20-221): per batch of
+    `batch_size` real volumes of the phase's dataset and as many fakes, PNG mosaics
+    ``real_XXXX.png`` / ``fake_XXXX.png``, the fakes un-normalized as
+    ``fake_XXXX_j.npy``, and the enabled metrics; their means over the batches go to
+    ``summary.txt`` and are returned.  FID uses `extractor`, else the one ``cfg`` names
+    (``inception_weights``, or with ``allow_uncalibrated_fid`` the random features), on
+    `device` (CUDA unless named)."""
+    dev = resolve_device(device)
+    phase = phase or cfg.ending_phase
+    g_params, _ = _load_generator_params(model_path, use_ema, dev)
+    os.makedirs(output_dir, exist_ok=True)
+    real_ds = get_numpy_dataset(phase, cfg.starting_phase, cfg.start_shape, dataset_path,
+                                None, seed=seed)
+    compute_metrics = compute_metrics or metric_flags(cfg)
+    if compute_metrics.get("compute_FID") and extractor is None:
+        extractor = default_extractor(allow_uncalibrated=cfg.allow_uncalibrated_fid,
+                                      npz_path=cfg.inception_weights, device=dev)
+
+    sums: Dict[str, list] = {k: [] for k in ("fid", "swd", "psnr", "ssim", "mse", "nrmse")}
+    sampler = make_volume_sampler(cfg, phase, batch_size, device=dev, conv_engine=conv_engine)
+    done = batch_i = 0
+    while done < num_samples:
+        n = min(batch_size, num_samples - done)
+        real = normalize_numpy(real_ds.batch(n), cfg.data_mean, cfg.data_stddev).astype(
+            np.float32)
+        fake = sample_volumes(cfg, phase, g_params, n, seed + batch_i, batch_size=batch_size,
+                              device=dev, _sampler=sampler)
+
+        _save_png(os.path.join(output_dir, f"real_{batch_i:04d}.png"), image_grid(real))
+        _save_png(os.path.join(output_dir, f"fake_{batch_i:04d}.png"), image_grid(fake))
+        for j, vol in enumerate(fake):
+            np.save(os.path.join(output_dir, f"fake_{batch_i:04d}_{j}.npy"),
+                    invert_normalize_numpy(vol[0], cfg.data_mean, cfg.data_stddev))
+
+        if compute_metrics.get("compute_FID"):
+            sums["fid"].append(calculate_fid_given_batch_volumes(real, fake, extractor,
+                                                                 verbose=False))
+        if compute_metrics.get("compute_swds") and real.ndim == 5 and real.shape[-1] >= 16:
+            swd = get_swd_for_volumes(real, fake)
+            if swd is not None:
+                sums["swd"].append(swd[-1])
+        if compute_metrics.get("compute_psnrs"):
+            sums["psnr"].append(get_psnr(real, fake))
+        if compute_metrics.get("compute_ssims") and min(real.shape[2:]) >= 16:
+            sums["ssim"].append(float(np.mean(get_ssim(real, fake))))
+        if compute_metrics.get("compute_mses"):
+            sums["mse"].append(get_mean_squared_error(real, fake))
+        if compute_metrics.get("compute_nrmses"):
+            sums["nrmse"].append(get_normalized_root_mse(real, fake))
+        done += n
+        batch_i += 1
+
+    report = {k: float(np.mean(v)) for k, v in sums.items() if v}
+    with open(os.path.join(output_dir, "summary.txt"), "w") as f:
+        for k, v in report.items():
+            f.write(f"{k}: {v}\n")
+    return report
+
+
 def add_model_args(p: argparse.ArgumentParser):
     """The flags that rebuild the generator's Config (shared with tools.serve)."""
     p.add_argument("--phase", type=int, default=None)
@@ -174,30 +251,50 @@ def config_from_args(args) -> Config:
         ending_phase=args.phase,
         data_mean=args.data_mean,
         data_stddev=args.data_stddev,
+        **{k: getattr(args, k) for k in _METRIC_FIELDS if hasattr(args, k)},
     ).finalize()
 
 
+# the report's fields of Config that tools.generate's flags set
+_METRIC_FIELDS = ("compute_FID", "compute_swds", "compute_ssims", "compute_psnrs",
+                  "compute_mses", "compute_nrmses", "inception_weights",
+                  "allow_uncalibrated_fid")  # metric_flags' fields and the extractor's
+
+
 def main(argv=None):
-    """python -m saragan_tpu_torch.tools.generate <arch> <dataset> <model> <out> --minimal"""
+    """python -m saragan_tpu_torch.tools.generate <arch> <dataset> <model> <out> [--minimal]
+    [--compute_FID --allow_uncalibrated_fid | --inception_weights NPZ] [--compute_swds] ..."""
     p = argparse.ArgumentParser(prog="saragan_tpu_torch.tools.generate")
     p.add_argument("architecture")
-    p.add_argument("dataset_path", help="read only by the metric report (not ported yet)")
+    p.add_argument("dataset_path", help="the npy pyramid the report's real volumes come from")
     p.add_argument("model_path")
     p.add_argument("output_dir")
     add_model_args(p)
     p.add_argument("--num_samples", type=int, default=16)
+    p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--minimal", action="store_true", help="generate_minimal mode")
+    for m in ("FID", "swds", "ssims", "psnrs", "mses", "nrmses"):
+        p.add_argument(f"--compute_{m}", default=False, action="store_true")
+    p.add_argument("--inception_weights", default=None,
+                   help="converted pt_inception-2015-12-05 npz for calibrated FID")
+    p.add_argument("--allow_uncalibrated_fid", default=False, action="store_true",
+                   help="FID over random conv features when no Inception weights are given")
     args = p.parse_args(argv)
-    if not args.minimal:
-        p.error("only --minimal is ported; the metric report waits for the metrics port")
     cfg = config_from_args(args)
-    paths = generate_minimal(
-        args.architecture, args.model_path, args.output_dir, cfg=cfg, phase=args.phase,
-        num_samples=args.num_samples, seed=args.seed, data_mean=cfg.data_mean,
-        data_stddev=cfg.data_stddev, use_ema=not args.no_ema, device=args.device,
-        conv_engine=args.conv_engine)
-    print(f"wrote {len(paths)} volumes to {args.output_dir}")
+    if args.minimal:
+        paths = generate_minimal(
+            args.architecture, args.model_path, args.output_dir, cfg=cfg, phase=args.phase,
+            num_samples=args.num_samples, seed=args.seed, data_mean=cfg.data_mean,
+            data_stddev=cfg.data_stddev, use_ema=not args.no_ema, device=args.device,
+            conv_engine=args.conv_engine)
+        print(f"wrote {len(paths)} volumes to {args.output_dir}")
+        return
+    report = generate(args.architecture, args.dataset_path, args.model_path, args.output_dir,
+                      cfg=cfg, phase=args.phase, num_samples=args.num_samples,
+                      batch_size=args.batch_size, seed=args.seed, use_ema=not args.no_ema,
+                      device=args.device, conv_engine=args.conv_engine)
+    print(report)
 
 
 if __name__ == "__main__":

@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 
 from saragan_tpu_torch.config import Config
+from saragan_tpu_torch.train.summaries import grid_to_uint8, image_grid, png_bytes
 
 
 class _Ticket:
@@ -328,13 +329,7 @@ class GeneratorService:
 
 
 def _png_bytes(vols: np.ndarray) -> bytes:
-    import imageio
-
-    from saragan_tpu_torch.train.summaries import grid_to_uint8, image_grid
-
-    buf = io.BytesIO()
-    imageio.imwrite(buf, grid_to_uint8(image_grid(vols)), format="png")
-    return buf.getvalue()
+    return png_bytes(grid_to_uint8(image_grid(vols)))
 
 
 def _npy_bytes(vols: np.ndarray) -> bytes:

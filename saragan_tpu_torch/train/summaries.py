@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 import time
+import zlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -182,6 +184,21 @@ def grid_to_uint8(grid: np.ndarray) -> np.ndarray:
     lo, hi = grid.min(), grid.max()
     img = np.zeros_like(grid, dtype=np.float64) if hi == lo else (grid - lo) / (hi - lo)
     return (img * 255).astype(np.uint8)
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """A (H, W) uint8 image as an 8-bit grayscale PNG, encoded with zlib alone (no image
+    library is a dependency of the port)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = b"".join(b"\x00" + img[r].tobytes() for r in range(h))  # filter type 0 per row
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
 
 
 def print_summary_to_stdout(global_step, in_phase_step, img_s, local_img_s, d_loss, g_loss,

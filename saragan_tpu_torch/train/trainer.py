@@ -31,9 +31,22 @@ their times go to ``events.jsonl`` as ``Timing/step_ms_mixing`` and
 ``Timing/step_ms_stabilizing``, with the phase's peak device memory
 (``memory/phase_peak_bytes``).
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP.md): ``calc_metrics`` and
-a metrics callback (queue 1 item 11), an HPO ``trial`` (item 13), a mesh or
-``horovod`` (item 12), the ImageNet / 2-D dataset (item 9), ``profile_dir`` (item 6).
+Metrics (``calc_metrics`` with a ``metrics_callback``, e.g.
+``metrics.save_metrics.make_metrics_callback``): every ``metrics_every_nsteps`` under the
+training weights and under the EMA (suffix ``_EMA``), and at the end of each phase under
+the EMA on the test, validation and train splits (``_test``, ``_validation``,
+``_train``); the validation FID becomes ``last_fid``.  A metric pass stays out of the
+throughput window; its host seconds go to ``events.jsonl`` as ``Timing/metrics_s``.  The
+fakes come from ``sampler(generator, n)``: z drawn from the given ``torch.Generator`` in
+the compute dtype, the generator run on the trainer's device and engine.
+
+``profile_dir``: a ``torch.profiler`` trace (host, and the card's kernels on a CUDA
+device) of steps 5 to 10 of the starting phase, written there as a Chrome trace
+(``trace_phase<p>_steps5-10.json``; cut at the phase's end if it has fewer steps, none if
+it ends before step 5).
+
+Not ported (each raises ``NotImplementedError`` naming ROADMAP.md): an HPO ``trial``
+(item 13), a mesh or ``horovod`` (item 12), the ImageNet / 2-D dataset (item 9).
 The reference's native C++ prefetcher is not ported either: the loop runs the Python
 prefetch thread, as the reference does without that library, and says so in its log.
 """
@@ -130,6 +143,11 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
 
 
+def _sampler(sample, g_params, alpha: float):
+    """The metrics callback's sampler(generator, n) of `g_params` at `alpha`."""
+    return lambda generator, n: sample(g_params, generator, n, alpha)
+
+
 class Trainer:
     def __init__(self, cfg: Config, *, mesh=None,
                  dataset_factory: Optional[Callable[[int], NumpyPathDataset]] = None,
@@ -142,12 +160,8 @@ class Trainer:
         `device` is CUDA unless named."""
         if mesh is not None or cfg.horovod:
             _not_ported("training over a mesh or more than one process (queue 1 item 12)")
-        if metrics_callback is not None or cfg.calc_metrics:
-            _not_ported("calc_metrics / metrics_callback (queue 1 item 11)")
         if trial is not None:
             _not_ported("an HPO trial (queue 1 item 13)")
-        if cfg.profile_dir:
-            _not_ported("profile_dir (queue 1 item 6)")
         if cfg.dataset == "imagenet" or (cfg.dataset is None and cfg.ndim == 2):
             _not_ported("the ImageNet / 2-D dataset (queue 1 item 9)")
         self.cfg = cfg
@@ -160,6 +174,8 @@ class Trainer:
         self.arch = get_architecture(cfg.architecture)
         self.dataset_factory = dataset_factory
         self.draws_fn = draws_fn
+        self.metrics_callback = metrics_callback
+        self.global_size = 1  # processes: one (the mesh is not ported)
         self.verbose = verbose
         self.prefetch = prefetch
         self.logdir = cfg.logdir or os.path.join("runs", cfg.architecture,
@@ -314,6 +330,33 @@ class Trainer:
 
         return eval_losses
 
+    def _make_sample_fn(self, phase: int):
+        """sample(g_params, generator, n, alpha) -> (n, C, ...) f32 numpy: z drawn from
+        `generator` (on its own device) in the compute dtype, the generator run on the
+        trainer's device and engine without a graph."""
+        cfg, arch, dtype = self.cfg, self.arch, compute_dtype(self.cfg)
+
+        def sample(g_params, generator: torch.Generator, n: int, alpha: float) -> np.ndarray:
+            z = torch.randn((n, cfg.latent_dim), generator=generator, device=generator.device)
+            with torch.inference_mode(), _train_numerics():
+                out = arch.generator(g_params, z.to(self.device, dtype),
+                                     torch.tensor(float(alpha)), phase=phase, cfg=cfg,
+                                     conv_engine=self.conv_engine)
+            return out.float().cpu().numpy()
+
+        return sample
+
+    def _run_metrics(self, state: TrainState, npy_val, sample, global_step: int,
+                     alpha: float):
+        """The metric pass under the training weights, then under the EMA (``_EMA``)."""
+        m = self.metrics_callback(self, _sampler(sample, state.g_params, alpha), npy_val,
+                                  global_step, "")
+        self.metrics_callback(self, _sampler(sample, split_params(state.ema)[0], alpha),
+                              npy_val, global_step, "_EMA")
+        fid = (m or {}).get("FID")
+        if fid is not None:
+            self.last_fid = float(fid)
+
     def _to_device(self, batch: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         """Host batch -> device tensor at the transfer dtype: rounded by torch on the
         host, copied from pinned memory without blocking the host on a CUDA device."""
@@ -430,6 +473,8 @@ class Trainer:
             return steps[key]
 
         eval_losses = self._make_eval_losses(phase)
+        sample = self._make_sample_fn(phase)
+        run_metrics = cfg.calc_metrics and self.metrics_callback is not None
 
         # --- LR ---
         g_lr_max, d_lr_max = scale_lr(cfg.g_lr, cfg.d_lr, cfg.g_scaling, cfg.d_scaling,
@@ -495,6 +540,8 @@ class Trainer:
             torch.cuda.reset_peak_memory_stats(dev)
         events = []  # (half, global_step, start event, end event)
         step_idx = 0
+        profiler = None  # the profile_dir trace of steps 5 to 10 of the starting phase
+        profile_steps = (5, 10) if cfg.profile_dir and phase == cfg.starting_phase else None
         window_t0 = time.time()
         window_imgs = 0
         metrics = None
@@ -522,6 +569,9 @@ class Trainer:
                 small_summary_bool = local_step % cfg.summary_small_every_nsteps < batch_size
                 large_summary_bool = local_step % cfg.summary_large_every_nsteps < batch_size
                 summary = small_summary_bool or large_summary_bool
+                metrics_step = run_metrics and local_step % cfg.metrics_every_nsteps < batch_size
+                if profile_steps and step_idx == profile_steps[0]:
+                    profiler = self._start_profiler()
 
                 # the lazy-GP cadence follows local_step, which a resume restores
                 use_gp = lazy_k == 1 or ((local_step // batch_size) % lazy_k == 0)
@@ -541,6 +591,9 @@ class Trainer:
                     events.append(("mixing" if mixing_bool else "stabilizing", global_step,
                                    start, end))
 
+                if profiler is not None and step_idx == profile_steps[1]:
+                    self._stop_profiler(profiler, phase, profile_steps)
+                    profiler = None
                 if step_idx == 0:
                     # the first step's kernel builds and compiles stay out of the window
                     _ = float(metrics.gen_loss)
@@ -578,8 +631,13 @@ class Trainer:
                 if mixing_bool:
                     alpha = max(alpha - alpha_delta, 0.0)
 
-                if summary:
-                    # summary host time stays out of the next window
+                if metrics_step:
+                    t_metrics = time.time()
+                    self._run_metrics(state, npy_val, sample, global_step, alpha)
+                    self.writer.scalar("Timing/metrics_s", time.time() - t_metrics, global_step)
+
+                if summary or metrics_step:
+                    # summary and metric host time stays out of the next window
                     window_t0 = time.time()
                     window_imgs = 0
                 if verbose and summary:
@@ -617,6 +675,8 @@ class Trainer:
         finally:
             if prefetcher:
                 prefetcher.stop()
+            if profiler is not None:  # the phase ended before step 10
+                self._stop_profiler(profiler, phase, profile_steps)
 
         self._log("\n\n\n End of phase.")
         if window_imgs > 0 and time.time() > window_t0:
@@ -637,7 +697,38 @@ class Trainer:
         self.state = state
         self._save_phase_checkpoint(phase, state, global_step)
         self._supersede_consumed_interrupt()
+
+        # end-of-phase metrics under the EMA weights (the EMA tree itself, whether or not
+        # it is folded into the live weights)
+        if run_metrics:
+            ema_sampler = _sampler(sample, split_params(state.ema)[0], 0.0)
+            for flag, ds, tag in ((cfg.compute_metrics_test, npy_test, "test"),
+                                  (cfg.compute_metrics_validation, npy_val, "validation"),
+                                  (cfg.compute_metrics_train, npy_train, "train")):
+                if flag and len(ds) > 0:
+                    m = self.metrics_callback(self, ema_sampler, ds, global_step, f"_{tag}")
+                    self._log(f"{tag} dataset metrics: {m}")
+                    if tag == "validation" and m and m.get("FID") is not None:
+                        self.last_fid = float(m["FID"])
         return PhaseResult(phase, global_step, self.last_fid, img_s)
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, phase: int, steps):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            f"trace_phase{phase}_steps{steps[0]}-{steps[1]}.json")
+        profiler.export_chrome_trace(path)
+        self._log(f"Wrote a profiler trace of steps {steps[0]}-{steps[1]}: {path}")
 
     # ------------------------------------------------------------------
 

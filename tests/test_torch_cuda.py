@@ -7,7 +7,7 @@ the standalone #3, through both routes, and #5 too), the conv's derivative algeb
 against cuDNN's double backward in f32 and bf16, one train step under ``flat``, and a
 two-step CLI trainer run.
 
-Needs an NVIDIA GPU, nvcc and triton; skipped without them.  This file imports
+Needs an NVIDIA GPU and nvcc; skipped without them.  This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -349,13 +349,47 @@ def test_tensor_core_kernels_take_misaligned_views(cuda, offset):
 def test_minibatch_stddev_kernel_matches_plain_and_repeats(cuda, shape, dtype):
     g = torch.Generator(device=cuda).manual_seed(9)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    launches = mb.minibatch_stddev_stat_triton.launches
+    launches = mb.minibatch_stddev_stat_cuda.launches
     s = mb.minibatch_stddev_stat(x)
     again = mb.minibatch_stddev_stat(x)
     torch.cuda.synchronize()
-    assert mb.minibatch_stddev_stat_triton.launches == launches + 2
+    assert mb.minibatch_stddev_stat_cuda.launches == launches + 2
     assert s.shape == (shape[0] // 4, 1) and torch.equal(s, again)
     torch.testing.assert_close(s, mb.minibatch_stddev_stat_plain(x), rtol=1e-5, atol=0)
+
+
+# group sizes outside the kernel's template sizes (1, 2, 4, 8): up to 8 over guarded rows
+# in registers, above 8 the loop that reads the rows twice; f16, element loads (rows not
+# on 16 bytes, a misaligned view) and a larger input, whose plan takes eight vectors a
+# lane, too
+@pytest.mark.parametrize("shape,dtype,group", [
+    ((12, 16, 8, 32, 32), torch.float32, 3), ((10, 3, 5, 7), torch.bfloat16, 5),
+    ((16, 64, 4, 4), torch.float16, 16), ((6, 5, 7), torch.float16, 6),
+    ((20, 8, 16, 16), torch.bfloat16, 10), ((14, 3, 33), torch.float32, 7),
+    ((16, 64, 8, 8), torch.bfloat16, 8), ((4, 16, 32, 64, 64), torch.float32, 2),
+    ((3, 33), torch.float32, 4)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_minibatch_stddev_kernel_any_group_size(cuda, shape, dtype, group, offset):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    buf = torch.randn(math.prod(shape) + offset, generator=g, device=cuda).to(dtype)
+    x = buf[offset:].view(shape)
+    launches = mb.minibatch_stddev_stat_cuda.launches
+    s = mb.minibatch_stddev_stat_cuda(x, group)
+    again = mb.minibatch_stddev_stat_cuda(x.clone(), group)
+    torch.cuda.synchronize()
+    assert mb.minibatch_stddev_stat_cuda.launches == launches + 2
+    assert torch.equal(s, again)
+    ref = mb.minibatch_stddev_stat_plain(x, group)
+    assert (s - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_minibatch_stddev_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
+        mb.minibatch_stddev_stat_cuda(torch.zeros(4, 8, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        mb.minibatch_stddev_stat_cuda(torch.zeros(8, 4, device=cuda).t())
+    with pytest.raises(ValueError, match="group size"):
+        mb.minibatch_stddev_stat_cuda(torch.zeros(6, 4, device=cuda))
 
 
 def test_gp_pattern_through_the_kernels_matches_cudnn_double_backward(cuda):

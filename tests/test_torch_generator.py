@@ -302,8 +302,20 @@ def test_generate_cli_minimal(tmp_path):
                    "--num_samples", "2", *cli])
     assert sorted(p.name for p in (tmp_path / "out").iterdir()) == ["fake_0000.npy",
                                                                     "fake_0001.npy"]
-    with pytest.raises(SystemExit):  # the metric report is not ported yet
-        generate_main(["pgan", "unused", model, str(tmp_path / "out"), *cli])
+    # without --minimal: the report over the phase's real volumes (2x2x2 here: FID only,
+    # the SWD and SSIM size gates keep those off)
+    data = tmp_path / "data" / "2x2"
+    data.mkdir(parents=True)
+    for i in range(3):
+        np.save(data / f"{i}.npy", np.random.default_rng(i).normal(size=(2, 2, 2)))
+    generate_main(["pgan", str(tmp_path / "data"), model, str(tmp_path / "report"),
+                   "--num_samples", "2", "--batch_size", "2", "--compute_psnrs",
+                   "--compute_mses", *cli])
+    assert sorted(p.name for p in (tmp_path / "report").iterdir()) == [
+        "fake_0000.png", "fake_0000_0.npy", "fake_0000_1.npy", "real_0000.png", "summary.txt"]
+    summary = (tmp_path / "report" / "summary.txt").read_text().split()
+    assert summary[0::2] == ["psnr:", "mse:"] and all(np.isfinite(float(v))
+                                                       for v in summary[1::2])
 
 
 # ---------------------------------------------------------------------------

@@ -36,11 +36,13 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the trainer slice's modules, which the hook must reach
+# the trainer slice's and the metrics slice's modules, which the hook must reach
 REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             "saragan_tpu_torch.train.trainer", "saragan_tpu_torch.data.dataset",
             "saragan_tpu_torch.optim.schedules", "saragan_tpu_torch.optim.freeze",
-            "saragan_tpu_torch.ops.minibatch_stddev"}
+            "saragan_tpu_torch.ops.minibatch_stddev", "saragan_tpu_torch.tools.profile_mbstd",
+            *(f"saragan_tpu_torch.metrics.{m}"
+              for m in ("fid", "inception", "kms", "save_metrics", "skim", "swd"))}
 
 
 def test_port_imports_with_jax_and_reference_blocked():

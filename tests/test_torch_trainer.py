@@ -237,9 +237,9 @@ def test_sigterm_at_the_cli_exits_75_and_resumes(tmp_path):
     assert not [f for f in os.listdir(logdir) if f.endswith("_interrupt.pkl")]
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(calc_metrics=True), "calc_metrics"), (dict(horovod=True), "mesh"),
-    (dict(profile_dir="/nonexistent"), "profile_dir"), (dict(dataset="imagenet"), "ImageNet")])
+@pytest.mark.parametrize("change,match", [  # ids as before calc_metrics and profile_dir
+    pytest.param(dict(horovod=True), "mesh", id="change1-mesh"),
+    pytest.param(dict(dataset="imagenet"), "ImageNet", id="change3-ImageNet")])
 def test_unported_options_raise(tmp_path, change, match):
     cfg = Config(**base_cfg(tmp_path, **change)).finalize()
     with pytest.raises(NotImplementedError, match=match):
