@@ -101,9 +101,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    at N 12: within 1e-5 of max|plain|, bit-identical on a rerun, one launch per call
    (counted, and one launch call in a torch.profiler trace); timed three ways
    (``time_three_ways``) with its bound (bytes / 3.35 TB/s);
-12. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+12. big volume: the flagship at phase 8 (128x512x512, C = 8 at full resolution) under
+   the ``single_chip_big_volume`` preset (host-offloaded block taps, the unstacked
+   critic, unfused transitions, bf16, the fused op on), at the flagship schedule's batch
+   there (2):
+   (a) the first step from the seeded init with pre-drawn z and gamma, bit-equal (every
+   parameter, Adam slot, EMA entry and loss) to the same configuration without
+   remat_offload and to one with plain remat; then the main path, the preset's step
+   chained, a warm-up and 5 timed steps with the counts set to 0 just before: ms per step
+   (median, CUDA events), volumes/s, peak MiB, MiB parked in host memory per step, finite
+   losses, the kernels launched through the tensor-core route, no plain version;
+   (b) kernels #1, #1' and #2 at that step's 128x512x512 shapes and #4 forward and
+   backward at its two 128x512x512 calls, bf16, against their plain versions with the
+   limits of phases 3 and 6 (1e-2 of max|plain| in bf16; #4's backward also in f32),
+   bit-identical reruns, with their times, F.conv3d's / convolution_backward's and bounds;
+   (c) the trainer through its CLI with --single_chip_big_volume --use_pallas_fusion at
+   phase 8 (4 + 4 images at batch 2) on a seeded set of 4 volumes of 128x512x512
+   written to a temp dir: it must return, write model_8.npz with finite parameters, a
+   finite Loss/d_loss event and the flat engine, and run the kernels, no plain version;
+   the EMA sampler draws one finite volume of 128x512x512 from model_8.npz (f32, flat);
+13. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
+``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone (without the
+result lines), for working on it.
 """
 
 from __future__ import annotations
@@ -146,9 +167,10 @@ from saragan_tpu_torch.tools.profile_fused import kernel_label as fused_label
 from saragan_tpu_torch.tools.profile_fused import time_three_ways
 from saragan_tpu_torch.tools.profile_mbstd import mbstd_inputs
 from saragan_tpu_torch.tools.profile_serving import BENCH_CFG, time_ms
-from saragan_tpu_torch.tools.profile_training import (HALVES, bench_train_config,
-                                                       launch_counts, profile_one_step,
-                                                       real_batch, run_steps)
+from saragan_tpu_torch.tools.profile_training import (HALVES, PHASE8_FINAL_SHAPE,
+                                                       bench_train_config, launch_counts,
+                                                       profile_one_step, real_batch,
+                                                       run_steps)
 from saragan_tpu_torch.tools.serve import GeneratorService, make_server
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train.step import init_train_state, make_grads_fn, make_train_step
@@ -184,6 +206,21 @@ METRIC_ARGS = ["--calc_metrics", "--compute_FID", "--allow_uncalibrated_fid", "-
                "--compute_ssims", "--compute_psnrs", "--metrics_every_nsteps", "64"]
 METRIC_TAGS = ("fid", "fid_EMA", "PSNR", "ssim", "swd_mean", "fid_validation",
                "PSNR_validation", "ssim_validation", "swd_mean_validation", "fid_test")
+# the big-volume phase: the flagship at phase 8 (128x512x512) under the
+# single_chip_big_volume preset, at the flagship schedule's batch there
+# (--base_batch_size 256 halved seven times)
+BIG_PHASE, BIG_BATCH = 8, 2
+BIG_STEPS = 5
+BIG_SPATIAL = (128, 512, 512)
+BIG_TRAINER_ARGS = [
+    "pgan", "<data>", "--start_shape", "(1, 1, 4, 4)", "--final_shape", PHASE8_FINAL_SHAPE,
+    "--starting_phase", "8", "--ending_phase", "8", "--latent_dim", "256",
+    "--network_size", "xs", "--base_batch_size", "256", "--mixing_nimg", "4",
+    "--stabilizing_nimg", "4", "--loss_fn", "wgan", "--gp_weight", "10",
+    "--noise_stddev", "0", "--g_lr", "1e-3", "--d_lr", "1e-3", "--adam_beta1", "0",
+    "--adam_beta2", "0.9", "--compute_dtype", "bfloat16", "--use_pallas_fusion",
+    "--single_chip_big_volume", "--summary_small_every_nsteps", "4",
+    "--summary_large_every_nsteps", "8", "--checkpoint_every_nsteps", "8"]
 FUSED_SOURCE = "saragan_tpu_torch/csrc/fused_bias_act.cu"
 MBSTD_SOURCE = "saragan_tpu_torch/csrc/minibatch_stddev.cu"
 STANDALONE_3 = "standalone: no path of the JAX package runs it (saragan_tpu/ops/core.py:553)"
@@ -220,6 +257,7 @@ def bound(nbytes, nops, peak_flops=F32_FLOPS):
 def _alone_equals_slot(fn, *batch, slot=5):
     """`fn` of sample `slot` computed alone is bit-equal to its slot of `fn` on the batch,
     for every tensor output that has a batch dimension."""
+    slot = min(slot, batch[0].shape[0] - 1)
     full = fn(*batch)
     alone = fn(*(t[slot:slot + 1].contiguous() if t.ndim > 1 else t for t in batch))
     full, alone = (full, alone) if isinstance(full, tuple) else ((full,), (alone,))
@@ -565,13 +603,13 @@ def _rate_line(t):
             f"of bound")
 
 
-def check_train_convs(conv_shapes, wgrad_shapes, steps, detail):
+def check_train_convs(conv_shapes, wgrad_shapes, steps, detail,
+                      dtypes=(torch.float32, torch.bfloat16)):
     """Forward/dgrad and wgrad kernels at every (shape, role) the train step launched, in
-    f32 (CUDA cores) and bf16 (tensor cores).  Returns {(kind, dtype
-    name): summed per-step entry}; each shape's numbers count as often as one step
+    f32 (CUDA cores) and bf16 (tensor cores), or the `dtypes` given.  Returns {(kind,
+    dtype name): summed per-step entry}; each shape's numbers count as often as one step
     launches it."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    dtypes = (torch.float32, torch.bfloat16)
     limits = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     entries, timed = {}, {}
 
@@ -1243,7 +1281,220 @@ def check_metrics(data: Path, params, cfg, tmp: Path):
     return out
 
 
-def main() -> int:
+def _states_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, part)[k], getattr(b, part)[k])
+               for part in ("g_params", "d_params", "ema") for k in getattr(a, part)) and all(
+        torch.equal(getattr(a, part).mu[k], getattr(b, part).mu[k])
+        and torch.equal(getattr(a, part).nu[k], getattr(b, part).nu[k])
+        for part in ("g_opt", "d_opt") for k in getattr(a, part).mu)
+
+
+def big_volume_step():
+    """(a) The phase-8 step at batch 2 under the single_chip_big_volume preset (bf16, the
+    fused op on, the mixing half): its first step from the seeded init, with pre-drawn
+    z and gamma, bit-equal to the same configuration without remat_offload and with
+    plain remat; then the main path, the preset's step chained (a warm-up, then
+    BIG_STEPS steps with the counts set to 0 just before and read just after): ms per
+    step (median, CUDA events), volumes/s, peak MiB and the bytes parked in host memory,
+    finite losses, every kernel launched through the tensor-core route and no plain
+    version.  Returns (report, launches, per-shape conv and wgrad launches)."""
+    arch = get_architecture("pgan")
+    cfg = bench_train_config(BIG_PHASE, BIG_BATCH, single_chip_big_volume=True)
+    check(cfg.remat_offload and not cfg.batched_passes and not cfg.fused_transitions
+          and cfg.current_shape(BIG_PHASE, 1)[2:] == BIG_SPATIAL, f"big volume: preset {cfg}")
+    state0, opts = init_train_state(arch, torch.Generator().manual_seed(0), phase=BIG_PHASE,
+                                    cfg=cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    real = torch.randn(cfg.current_shape(BIG_PHASE, BIG_BATCH), generator=g, device="cuda")
+    draws = losses.draw_inputs(g, BIG_BATCH, cfg.latent_dim, real.shape[1:], torch.bfloat16,
+                               "cuda")
+    first, report = {}, dict(first_step={})
+    for name, c in (("remat_offload", cfg),
+                    ("none", dataclasses.replace(cfg, remat_offload=False)),
+                    ("remat", dataclasses.replace(cfg, remat_offload=False, remat=True))):
+        step = make_train_step(arch, c, BIG_PHASE, *opts, static_alpha=None, conv_engine="flat")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, m = step(state0, real, None, 0.5, 1e-3, 1e-3, draws=draws)
+        torch.cuda.synchronize()
+        first[name] = (new, m)
+        report["first_step"][name] = dict(
+            s=time.perf_counter() - t0, peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+            host_mib=step.parked_bytes / 2 ** 20,
+            losses=[float(m.gen_loss), float(m.disc_loss), float(m.gp_loss)])
+        print(f"big volume, first step {name}: {report['first_step'][name]}", flush=True)
+    for name in ("none", "remat"):
+        check(_states_equal(first["remat_offload"][0], first[name][0])
+              and all(torch.equal(a, b) for a, b in zip(first["remat_offload"][1][:5],
+                                                        first[name][1][:5])),
+              f"big volume: the preset's first step differs from the step under {name}")
+    check(report["first_step"]["remat_offload"]["host_mib"] > 0,
+          "big volume: remat_offload parked nothing in host memory")
+    del first
+
+    step = make_train_step(arch, cfg, BIG_PHASE, *opts, static_alpha=None, conv_engine="flat")
+    rng = torch.Generator(device="cuda").manual_seed(6)
+    state, _, _ = run_steps(step, state0, real, rng, 0.5, 1)  # warm-up
+    zero_counts()  # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    state, ms, metrics = run_steps(step, state, real, rng, 0.5, BIG_STEPS)
+    counts = read_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    shapes = (Counter(cf.conv3d_flat_cuda.by_shape), Counter(cf.conv3d_flat_wgrad_cuda.by_shape))
+    losses_ = [[float(m.gen_loss), float(m.disc_loss), float(m.gp_loss)] for m in metrics]
+    check(all(math.isfinite(v) for row in losses_ for v in row),
+          f"big volume: non-finite losses {losses_}")
+    check(counts["plain"] == 0, f"big volume: {counts['plain']} plain-version calls on the card")
+    for k in ("forward", "dgrad", "wgrad", "fused", "fused_grad"):
+        check(counts[k] > 0, f"big volume: kernel {k} not launched ({counts})")
+    check(counts["conv_tc"] == counts["forward"] + counts["dgrad"]
+          and counts["wgrad_tc"] == counts["wgrad"]
+          and counts["conv_simt"] == counts["wgrad_simt"] == 0, f"big volume: routes {counts}")
+    for part in ("g_params", "d_params", "ema"):
+        check(_moved(getattr(state, part), getattr(state0, part)),
+              f"big volume: {part} did not move")
+    report.update(step_ms=statistics.median(ms), step_ms_all=ms,
+                  vol_s=BIG_BATCH / statistics.median(ms) * 1e3, peak_mib=peak_mib,
+                  host_mib=step.parked_bytes / 2 ** 20, losses=losses_, launches=counts)
+    print(f"big volume: phase {BIG_PHASE} batch {BIG_BATCH} preset step "
+          f"{report['step_ms']:.2f} ms (median of {BIG_STEPS}, CUDA events; all "
+          f"{[round(v, 2) for v in ms]}), {report['vol_s']:.3f} vol/s, peak {peak_mib:.0f} MiB, "
+          f"{report['host_mib']:.0f} MiB parked in host memory per step, losses {losses_[-1]}, "
+          f"launches {counts}", flush=True)
+    return report, counts, shapes
+
+
+def big_volume_kernels(shapes, detail):
+    """(b) #1, #1' and #2 at every shape of the big-volume step at 128x512x512, and #4
+    forward and backward at the step's two 128x512x512 calls (C = 8), bf16, against
+    their plain versions with the tolerances of the phase-6 checks, timed with their
+    library calls and bounds; each weighted by its launches per step."""
+    conv_shapes, wgrad_shapes = shapes
+    conv_shapes = Counter({k: v for k, v in conv_shapes.items() if k[1][2:] == BIG_SPATIAL})
+    wgrad_shapes = Counter({k: v for k, v in wgrad_shapes.items() if k[0][2:] == BIG_SPATIAL})
+    check(conv_shapes and wgrad_shapes, "big volume: no 128x512x512 conv shapes")
+    convs = check_train_convs(conv_shapes, wgrad_shapes, BIG_STEPS, detail,
+                              dtypes=(torch.bfloat16,))
+    fs = bench_train_config(BIG_PHASE, BIG_BATCH).resolved_filter_spec()[BIG_PHASE - 1]
+    fused_fwd, fused_bwd = check_train_fused([(BIG_BATCH, c, *BIG_SPATIAL) for c in fs], detail)
+    return convs, fused_fwd, fused_bwd
+
+
+def write_big_dataset(root: Path):
+    """A seeded npy set of 4 volumes of 128x512x512, f32 (537 MB)."""
+    rng = np.random.default_rng(0)
+    d = root / f"{BIG_SPATIAL[2]}x{BIG_SPATIAL[2]}"
+    d.mkdir(parents=True)
+    for i in range(4):
+        np.save(d / f"{i:03d}.npy", rng.standard_normal(BIG_SPATIAL, dtype=np.float32))
+
+
+def run_big_trainer(data: Path, logdir: Path):
+    """(c) The trainer through ``cli.main`` at phase 8 with --single_chip_big_volume
+    --use_pallas_fusion, batch 2, 4 + 4 images: it must return, write model_8.npz with
+    finite parameters and a finite summary loss, resolve the flat engine, and run the
+    kernels and no plain version (counts set to 0 just before, read just after); the
+    EMA sampler then draws one finite 128x512x512 volume from model_8.npz."""
+    zero_counts()
+    t0 = time.perf_counter()
+    cli.main([str(data) if a == "<data>" else a for a in BIG_TRAINER_ARGS]
+             + ["--logdir", str(logdir)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["plain"] == 0, f"big trainer: {counts['plain']} plain-version calls")
+    for k in ("forward", "dgrad", "wgrad", "fused", "fused_grad"):
+        check(counts[k] > 0, f"big trainer: kernel {k} not launched ({counts})")
+    model = logdir / f"model_{BIG_PHASE}.npz"
+    check(model.is_file(), f"big trainer: {model.name} not written")
+    params, ema, _ = ckpt.load_params(str(model), "cpu")
+    check(params and all(torch.isfinite(v).all().item() for v in params.values()),
+          "big trainer: non-finite parameters in the checkpoint")
+    events = _events(logdir)
+    engines = [e["text"] for e in events if e["tag"] == "config/conv_engine"]
+    check(engines == ["flat"], f"big trainer: engine {engines}")
+    d_loss = [e["value"] for e in events if e["tag"] == "Loss/d_loss"]
+    check(d_loss and all(math.isfinite(v) for v in d_loss), f"big trainer: Loss/d_loss {d_loss}")
+    steps = [e["value"] for e in events if e["tag"].startswith("Timing/step_ms_")]
+    peak = [e["value"] for e in events if e["tag"] == "memory/phase_peak_bytes"]
+    # the EMA sampler on the written checkpoint: one f32 volume of 128x512x512
+    g_params, _ = _load_generator_params(str(model), True, "cuda")
+    sampler = make_keyed_sampler(bench_train_config(BIG_PHASE, BIG_BATCH), BIG_PHASE, 1,
+                                 device="cuda", conv_engine="flat")
+    volume = sampler(g_params, np.array([7]), np.array([0]))
+    check(tuple(volume.shape) == (1, 1, *BIG_SPATIAL) and torch.isfinite(volume).all().item(),
+          f"big trainer: EMA sample {tuple(volume.shape)} not finite or of the wrong shape")
+    report = dict(wall_s=wall_s, launches=counts, d_loss=d_loss, step_ms=steps,
+                  peak_mib=peak[0] / 2 ** 20 if peak else None,
+                  ema_sample_std=float(volume.float().std()))
+    print(f"big trainer: phase {BIG_PHASE} through the CLI in {wall_s:.1f} s, steps (ms) "
+          f"{[round(v, 1) for v in steps]}, peak {report['peak_mib']} MiB, d_loss {d_loss}, "
+          f"launches {counts}", flush=True)
+    return report
+
+
+def big_volume(detail):
+    """The big-volume phases (a), (b), (c); returns (report, the main path's launches,
+    the kernel checks' entries)."""
+    torch.cuda.empty_cache()
+    big, big_launches, big_shapes = big_volume_step()
+    kernels = big_volume_kernels(big_shapes, detail)
+    big["kernels"] = {"/".join(k): v for k, v in kernels[0].items()}
+    big["kernels"].update(fused=kernels[1], fused_grad=kernels[2])
+    with tempfile.TemporaryDirectory() as tmp:
+        write_big_dataset(Path(tmp) / "data")
+        big["trainer"] = run_big_trainer(Path(tmp) / "data", Path(tmp) / "run")
+    return big, big_launches, kernels
+
+
+def big_volume_entries(kernels, launches):
+    """The kernels line's rows of the big-volume path: (name, route, source, replaces,
+    entry, launches, library key, per, unit)."""
+    convs, fused, fused_grad = kernels
+    per = (f"one phase-{BIG_PHASE} batch-{BIG_BATCH} bf16 step under single_chip_big_volume "
+           f"(sum over its launches at the 128x512x512 shapes); launches counted over "
+           f"{BIG_STEPS} steps of the big-volume path, every shape")
+    return (
+        ("conv3d_flat[forward,bf16,phase8]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
+         "saragan_tpu/ops/pallas_conv.py:124", convs[("forward", "bfloat16")],
+         launches["forward"], "library_ms", per, BIG_STEPS),
+        ("conv3d_flat[dgrad,bf16,phase8]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
+         "saragan_tpu/ops/core.py:386", convs[("dgrad", "bfloat16")], launches["dgrad"],
+         "library_ms", per, BIG_STEPS),
+        ("conv3d_wgrad[bf16,phase8]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad_tc.cu",
+         "saragan_tpu/ops/pallas_conv.py:183", convs[("wgrad", "bfloat16")], launches["wgrad"],
+         "library_ms", per, BIG_STEPS),
+        ("fused_bias_act_pixelnorm[phase8,bf16]", "cuda", FUSED_SOURCE,
+         "saragan_tpu/ops/pallas_kernels.py:112", fused, launches["fused"], None, per,
+         BIG_STEPS),
+        ("fused_bias_act_pixelnorm_grad[phase8,bf16]", "cuda", FUSED_SOURCE,
+         "saragan_tpu/ops/pallas_kernels.py:123", fused_grad, launches["fused_grad"], None, per,
+         BIG_STEPS))
+
+
+def kernel_row(name, route, source, replaces, e, launches, library, per_what, unit):
+    """One entry of the kernels line."""
+    check(launches > 0, f"{name}: not launched")
+    k = dict(name=name, route=route, source=source, replaces=replaces, launches=launches,
+             max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
+             bound_ms=e["bound_ms"],
+             bound_by="operations" if e["t_ops"] > e["t_bytes"] else "bytes",
+             library_ms=e[library] if library else None, per=per_what)
+    if unit:
+        k["launches_per_unit"] = launches / unit
+    for extra in ("device_ms", "host_us", "v1_ms", "max_rel_diff_v1", "oracle_autograd_ms",
+                  "function_backward_ms", "gb_max_abs_err", "kernels_per_call"):
+        if extra in e:
+            k[extra] = e[extra]
+    if "t_flop" in e:  # the conv rows: the rate
+        k["tflops"] = e["t_flop"] / e["ms"] / 1e9
+        k["share_of_bound"] = e["bound_ms"] / e["ms"]
+    return k
+
+
+def main(argv=None) -> int:
+    args = _parse(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1282,6 +1533,17 @@ def main() -> int:
           flush=True)
     check(all(hmma.values()), f"a bf16 conv library has no tensor-core instruction: {hmma}")
     phase_done("build")
+    if args.only == "big_volume":  # this phase alone, for working on it: no result line
+        detail = []
+        big, big_launches, big_kernels = big_volume(detail)
+        phase_done("big volume")
+        rows = [kernel_row(*r) for r in big_volume_entries(big_kernels, big_launches)]
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_big_volume.json").write_text(json.dumps(dict(
+            card=card, big_volume=big, kernels=rows, shapes=detail, seconds=seconds),
+            indent=1, default=str))
+        print("big volume kernels: " + json.dumps(rows), flush=True)
+        return 0
 
     cfg = Config(**BENCH_CFG, starting_phase=PHASE, ending_phase=PHASE).finalize()
     fused_shapes, serve_convs = serving_shapes(cfg, PHASE, BATCH)
@@ -1351,6 +1613,11 @@ def main() -> int:
     mbstd_launches = mb.minibatch_stddev_stat_cuda.launches
     phase_done("standalone kernels")
 
+    # the flagship at phase 8 (128x512x512) under single_chip_big_volume: the step, its
+    # kernels at the phase-8 shapes, the trainer through the CLI
+    big, big_launches, big_kernels = big_volume(detail)
+    phase_done("big volume")
+
     main_launches = served["flat"][2]
     dispatches = served["flat"][1]["dispatches"]
     flat_runs = trained["flat"][1]
@@ -1374,8 +1641,7 @@ def main() -> int:
     per_mbstd = (f"{STANDALONE_5}; ms, device_ms and host_us summed over 8 inputs (group 4, "
                  f"N 8 and 16, the largest and smallest phase-6 D activation, f32 and bf16); "
                  f"launches of this standalone check (a ninth input of group 3 included)")
-    kernels = []
-    for name, route, source, replaces, e, launches, library, per_what, unit in (
+    kernels = [kernel_row(*r) for r in (
             ("fused_bias_act_pixelnorm", "cuda", FUSED_SOURCE,
              "saragan_tpu/ops/pallas_kernels.py:112", fused, main_launches["fused"], None, per,
              dispatches),
@@ -1414,23 +1680,8 @@ def main() -> int:
              "library_ms", per_v2, None),
             ("minibatch_stddev_stat", "cuda", MBSTD_SOURCE,
              "saragan_tpu/ops/pallas_kernels.py:159", mbstd, mbstd_launches, None, per_mbstd,
-             None)):
-        check(launches > 0, f"{name}: not launched")
-        k = dict(name=name, route=route, source=source, replaces=replaces, launches=launches,
-                 max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
-                 bound_ms=e["bound_ms"],
-                 bound_by="operations" if e["t_ops"] > e["t_bytes"] else "bytes",
-                 library_ms=e[library] if library else None, per=per_what)
-        if unit:
-            k["launches_per_unit"] = launches / unit
-        for extra in ("device_ms", "host_us", "v1_ms", "max_rel_diff_v1", "oracle_autograd_ms",
-                      "function_backward_ms", "gb_max_abs_err", "kernels_per_call"):
-            if extra in e:
-                k[extra] = e[extra]
-        if "t_flop" in e:  # the conv rows: the rate
-            k["tflops"] = e["t_flop"] / e["ms"] / 1e9
-            k["share_of_bound"] = e["bound_ms"] / e["ms"]
-        kernels.append(k)
+             None))]
+    kernels += [kernel_row(*r) for r in big_volume_entries(big_kernels, big_launches)]
     f32_train = {f"{kind}[f32]": {x: e[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "max_abs_err", "launches_per_step")}
                  for (kind, dt), e in train_convs.items() if dt == "float32"}
@@ -1440,7 +1691,7 @@ def main() -> int:
         card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train, ptxas=ptxas,
         serving={e: served[e][1] for e in served}, training=training,
         engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume, metrics=metrics,
-        seconds=seconds), indent=1))
+        big_volume=big, seconds=seconds), indent=1, default=str))
     print(f"serving: " + json.dumps({e: served[e][1] for e in served}), flush=True)
     print("training: " + json.dumps({e: {h: dict(step_ms=r["step_ms"], peak_mib=r["peak_mib"])
                                          for h, r in trained[e][0].items()} for e in trained}),
@@ -1452,6 +1703,9 @@ def main() -> int:
         phases={p: {k: v for k, v in r.items() if not k.endswith("_all")}
                 for p, r in trainer["phases"].items()})), flush=True)
     print("metrics: " + json.dumps({k: v for k, v in metrics.items()}), flush=True)
+    print("big volume: " + json.dumps({k: big[k] for k in ("step_ms", "vol_s", "peak_mib",
+                                                           "host_mib", "first_step")}),
+          flush=True)
     print("seconds: " + json.dumps(seconds), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1459,6 +1713,15 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _parse(argv):
+    import argparse
+
+    p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
+    p.add_argument("--only", choices=["big_volume"], default=None,
+                   help="build, then run this phase alone (no result line)")
+    return p.parse_args(argv)
 
 
 if __name__ == "__main__":

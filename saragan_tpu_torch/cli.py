@@ -9,9 +9,11 @@ trainer takes ``flat`` on a CUDA device and ``direct`` on the CPU) and ``--devic
 unless named; ``--device cpu`` trains on the CPU).  ``main`` builds the
 ``Trainer`` and runs it, as the reference's harness does without HPO (with
 ``--calc_metrics``, with ``make_metrics_callback(cfg)`` as its metrics callback); on a
-SIGTERM or SIGINT it prints the resume hint and exits 75.  Flags of options the port does
-not run yet (``--optuna_ntrials``, ``--horovod``, ``--single_chip_big_volume``,
-``--dataset imagenet``) are accepted and raise ``NotImplementedError`` naming ROADMAP.md.
+SIGTERM or SIGINT it prints the resume hint and exits 75.  ``--single_chip_big_volume``
+is the reference's preset for phases 7 and 8 on one device (``config.py``: host-offloaded
+block taps, the unstacked critic, unfused transitions, the ``flat`` engine).  Flags of
+options the port does not run yet (``--optuna_ntrials``, ``--horovod``, ``--dataset
+imagenet``) are accepted and raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -106,7 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--d_use_different_optimizer", default=False, action="store_true")
     p.add_argument("--d_optimizer", type=none_or_str, choices=_optim_choices, default="Adam")
     p.add_argument("--gradient_accumulation", type=int, default=1)
-    p.add_argument("--use_spectral_norm", default=False, action="store_true")
+    p.add_argument("--use_spectral_norm", default=False, action="store_true",
+                   help="spectral-normalize the discriminator's weights")
+    p.add_argument("--spectral_iterations", type=int, default=3,
+                   help="power iterations per forward under --use_spectral_norm")
     p.add_argument("--fused_transitions", dest="fused_transitions", default=True,
                    action="store_true", help="upscale + conv as one exact transition")
     p.add_argument("--no_fused_transitions", dest="fused_transitions", action="store_false")
@@ -131,10 +136,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gp_grad_mode", default="revrev", choices=["revrev", "revfwd"])
     p.add_argument("--lazy_gp", default=1, type=int,
                    help="apply the gradient penalty every k-th step with k-scaled weight")
-    p.add_argument("--remat", default=False, action="store_true")
-    p.add_argument("--remat_offload", default=False, action="store_true")
+    p.add_argument("--remat", default=False, action="store_true",
+                   help="recompute the G and D forwards in the backward")
+    p.add_argument("--remat_offload", default=False, action="store_true",
+                   help="keep only the block-boundary activations, in pinned host memory, "
+                        "and recompute the rest")
     p.add_argument("--single_chip_big_volume", default=False, action="store_true",
-                   help="needs remat_offload: not ported")
+                   help="phases 7-8 on one device: --remat_offload, --no_batched_passes, "
+                        "--no_fused_transitions and the flat conv engine")
     p.add_argument("--use_pallas_fusion", default=False, action="store_true",
                    help="the fused bias + leaky ReLU + pixel norm kernel after every "
                         "generator conv (the flag keeps the reference's name)")

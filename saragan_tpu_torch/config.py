@@ -8,10 +8,19 @@ cuDNN, the reference's choice off the TPU; or "flat", the hand-written kernels),
 down to every conv, never a process-wide gate.  Left "unset", the trainer resolves it
 for its device (``resolve_conv_engine``), as the reference's ``apply_runtime_opts`` picks
 an engine by backend.  Fields of options the port does not run
-yet (``remat``, ``remat_offload``, ``gradient_accumulation > 1``, ``use_spectral_norm``,
-other optimizers than Adam, ``horovod``, ``single_chip_big_volume``, the ImageNet
-dataset) are kept so a configuration reads the same in both packages; the code that meets
-them raises and names ROADMAP.md.
+yet (other optimizers than Adam, ``horovod``, the ImageNet dataset) are kept so a
+configuration reads the same in both packages; the code that meets them raises and names
+ROADMAP.md.
+
+``single_chip_big_volume`` is the reference's preset for phases 7 and 8 (64x256x256 and
+128x512x512 volumes) on one device (``saragan_tpu/config.py:448-456``): ``finalize``
+turns on ``remat_offload`` (the block-boundary activations parked in pinned host memory,
+everything else recomputed) and turns off ``batched_passes`` and ``fused_transitions``;
+``resolve_conv_engine`` then picks ``flat`` on every device, as the reference's preset
+picks ``pallas`` (``:502-503``).  The reference's preset also sets TPU layout workarounds
+(``scoped_vmem_kib``, the window pool, statistics in the compute dtype;
+``saragan_tpu/config.py:274-295``, ``saragan_tpu/ops/core.py:167-173``).  They are not
+copied: statistics stay f32 (ROADMAP.md queue 1 item 14 keeps them for later as options).
 """
 
 from __future__ import annotations
@@ -28,16 +37,18 @@ from saragan_tpu_torch.ops import core
 CONV_ENGINES = ("unset", *core.CONV_ENGINES)
 
 
-def resolve_conv_engine(engine: str, device_type: str) -> str:
+def resolve_conv_engine(engine: str, device_type: str, big_volume: bool = False) -> str:
     """The trainer's conv engine on a device of `device_type` ("cuda", "cpu", ...): an
     explicit "direct" or "flat" as given; "unset" as the reference's
-    ``apply_runtime_opts`` picks one for training (``saragan_tpu/config.py:500-512``), the
-    engine measured fastest on the device: "flat" (the hand-written kernels) on a CUDA
-    device, "direct" elsewhere.  The samplers and serving do not ask: they keep "direct",
-    as the reference's do (``inference=True``)."""
+    ``apply_runtime_opts`` picks one for training (``saragan_tpu/config.py:495-512``):
+    under the ``single_chip_big_volume`` preset (`big_volume`) "flat" on every device, as
+    the reference's preset picks ``pallas``; otherwise the engine measured fastest on the
+    device, "flat" (the hand-written kernels) on a CUDA device and "direct" elsewhere.  On
+    the CPU "flat" runs the kernels' plain versions.  The samplers and serving do not ask:
+    they keep "direct", as the reference's do (``inference=True``)."""
     if engine != "unset":
         return engine
-    return "flat" if device_type == "cuda" else "direct"
+    return "flat" if big_volume or device_type == "cuda" else "direct"
 
 
 def parse_tuple(value) -> Tuple[int, ...]:
@@ -119,7 +130,8 @@ class Config:
     g_scaling: str = "none"
     loss_fn: str = "logistic"
     gp_weight: float = 1.0
-    use_spectral_norm: bool = False
+    use_spectral_norm: bool = False  # spectral-normalize the discriminator's weights
+    spectral_iterations: int = 3  # power iterations per forward from the persisted u
     g_clipping: bool = False
     d_clipping: bool = False
     optim_strategy: str = "simultaneous"
@@ -143,7 +155,8 @@ class Config:
     gp_full_reduction: bool = False
     # shared-fake-pass WGAN gradients: one D backward over the fake batch instead of two
     fused_grads: bool = True
-    # algebra of the penalty's parameter gradient: 'revrev' (ported) or 'revfwd'
+    # algebra of the penalty's parameter gradient: 'revrev' (reverse over reverse) or
+    # 'revfwd' (the gradient of a directional derivative along the penalty's cotangent)
     gp_grad_mode: str = "revrev"
     # fake and real critic passes as one D call over both batches
     batched_passes: bool = True
@@ -174,7 +187,8 @@ class Config:
     auto_resume: bool = False  # continue from the newest resume point in the logdir
     keep_checkpoints: int = 0  # newest N cadence checkpoints per phase (0 = all)
     abort_on_nonfinite: bool = False  # raise TrainingDiverged on a non-finite summary loss
-    single_chip_big_volume: bool = False  # needs remat_offload: not ported
+    # phases 7-8 on one device: remat_offload, unstacked critic, unfused transitions, flat
+    single_chip_big_volume: bool = False
     # "direct" (cuDNN) or "flat" (the hand-written kernels), the explicit SARAGAN_CONV3D;
     # "unset": the trainer picks one for its device (resolve_conv_engine)
     conv_engine: str = "unset"
@@ -250,9 +264,6 @@ class Config:
             c.d_lr_decay_niter = c.stabilizing_nimg // 2
         if c.conv_engine not in CONV_ENGINES:
             raise ValueError(f"conv_engine must be one of {CONV_ENGINES}; got {c.conv_engine!r}")
-        if c.single_chip_big_volume:
-            raise NotImplementedError("single_chip_big_volume needs remat_offload, which is "
-                                      "not ported yet (ROADMAP queue 1 item 10)")
         if not c.d_use_different_optimizer:
             c.d_optimizer = c.optimizer
         if not c.d_use_different_beta1:
@@ -271,4 +282,8 @@ class Config:
                 f"ending_phase={c.ending_phase} exceeds num_phases={c.num_phases} "
                 f"(= log2(final/start) from start_shape={c.start_shape}, "
                 f"final_shape={c.final_shape})")
+        if c.single_chip_big_volume:
+            c.remat_offload = True
+            c.batched_passes = False
+            c.fused_transitions = False
         return c

@@ -12,6 +12,10 @@ depend on creation order or on the phase it first appears in.  The init forward 
 the ``meta`` device (``get`` hands back a meta view), which computes only shapes: no
 activation is materialized, as the reference's ``jax.eval_shape`` init does.  The
 values follow the reference's distributions, not JAX's threefry bits.
+
+``spectral`` > 0 spectrally normalizes every weight ``ops.core.get_weight`` reads under
+the scope, with that many power iterations (the discriminator's scope under
+``use_spectral_norm``; reference ``saragan_tpu/core.py:49-65``).
 """
 
 from __future__ import annotations
@@ -38,17 +42,18 @@ class Scope:
 
     def __init__(self, params: Params, prefix: str = "", *, init: bool = False,
                  rng: Optional[torch.Generator] = None, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, spectral: int = 0):
         self.params = params
         self.prefix = prefix
         self.init = init
         self.rng = rng
         self.device = device
         self.dtype = dtype
+        self.spectral = spectral
 
     def sub(self, name: str) -> "Scope":
         return Scope(self.params, self.path(name), init=self.init, rng=self.rng,
-                     device=self.device, dtype=self.dtype)
+                     device=self.device, dtype=self.dtype, spectral=self.spectral)
 
     def path(self, name: str) -> str:
         return f"{self.prefix}/{name}" if self.prefix else name

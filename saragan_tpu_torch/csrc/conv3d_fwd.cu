@@ -29,7 +29,8 @@
 //     chunk k+1's halo'd x box (zero padding by zero-fill) and its K x CC x FT weights
 //     (16-byte copies where F allows) while chunk k computes.  Where each staged row comes
 //     from is worked out once per block into a table in shared memory, so a chunk's
-//     staging does no division;
+//     staging does no division; element offsets are formed from it in 64 bits, so no
+//     tensor size meets a 32-bit limit;
 //   * each thread reads one staged x row per (channel, kz, ky), reuses it across the KW
 //     taps, and reads its FPT weights as float4 (float2, float) words that the threads of
 //     a warp share; the x row stride is odd, so the rows a warp reads spread over the banks.
@@ -98,8 +99,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The row table: for staged row q = (cc * SD + sz) * SH + sy, {offset of its first
-// element from the start of channel cc of the sample, or -1 outside the volume, cc}.
+// The row table: for staged row q = (cc * SD + sz) * SH + sy, {its row gd * H + gh in
+// the channel's D x H rows, or -1 outside the volume, cc}.  Element offsets are formed
+// from it in 64 bits at use, so no size of x is limited by 32-bit arithmetic.
 __device__ __forceinline__ void build_row_table(const Geo& g, int2* tab, int d0, int h0) {
   const int plane_rows = g.SD * g.SH;
   for (int q = threadIdx.x; q < g.rows; q += blockDim.x) {
@@ -107,7 +109,7 @@ __device__ __forceinline__ void build_row_table(const Geo& g, int2* tab, int d0,
     const int rr = q - cc * plane_rows;
     const int gd = d0 + rr / g.SH - g.PD, gh = h0 + rr % g.SH - g.PH;
     const bool in = gd >= 0 && gd < g.D && gh >= 0 && gh < g.H;
-    tab[q] = make_int2(in ? (cc * g.D + gd) * g.H * g.W + gh * g.W : -1, cc);
+    tab[q] = make_int2(in ? gd * g.H + gh : -1, cc);
   }
 }
 
@@ -118,16 +120,19 @@ __device__ __forceinline__ void stage_chunk(const Geo& g, const int2* tab,
                                             const float* __restrict__ xn,
                                             const float* __restrict__ w, float* buf, int c0,
                                             int w0, int f0) {
-  const float* xc = xn + static_cast<size_t>(c0) * g.D * g.H * g.W;
+  const size_t rows = static_cast<size_t>(g.D) * g.H;  // W-rows per channel
   const uint32_t xb = smem_u32(buf);
   for (int q = threadIdx.x / g.LW; q < g.rows; q += blockDim.x / g.LW) {
     const int2 t = tab[q];
     const bool row_in = t.x >= 0 && c0 + t.y < g.C;
+    const float* src_row =
+        row_in ? xn + (static_cast<size_t>(c0 + t.y) * rows + static_cast<size_t>(t.x)) * g.W
+               : xn;
     const uint32_t dst = xb + static_cast<uint32_t>(q * g.RS) * 4u;
     for (int sx = threadIdx.x & (g.LW - 1); sx < g.SW; sx += g.LW) {
       const int gw = w0 + sx - g.PW;
       const bool in = row_in && gw >= 0 && gw < g.W;
-      cp_async<4>(dst + sx * 4u, in ? xc + t.x + gw : xn, in);
+      cp_async<4>(dst + sx * 4u, in ? src_row + gw : xn, in);
     }
   }
   const uint32_t wb = xb + static_cast<uint32_t>(g.xs_floats) * 4u;
@@ -328,7 +333,7 @@ extern "C" int saragan_conv3d_fwd(const void* x, const void* w, void* y, int n, 
   g.rows = cc * g.SD * g.SH;
   g.xs_floats = round_up(g.rows * g.RS, 4);
   g.ws_floats = g.taps * cc * ft;
-  if (static_cast<long long>(c > cc ? c : cc) * d * h * wd > INT_MAX) return bad;  // row table
+  if (static_cast<long long>(d) * h > INT_MAX) return bad;  // the row table's rows
   const size_t need = 2 * (static_cast<size_t>(g.xs_floats) + g.ws_floats) * sizeof(float) +
                       static_cast<size_t>(g.rows) * sizeof(int2);
   if (need != static_cast<size_t>(smem) || need > MAX_SMEM) return bad;

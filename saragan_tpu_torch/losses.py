@@ -14,7 +14,13 @@ the device, or handed in pre-drawn (the parity tests feed the reference's own dr
 
 Reference quirk kept: the simultaneous penalty reduces the gradient norm over axes
 (1, 2, 3), which for 3-D volumes leaves per-(sample, W-slice) slopes (reference
-``loss.py:140``); ``gp_full_reduction=True`` reduces over every non-batch axis.
+``loss.py:140``); ``gp_full_reduction=True`` reduces over every non-batch axis.  The
+discriminator-only loss of the ``alternate`` strategy (``forward_discriminator``)
+reduces over every non-batch axis, as the reference's does.
+
+``gp_disc_fn``, where given, replaces ``disc_fn`` inside the penalty term only: the
+same function under another recompute wrapping (``remat_offload`` gives the penalty
+plain recompute, as the reference's ``gp_disc`` does).
 """
 
 from __future__ import annotations
@@ -75,13 +81,43 @@ def _slopes_from_grads(grads: torch.Tensor, axes) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.square(grads.float()), dim=axes))
 
 
+def _input_grad(disc_fn: Callable, d_params: Params, interp: torch.Tensor,
+                create_graph: bool) -> torch.Tensor:
+    """d sum(D(x)) / d x at `interp`."""
+    interp = interp.detach().requires_grad_(True)
+    score = disc_fn(d_params, interp).sum().float()
+    (grads,) = torch.autograd.grad(score, interp, create_graph=create_graph)
+    return grads
+
+
 def _gp_slopes(disc_fn: Callable, d_params: Params, interp: torch.Tensor, axes):
     """||d D(x)/d x|| over `axes`, itself differentiable (the graph of the input
     gradient is kept for the parameter gradient)."""
-    interp = interp.detach().requires_grad_(True)
-    score = disc_fn(d_params, interp).sum().float()
-    (grads,) = torch.autograd.grad(score, interp, create_graph=True)
-    return _slopes_from_grads(grads, axes)
+    return _slopes_from_grads(_input_grad(disc_fn, d_params, interp, True), axes)
+
+
+def _detached(params: Params) -> Params:
+    return {k: v.detach() for k, v in params.items()}
+
+
+def _gp_revfwd(gp_dfn: Callable, d_params: Params, interp: torch.Tensor, axes,
+               gp_weight: float):
+    """The penalty and its parameter gradient by the reference's ``revfwd`` algebra
+    (``saragan_tpu/losses.py:211-233``): with g = dD/dx at the interpolates and P(g) the
+    mean penalty, dP/dtheta = (dg/dtheta)^T c for the frozen cotangent c = P'(g), so the
+    gradient is that of the directional derivative <dD/dx, c> with respect to the
+    parameters.  The reference forms that directional derivative in forward mode
+    (``jax.jvp``); the kernels' autograd Functions have no forward mode, so here it is the
+    contraction of a ``create_graph`` input gradient with c, whose parameter gradient is
+    the same function: one D forward and input backward, as ``revrev``'s.  Returns
+    (penalty, {name: gradient})."""
+    gx = _input_grad(gp_dfn, d_params, interp, True)
+    g = gx.detach().requires_grad_(True)
+    penalty = torch.mean(gp_weight * (_slopes_from_grads(g, axes) - 1.0) ** 2)
+    (c,) = torch.autograd.grad(penalty, g)
+    c = c.to(interp.dtype)
+    directional = torch.sum(gx.float() * c.float())
+    return penalty.detach(), param_grads(directional, d_params)
 
 
 def _simultaneous_axes(ndim: int, full: bool) -> Tuple[int, ...]:
@@ -107,7 +143,8 @@ def forward_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
                          d_params: Params, real: torch.Tensor, draws: Draws, *,
                          loss_fn: str = "wgan", gp_weight: float = 1.0,
                          noise_stddev: float = 0.0, gp_full_reduction: bool = False,
-                         compute_gp: bool = True) -> LossOutput:
+                         compute_gp: bool = True,
+                         gp_disc_fn: Optional[Callable] = None) -> LossOutput:
     """Joint G+D forward (reference ``forward_simultaneous``): the discriminator's
     terms see a detached fake sample and the generator's term a detached critic, so the
     gradient of gen_loss + disc_loss with respect to (g_params, d_params) is the pair of
@@ -122,8 +159,9 @@ def forward_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
     disc_real = disc_fn(d_params, real)
     if compute_gp:
         axes = _simultaneous_axes(real.ndim, gp_full_reduction)
-        slopes = _gp_slopes(disc_fn, d_params, _interpolates(draws, real, fake_sg), axes)
-    disc_fake_g = disc_fn({k: v.detach() for k, v in d_params.items()}, fake)
+        slopes = _gp_slopes(gp_disc_fn or disc_fn, d_params,
+                            _interpolates(draws, real, fake_sg), axes)
+    disc_fake_g = disc_fn(_detached(d_params), fake)
 
     disc_fake_d, disc_real, disc_fake_g = (s.float() for s in (disc_fake_d, disc_real,
                                                                disc_fake_g))
@@ -152,7 +190,7 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
                        gp_weight: float = 1.0, noise_stddev: float = 0.0,
                        gp_full_reduction: bool = False, compute_gp: bool = True,
                        gp_grad_mode: str = "revrev", batched_passes: bool = False,
-                       disc_cross_sample: bool = False
+                       disc_cross_sample: bool = False, gp_disc_fn: Optional[Callable] = None
                        ) -> Tuple[Tuple[Params, Params], LossOutput]:
     """WGAN simultaneous gradients with the fake critic pass shared (reference
     ``grads_simultaneous``): for the WGAN loss the cotangents of D(fake) in the
@@ -166,13 +204,11 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
     A discriminator that mixes samples (a minibatch-stddev layer, ``disc_cross_sample``)
     would need the two passes kept apart, which is not ported: it raises.
 
-    Only ``gp_grad_mode="revrev"`` is ported (reverse over reverse: the penalty's
-    parameter gradient differentiates through the inner input gradient).
+    ``gp_grad_mode``: "revrev" (reverse over reverse: the penalty's parameter gradient
+    differentiates through the inner input gradient) or "revfwd" (``_gp_revfwd``); both
+    exact, summed in other orders.
     Returns ((g_grads, d_grads), LossOutput) with detached values."""
-    if gp_grad_mode == "revfwd":
-        raise NotImplementedError("gp_grad_mode='revfwd' (reverse over forward) is not "
-                                  "ported yet (ROADMAP queue 1 item 3)")
-    if gp_grad_mode != "revrev":
+    if gp_grad_mode not in ("revrev", "revfwd"):
         raise ValueError(f"Unknown gp_grad_mode: {gp_grad_mode}")
     n = real.shape[0]
     real = _instance_noise(real, draws.noise_real, noise_stddev)
@@ -205,9 +241,14 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
     gp_mean = torch.zeros((), dtype=torch.float32, device=real.device)
     if compute_gp:
         axes = _simultaneous_axes(real.ndim, gp_full_reduction)
-        slopes = _gp_slopes(disc_fn, d_params, _interpolates(draws, real, fake.detach()), axes)
-        gp_mean = torch.mean(gp_weight * (slopes - 1.0) ** 2)
-        ggp_d = param_grads(gp_mean, d_params)
+        interp = _interpolates(draws, real, fake.detach())
+        if gp_grad_mode == "revfwd":
+            gp_mean, ggp_d = _gp_revfwd(gp_disc_fn or disc_fn, d_params, interp, axes,
+                                        gp_weight)
+        else:
+            slopes = _gp_slopes(gp_disc_fn or disc_fn, d_params, interp, axes)
+            gp_mean = torch.mean(gp_weight * (slopes - 1.0) ** 2)
+            ggp_d = param_grads(gp_mean, d_params)
 
     g_grads = {k: -g for k, g in gfake_g.items()}
     terms = [t for t in (gfake_d, greal_d, ggp_d) if t is not None]
@@ -216,3 +257,56 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
     out = LossOutput(-fake_score, fake_score + real_term + gp_mean, gp_mean,
                      gen_sample.detach())
     return (g_grads, d_grads), out
+
+
+def forward_generator(gen_fn: Callable, disc_fn: Callable, g_params: Params,
+                      d_params: Params, draws: Draws, *, loss_fn: str = "wgan",
+                      noise_stddev: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generator-only forward of the ``alternate`` strategy (reference
+    ``forward_generator``): the critic's parameters detached.  Uses ``draws.z`` and
+    ``draws.noise_fake``.  Returns (gen_sample, gen_loss)."""
+    gen_sample = gen_fn(g_params, draws.z)
+    fake = _instance_noise(gen_sample, draws.noise_fake, noise_stddev)
+    disc_fake_g = disc_fn(_detached(d_params), fake).float()
+    if loss_fn == "wgan":
+        gen_loss = -torch.mean(disc_fake_g)
+    elif loss_fn == "logistic":
+        gen_loss = torch.mean(F.softplus(-disc_fake_g))
+    else:
+        raise ValueError(f"Unknown loss function: {loss_fn}")
+    return gen_sample, gen_loss
+
+
+def forward_discriminator(gen_fn: Callable, disc_fn: Callable, g_params: Params,
+                          d_params: Params, real: torch.Tensor, draws: Draws, *,
+                          loss_fn: str = "wgan", gp_weight: float = 1.0,
+                          noise_stddev: float = 0.0, compute_gp: bool = True,
+                          gp_disc_fn: Optional[Callable] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Discriminator-only forward of the ``alternate`` strategy (reference
+    ``forward_discriminator``): the generator's sample without a graph, the penalty's
+    norm over every non-batch axis.  Returns (disc_loss, gp_loss)."""
+    with torch.no_grad():
+        gen_sample = gen_fn(_detached(g_params), draws.z)
+    real = _instance_noise(real, draws.noise_real, noise_stddev)
+    fake = _instance_noise(gen_sample, draws.noise_fake, noise_stddev)
+    disc_fake_d = disc_fn(d_params, fake).float()
+    disc_real = disc_fn(d_params, real).float()
+    zero = torch.zeros((), dtype=torch.float32, device=real.device)
+    if compute_gp:
+        axes = tuple(range(1, real.ndim))
+        slopes = _gp_slopes(gp_disc_fn or disc_fn, d_params, _interpolates(draws, real, fake),
+                            axes)
+    if loss_fn == "wgan":
+        gp_term = gp_out = zero
+        if compute_gp:
+            gp_loss = gp_weight * (slopes - 1.0) ** 2
+            gp_term, gp_out = gp_loss[:, None], torch.mean(gp_loss)
+        disc_loss = torch.mean(disc_fake_d - disc_real + gp_term + 1e-3 * disc_real ** 2)
+    elif loss_fn == "logistic":
+        gp_out = gp_weight * torch.mean(slopes ** 2) if compute_gp else zero
+        disc_loss = (torch.mean(F.softplus(disc_fake_d)) + torch.mean(F.softplus(-disc_real))
+                     + gp_out)
+    else:
+        raise ValueError(f"Unknown loss function: {loss_fn}")
+    return disc_loss, gp_out

@@ -1,6 +1,27 @@
-"""Shared model helpers."""
+"""Shared model helpers: the static-alpha test, and the block boundaries and recompute
+regions of ``remat_offload`` (counterpart of ``saragan_tpu/models/common.py:41-74``).
+
+Under ``cfg.remat_offload`` a model's forward is a chain of recompute regions
+(``segment``), each running from one block boundary to the next, and ``block_tap`` marks
+each boundary tensor with its name.  A region is a non-reentrant
+``torch.utils.checkpoint``: autograd keeps only its inputs and recomputes everything
+inside it in the backward, one region at a time.  Inside the train step's
+``offload_taps`` scope the inputs that are block taps are parked in pinned host memory
+between the forward and the backward and copied back when their region is recomputed;
+every other kept input (the latents, the images, the parameters) stays where it is.  So
+the tensors kept from forward to backward are the block taps, on the host, as under the
+reference's ``save_and_offload_only_these_names`` policy; the peak on the device is about
+one region's working set.  Without ``remat_offload``, ``segment`` calls its function and
+``block_tap`` is the identity.
+"""
 
 from __future__ import annotations
+
+import contextlib
+from typing import List, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def static_alpha_zero(alpha) -> bool:
@@ -9,7 +30,75 @@ def static_alpha_zero(alpha) -> bool:
     return isinstance(alpha, (int, float)) and float(alpha) == 0.0
 
 
-def block_tap(x, name: str, cfg):
-    """Per-block activation boundary.  The reference tags it for remat offload; the
-    port has no memory levers yet, so it is the identity."""
+def block_tap(x: torch.Tensor, name: str, cfg) -> torch.Tensor:
+    """Per-resolution-block activation boundary.  Under ``cfg.remat_offload`` it marks
+    `x` as the block tap `name` (``offload_taps`` parks it in pinned host memory where
+    autograd keeps it); otherwise, and always on the values, the identity."""
+    if getattr(cfg, "remat_offload", False):
+        x.block_tap = name
     return x
+
+
+def offload_block_names(phase: int) -> List[str]:
+    """Every name ``block_tap`` can emit up to `phase`."""
+    names = ["gen_in", "disc_in"]
+    for i in range(2, phase + 1):
+        names += [f"gen_block_{i}", f"gen_block_{i}_mid",
+                  f"disc_block_{i}", f"disc_block_{i}_mid"]
+    return names
+
+
+def recompute(fn, *inputs):
+    """``fn(*inputs)`` as one recompute region whose kept inputs are `inputs` (``fn``
+    reads the parameters from its closure; the models use no random numbers, so no RNG
+    state is kept)."""
+    return checkpoint(fn, *inputs, use_reentrant=False, preserve_rng_state=False)
+
+
+def segment(fn, cfg, *inputs):
+    """``fn(*inputs)``; under ``cfg.remat_offload`` with gradients on, as a
+    ``recompute`` region."""
+    if getattr(cfg, "remat_offload", False) and torch.is_grad_enabled():
+        return recompute(fn, *inputs)
+    return fn(*inputs)
+
+
+class ParkedTaps:
+    """What one ``offload_taps`` scope parked: (name, bytes) per block tap, once each."""
+
+    def __init__(self):
+        self.taps: List[Tuple[str, int]] = []
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b for _, b in self.taps)
+
+
+@contextlib.contextmanager
+def offload_taps():
+    """Saved-tensor hooks that park every block tap autograd keeps in host memory
+    (pinned, copied without a sync, for a CUDA tensor) and copy it back to its device
+    when the backward unpacks it; any other saved tensor is kept as it is.  A tap kept
+    twice is copied to the host once.  Yields the scope's ``ParkedTaps``."""
+    parked = ParkedTaps()
+
+    def pack(t: torch.Tensor):
+        name = getattr(t, "block_tap", None)
+        if name is None:
+            return t
+        host = getattr(t, "parked_on_host", None)
+        if host is None:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+            host.copy_(t.detach(), non_blocking=t.is_cuda)
+            t.parked_on_host = host
+            parked.taps.append((name, host.numel() * host.element_size()))
+        return t.device, host
+
+    def unpack(p):
+        if isinstance(p, tuple):
+            device, host = p
+            return host.to(device, non_blocking=True)
+        return p
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        yield parked

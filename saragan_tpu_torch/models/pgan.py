@@ -19,6 +19,12 @@ With ``cfg.fused_transitions`` a block's upscale and first conv are one exact fu
 reference's TF scope names.  pgan's discriminator has no cross-sample op (its
 minibatch-stddev head is disabled in the reference), which the stacked critic pass of
 the train step relies on.
+
+Each network is written as a chain of recompute regions between its block boundaries
+(``models/common.py``: ``segment`` and ``block_tap``, at the reference's tap names), which
+``remat_offload`` checkpoints and otherwise runs as plain calls.  ``use_spectral_norm``
+spectrally normalizes every discriminator weight (``Scope(spectral=...)``), each with a
+persisted ``<weight>_u`` start vector among the parameters.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from saragan_tpu_torch.core import Params, Scope, zeros_initializer
-from saragan_tpu_torch.models.common import block_tap, static_alpha_zero
+from saragan_tpu_torch.models.common import block_tap, segment, static_alpha_zero
 from saragan_tpu_torch.models.registry import Architecture, register
 from saragan_tpu_torch.ops import core as ops
 from saragan_tpu_torch.ops.fused_bias_act import bias_act_pixelnorm
@@ -75,29 +81,35 @@ def _generator_in(scope, x, shape, activation, kernel_spec, filter_spec, param, 
     return _bias_act_pn(c, x, activation, param, fused)
 
 
+def _conv_bias_act_pn(c, x, fmaps, kernel, activation, param, fused, engine):
+    x = ops.conv(c, x, fmaps, kernel, activation, param=param, engine=engine)
+    return _bias_act_pn(c, x, activation, param, fused)
+
+
 def _generator_block(scope, x, activation, kernel_spec, filter_spec, i, param, fused,
                      fused_transitions, engine, cfg):
-    if fused_transitions:
-        c = scope.sub("conv_1")
-        kernel = tuple(int(k) for k in get_kernels(kernel_spec, i - 1, 0))
-        fmaps = get_filters(filter_spec, i - 1, 0)
-        w = ops.get_weight(c, (*kernel, x.shape[1], fmaps), activation, param=param)
-        x = ops.upscale_conv(x, w.to(x.dtype))
-        x = _bias_act_pn(c, x, activation, param, fused)
-        x = block_tap(x, f"gen_block_{i}_mid", cfg)
-        rest = (("conv_2", 1),)
-    else:
-        x = ops.upscale(x)
-        rest = (("conv_1", 0), ("conv_2", 1))
-    for name, li in rest:
-        c = scope.sub(name)
-        x = ops.conv(c, x, get_filters(filter_spec, i - 1, li),
-                     get_kernels(kernel_spec, i - 1, li), activation, param=param,
-                     engine=engine)
-        x = _bias_act_pn(c, x, activation, param, fused)
-        if name == "conv_1":
-            x = block_tap(x, f"gen_block_{i}_mid", cfg)
-    return x
+    """Block i from the previous block's output, as two recompute regions (``segment``):
+    the transition up to the ``gen_block_{i}_mid`` tap, then conv_2."""
+    c1, c2 = scope.sub("conv_1"), scope.sub("conv_2")
+
+    def first(t):
+        if fused_transitions:
+            kernel = tuple(int(k) for k in get_kernels(kernel_spec, i - 1, 0))
+            w = ops.get_weight(c1, (*kernel, t.shape[1], get_filters(filter_spec, i - 1, 0)),
+                               activation, param=param)
+            return _bias_act_pn(c1, ops.upscale_conv(t, w.to(t.dtype)), activation, param,
+                                fused)
+        return _conv_bias_act_pn(c1, ops.upscale(t), get_filters(filter_spec, i - 1, 0),
+                                 get_kernels(kernel_spec, i - 1, 0), activation, param, fused,
+                                 engine)
+
+    def second(t):
+        return _conv_bias_act_pn(c2, t, get_filters(filter_spec, i - 1, 1),
+                                 get_kernels(kernel_spec, i - 1, 1), activation, param, fused,
+                                 engine)
+
+    mid = block_tap(segment(first, cfg, x), f"gen_block_{i}_mid", cfg)
+    return segment(second, cfg, mid)
 
 
 def _generator(scope, z, alpha, phase, cfg, param, engine):
@@ -108,24 +120,29 @@ def _generator(scope, z, alpha, phase, cfg, param, engine):
     g = scope.sub("generator")
     fused = cfg.use_pallas_fusion
 
-    x = _generator_in(g.sub("generator_in"), z, base_shape[1:], activation, kernel_spec,
-                      filter_spec, param, fused, engine)
+    x = segment(lambda t: _generator_in(g.sub("generator_in"), t, base_shape[1:], activation,
+                                        kernel_spec, filter_spec, param, fused, engine),
+                cfg, z)
     x = block_tap(x, "gen_in", cfg)
 
-    x_upsample = None
+    x_prev = None  # the previous resolution's output, for the transition branch
     for i in range(2, phase + 1):
         if i == phase and not static_alpha_zero(alpha):
-            x_upsample = ops.upscale(ops.to_rgb(g.sub(f"to_rgb_{phase - 1}"), x,
-                                                channels=base_shape[0], engine=engine))
+            x_prev = x
         x = _generator_block(g.sub(f"generator_block_{i}"), x, activation, kernel_spec,
                              filter_spec, i, param, fused, cfg.fused_transitions, engine, cfg)
         x = block_tap(x, f"gen_block_{i}", cfg)
 
-    x_out = ops.to_rgb(g.sub(f"to_rgb_{phase}"), x, channels=base_shape[0], engine=engine)
-    if x_upsample is not None:
+    def out(t, t_prev):
+        x_out = ops.to_rgb(g.sub(f"to_rgb_{phase}"), t, channels=base_shape[0], engine=engine)
+        if t_prev is None:
+            return x_out
+        x_upsample = ops.upscale(ops.to_rgb(g.sub(f"to_rgb_{phase - 1}"), t_prev,
+                                            channels=base_shape[0], engine=engine))
         a = torch.as_tensor(alpha, dtype=x_out.dtype)
-        x_out = a * x_upsample + (1 - a) * x_out
-    return x_out
+        return a * x_upsample + (1 - a) * x_out
+
+    return segment(out, cfg, x, x_prev)
 
 
 def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
@@ -135,29 +152,16 @@ def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
     return _generator(Scope(params), z, alpha, phase, cfg, cfg.leakiness, conv_engine)
 
 
-def _discriminator_block(scope, x, activation, kernel_spec, filter_spec, i, param, engine,
-                         cfg):
-    """The reference's index quirk (``saragan_tpu/models/pgan.py:185-187``) is kept:
-    conv_1 uses kernel_spec[i-1][1] with filter_spec[i-1][0]; conv_2 uses
-    kernel_spec[i-1][0] with filter_spec[i-2][1]."""
-    c1 = scope.sub("conv_1")
-    x = ops.conv(c1, x, get_filters(filter_spec, i - 1, 0), get_kernels(kernel_spec, i - 1, 1),
-                 activation, param=param, engine=engine)
-    x = ops.act(ops.apply_bias(c1, x), activation, param=param)
-    x = block_tap(x, f"disc_block_{i}_mid", cfg)
-    c2 = scope.sub("conv_2")
-    x = ops.conv(c2, x, get_filters(filter_spec, i - 2, 1), get_kernels(kernel_spec, i - 1, 0),
-                 activation, param=param, engine=engine)
-    x = ops.act(ops.apply_bias(c2, x), activation, param=param)
-    return ops.downscale(x)
+def _conv_bias_act(c, x, fmaps, kernel, activation, param, engine):
+    x = ops.conv(c, x, fmaps, kernel, activation, param=param, engine=engine)
+    return ops.act(ops.apply_bias(c, x), activation, param=param)
 
 
 def _discriminator_out(scope, x, latent_dim, activation, kernel_spec, filter_spec, param,
                        engine):
     o = scope.sub("discriminator_out")
-    x = ops.conv(o, x, get_filters(filter_spec, 0, 0), get_kernels(kernel_spec, 0, 1),
-                 activation, param=param, engine=engine)
-    x = ops.act(ops.apply_bias(o, x), activation, param=param)
+    x = _conv_bias_act(o, x, get_filters(filter_spec, 0, 0), get_kernels(kernel_spec, 0, 1),
+                       activation, param, engine)
     d1 = o.sub("dense_1")
     x = ops.act(ops.apply_bias(d1, ops.dense(d1, x, latent_dim, activation, param=param)),
                 activation, param=param)
@@ -166,41 +170,71 @@ def _discriminator_out(scope, x, latent_dim, activation, kernel_spec, filter_spe
 
 
 def _discriminator(scope, x, alpha, phase, cfg, param, engine):
+    """From_rgb, then per block i = phase .. 2 two recompute regions (``segment``), up to
+    the ``disc_block_{i}_mid`` tap and from it through conv_2 and the pooling; the
+    transition blend after the top block opens the region that follows it.  The
+    reference's index quirk (``saragan_tpu/models/pgan.py:185-187``) is kept: conv_1 uses
+    kernel_spec[i-1][1] with filter_spec[i-1][0]; conv_2 uses kernel_spec[i-1][0] with
+    filter_spec[i-2][1]."""
     kernel_spec = cfg.resolved_kernel_spec()
     filter_spec = cfg.resolved_filter_spec()
     activation = cfg.activation
     d = scope.sub("discriminator")
+    image = x
 
-    x_downscale = x
-    x = ops.from_rgb(d.sub(f"from_rgb_{phase}"), x, get_filters(filter_spec, phase - 1, 1),
-                     activation, param=param, engine=engine)
+    def transition(t, img):
+        prev = ops.from_rgb(d.sub(f"from_rgb_{phase - 1}"), ops.downscale(img),
+                            get_filters(filter_spec, phase - 2, 1), activation, param=param,
+                            engine=engine)
+        a = torch.as_tensor(alpha, dtype=t.dtype)
+        return a * prev + (1 - a) * t
+
+    x = segment(lambda img: ops.from_rgb(d.sub(f"from_rgb_{phase}"), img,
+                                         get_filters(filter_spec, phase - 1, 1), activation,
+                                         param=param, engine=engine), cfg, image)
     x = block_tap(x, "disc_in", cfg)
+    pending = None  # the transition blend, applied where the next region starts
     for i in reversed(range(2, phase + 1)):
-        x = _discriminator_block(d.sub(f"discriminator_block_{i}"), x, activation, kernel_spec,
-                                 filter_spec, i, param, engine, cfg)
-        x = block_tap(x, f"disc_block_{i}", cfg)
-        if i == phase and not static_alpha_zero(alpha):
-            prev = ops.from_rgb(d.sub(f"from_rgb_{phase - 1}"), ops.downscale(x_downscale),
-                                get_filters(filter_spec, phase - 2, 1), activation,
-                                param=param, engine=engine)
-            a = torch.as_tensor(alpha, dtype=x.dtype)
-            x = a * prev + (1 - a) * x
-    return _discriminator_out(d, x, cfg.latent_dim, activation, kernel_spec, filter_spec,
-                              param, engine)
+        b = d.sub(f"discriminator_block_{i}")
+
+        def first(t, img, b=b, i=i, pending=pending):
+            if pending is not None:
+                t = pending(t, img)
+            return _conv_bias_act(b.sub("conv_1"), t, get_filters(filter_spec, i - 1, 0),
+                                  get_kernels(kernel_spec, i - 1, 1), activation, param, engine)
+
+        def second(t, b=b, i=i):
+            t = _conv_bias_act(b.sub("conv_2"), t, get_filters(filter_spec, i - 2, 1),
+                               get_kernels(kernel_spec, i - 1, 0), activation, param, engine)
+            return ops.downscale(t)
+
+        x = block_tap(segment(first, cfg, x, image), f"disc_block_{i}_mid", cfg)
+        x = block_tap(segment(second, cfg, x), f"disc_block_{i}", cfg)
+        pending = transition if i == phase and not static_alpha_zero(alpha) else None
+
+    def out(t, img):
+        if pending is not None:
+            t = pending(t, img)
+        return _discriminator_out(d, t, cfg.latent_dim, activation, kernel_spec, filter_spec,
+                                  param, engine)
+
+    return segment(out, cfg, x, image)
 
 
-def _check_spectral(cfg):
+def spectral_iters(cfg) -> int:
+    """Power iterations of the discriminator's scope: 0 (off) unless
+    ``cfg.use_spectral_norm`` (reference ``saragan_tpu/models/common.py:96-101``)."""
     if getattr(cfg, "use_spectral_norm", False):
-        raise NotImplementedError("use_spectral_norm=True is not ported yet (ROADMAP queue 1 "
-                                  "item 2: spectral norm of the discriminator)")
+        return max(1, int(getattr(cfg, "spectral_iterations", 3)))
+    return 0
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
                   conv_engine: str = "direct") -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1) scores.  `alpha` as for the
     generator."""
-    _check_spectral(cfg)
-    return _discriminator(Scope(params), x, alpha, phase, cfg, cfg.leakiness, conv_engine)
+    return _discriminator(Scope(params, spectral=spectral_iters(cfg)), x, alpha, phase, cfg,
+                          cfg.leakiness, conv_engine)
 
 
 def init(rng: torch.Generator, *, phase: int, cfg, device) -> Params:
@@ -208,16 +242,18 @@ def init(rng: torch.Generator, *, phase: int, cfg, device) -> Params:
     ``arch.init``).  Both init forwards run on the meta device, so only the parameters
     are materialized, on `device`; each draws from a generator seeded by the root seed
     and the parameter's name."""
-    _check_spectral(cfg)
     params: Params = {}
     scope = Scope(params, init=True, rng=rng, device=torch.device(device))
     z = torch.empty((1, cfg.latent_dim), device="meta")
     # the fused op reads the same "bias" parameter; the shape-only pass skips its
     # dispatch, so an init never counts as a call of its plain version
-    _generator(scope, z, 1.0, phase, dataclasses.replace(cfg, use_pallas_fusion=False),
+    shapes_cfg = dataclasses.replace(cfg, remat_offload=False)
+    _generator(scope, z, 1.0, phase, dataclasses.replace(shapes_cfg, use_pallas_fusion=False),
                cfg.leakiness, "direct")
     x = torch.empty(cfg.current_shape(phase, 1), device="meta")
-    _discriminator(scope, x, 1.0, phase, cfg, cfg.leakiness, "direct")
+    d_scope = Scope(params, init=True, rng=rng, device=torch.device(device),
+                    spectral=spectral_iters(cfg))
+    _discriminator(d_scope, x, 1.0, phase, shapes_cfg, cfg.leakiness, "direct")
     return params
 
 

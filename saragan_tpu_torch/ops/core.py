@@ -58,13 +58,56 @@ def calculate_gain(activation: str, param=None) -> float:
 def get_weight(scope: Scope, shape: Sequence[int], activation: str, lrmul: float = 1.0,
                use_eq_lr: bool = True, param=None, name: str = "weight") -> torch.Tensor:
     """Equalized-learning-rate weight: stored N(0, 1/lrmul), scaled at use by
-    he_std * lrmul."""
+    he_std * lrmul; under a spectral scope then divided by its largest singular value,
+    estimated by ``scope.spectral`` power iterations from the persisted start vector
+    ``<name>_u`` (a (1, out) parameter; reference ``saragan_tpu/ops/core.py:99-108``)."""
     fan_in = int(np.prod(shape[:-1]))
     he_std = calculate_gain(activation, param) / math.sqrt(fan_in)
     w = scope.get(name, shape, normal_initializer(1.0 / lrmul))
     if use_eq_lr:
         w = w * (he_std * lrmul)
+    if scope.spectral:
+        u = scope.get(f"{name}_u", (1, shape[-1]), normal_initializer(1.0))
+        w, _ = spectral_normalize(w, u, iterations=int(scope.spectral))
     return w
+
+
+def _l2_normalize(v: torch.Tensor, eps: float) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v) + eps)
+
+
+def _power_iterate(w_mat: torch.Tensor, u: torch.Tensor, iterations: int, eps: float):
+    v = None
+    for _ in range(iterations):
+        v = _l2_normalize(u @ w_mat.T, eps)
+        u = _l2_normalize(v @ w_mat, eps)
+    return u, v
+
+
+def spectral_normalize(w: torch.Tensor, u: torch.Tensor, iterations: int = 1,
+                       eps: float = 1e-12):
+    """(w / sigma, u_new): sigma, the largest singular value of w as a (-1, out) matrix,
+    by `iterations` power iterations from `u` (reference ``spectral_normalize``,
+    ``saragan_tpu/ops/core.py:589-610``).  No gradient flows through u and v."""
+    w_mat = w.reshape(-1, w.shape[-1])
+    u_hat, v_hat = _power_iterate(w_mat, u, iterations, eps)
+    u_hat, v_hat = u_hat.detach(), v_hat.detach()
+    sigma = (v_hat @ w_mat) @ u_hat.T
+    return (w_mat / sigma).reshape(w.shape), u_hat
+
+
+@torch.no_grad()
+def refresh_spectral_u(params, iterations: int = 1, eps: float = 1e-12) -> dict:
+    """Every persisted ``*_u`` vector power-iterated against its current (raw stored)
+    weight: the step's refresh after the update (reference ``refresh_spectral_u``,
+    ``saragan_tpu/ops/core.py:613-638``).  Scaling w by the equalized-LR coefficient
+    does not change its singular vectors, so iterating on the stored weight is exact."""
+    out = dict(params)
+    for k, u in params.items():
+        if k.endswith("_u") and k[:-2] in params:
+            w = params[k[:-2]]
+            out[k], _ = _power_iterate(w.reshape(-1, w.shape[-1]), u, iterations, eps)
+    return out
 
 
 def apply_bias(scope: Scope, x: torch.Tensor, lrmul: float = 1.0) -> torch.Tensor:

@@ -22,9 +22,26 @@ Adam slots keep their old values, and the clip norm and every gradient statistic
 only the other names.  ``grad_histograms``: the step also returns per-variable 64-bin
 gradient histograms, binned on the device (the trainer's variant for summary steps).
 
-Not ported (each raises and names ROADMAP.md): ``optim_strategy="alternate"``,
-``remat``/``remat_offload``, ``gradient_accumulation > 1``, ``gp_grad_mode="revfwd"``,
-spectral norm.
+``optim_strategy="alternate"`` (reference ``saragan_tpu/train/step.py:306-365``): the
+discriminator's step first (``losses.forward_discriminator``), then the generator's
+against the updated discriminator (``losses.forward_generator``).
+
+Memory levers, as the reference wraps its model closures (``step.py:189-220``):
+
+* ``remat``: G and D each one recompute region (non-reentrant
+  ``torch.utils.checkpoint``): the backward recomputes their forwards;
+* ``remat_offload``: the models' own regions between block boundaries
+  (``models/common.py``) under the ``offload_taps`` scope, so the tensors kept from
+  forward to backward are the block taps, parked in pinned host memory; the penalty's
+  D call gets plain recompute instead (``gp_disc_fn``), as the reference's ``gp_disc``;
+* ``gradient_accumulation`` K > 1: K micro-batches, gradients and reported scalars
+  averaged in f32 (``optim/accumulate.py``), one optimizer apply.
+
+Recompute runs the same deterministic kernels on the same inputs, so a step under
+either lever is bit-equal to the plain step.  ``use_spectral_norm``: after the updates
+every ``*_u`` vector of D is power-iterated against its new weight
+(``ops.core.refresh_spectral_u``, reference ``step.py:373-380``); Adam leaves the ``*_u``
+entries where they are (their gradients are exactly 0).
 
 The step builds its graph eagerly and makes no host synchronisation: losses and metrics
 come back as device tensors.
@@ -33,13 +50,17 @@ come back as device tensors.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, FrozenSet, NamedTuple, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, FrozenSet, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from saragan_tpu_torch import losses
 from saragan_tpu_torch._device import resolve_device
 from saragan_tpu_torch.core import Params, filter_params
+from saragan_tpu_torch.models.common import offload_taps, recompute
+from saragan_tpu_torch.ops.core import refresh_spectral_u
+from saragan_tpu_torch.optim.accumulate import grad_accumulate
 from saragan_tpu_torch.optim.ema import ema_init, ema_update
 from saragan_tpu_torch.optim.factory import Optimizer, make_optimizers_from_config
 from saragan_tpu_torch.optim.freeze import freeze_select
@@ -144,28 +165,63 @@ def _train_numerics():
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
 
 
-def _check_ported(cfg):
-    todo = []
-    if cfg.optim_strategy == "alternate":
-        todo.append("optim_strategy='alternate' (queue 1 item 5)")
-    elif cfg.optim_strategy != "simultaneous":
+def _check_options(cfg):
+    if cfg.optim_strategy not in ("simultaneous", "alternate"):
         raise ValueError(f"Unknown optim strategy {cfg.optim_strategy}")
-    if cfg.remat or cfg.remat_offload:
-        todo.append("remat / remat_offload (queue 1 item 10)")
-    if int(cfg.gradient_accumulation) > 1:
-        todo.append("gradient_accumulation > 1 (queue 1 item 9)")
-    if cfg.use_spectral_norm:
-        todo.append("spectral norm (queue 1 item 2)")
-    if todo:
-        raise NotImplementedError("not ported yet (ROADMAP.md): " + "; ".join(todo))
+    if int(cfg.gradient_accumulation) < 1:
+        raise ValueError(f"gradient_accumulation must be >= 1; got {cfg.gradient_accumulation}")
+
+
+def _remat(fn):
+    """``fn(params, x)`` as one recompute region (params from the call's closure)."""
+    def wrapped(params, x):
+        return recompute(lambda t: fn(params, t), x)
+
+    return wrapped
+
+
+def model_fns(arch, cfg, phase: int, alpha, conv_engine: str):
+    """(gen_fn, disc_fn, gp_disc_fn) of one step at `alpha` (a number or a 0-dim
+    tensor), wrapped as the memory levers of `cfg` ask; gp_disc_fn is None where the
+    penalty uses disc_fn."""
+    def wrap(c):
+        def gen_fn(p, z):
+            return arch.generator(p, z, alpha, phase=phase, cfg=c, conv_engine=conv_engine)
+
+        def disc_fn(p, x):
+            return arch.discriminator(p, x, alpha, phase=phase, cfg=c, conv_engine=conv_engine)
+
+        return gen_fn, disc_fn
+
+    gen_fn, disc_fn = wrap(cfg)
+    if cfg.remat_offload:
+        # the penalty's D: the same function without the block regions, one plain
+        # recompute region (its double backward keeps nothing on the host)
+        return gen_fn, disc_fn, _remat(wrap(dataclasses.replace(cfg, remat_offload=False))[1])
+    if cfg.remat:
+        return _remat(gen_fn), _remat(disc_fn), None
+    return gen_fn, disc_fn, None
+
+
+@contextlib.contextmanager
+def _lever_scope(cfg, record: List):
+    """The offload scope under ``remat_offload`` (its ``ParkedTaps`` appended to
+    `record`), else nothing."""
+    if not cfg.remat_offload:
+        yield
+        return
+    with offload_taps() as parked:
+        record.append(parked)
+        yield
 
 
 def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
                   static_alpha: Optional[float] = None, *, conv_engine: str = "direct"):
-    """The gradient half of the train step:
+    """The gradient half of the simultaneous train step for one (micro-)batch:
     ``grads(g_params, d_params, real, draws, alpha) -> ((g_grads, d_grads), LossOutput)``
     with `real` in the compute dtype and the draws given; arguments as for
-    ``make_train_step``."""
+    ``make_train_step``.  ``grads.parked`` lists the ``ParkedTaps`` of each call under
+    ``remat_offload`` (the caller may clear it)."""
     lazy_k = max(1, int(cfg.lazy_gp))
     gp_weight = cfg.gp_weight * lazy_k if apply_gp else 0.0
     fused = cfg.loss_fn == "wgan" and cfg.fused_grads
@@ -173,18 +229,13 @@ def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
     def grads_fn(g_params: Params, d_params: Params, real: torch.Tensor,
                  draws: losses.Draws, alpha):
         a = torch.tensor(float(alpha)) if static_alpha is None else static_alpha
-
-        def gen_fn(p, z):
-            return arch.generator(p, z, a, phase=phase, cfg=cfg, conv_engine=conv_engine)
-
-        def disc_fn(p, x):
-            return arch.discriminator(p, x, a, phase=phase, cfg=cfg, conv_engine=conv_engine)
-
+        gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, conv_engine)
         g_p = {k: v.detach().requires_grad_(True) for k, v in g_params.items()}
         d_p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         common = dict(gp_weight=gp_weight, noise_stddev=cfg.noise_stddev,
-                      gp_full_reduction=cfg.gp_full_reduction, compute_gp=apply_gp)
-        with _train_numerics():
+                      gp_full_reduction=cfg.gp_full_reduction, compute_gp=apply_gp,
+                      gp_disc_fn=gp_disc_fn)
+        with _train_numerics(), _lever_scope(cfg, grads_fn.parked):
             if fused:
                 return losses.grads_simultaneous(
                     gen_fn, disc_fn, g_p, d_p, real, draws, gp_grad_mode=cfg.gp_grad_mode,
@@ -196,7 +247,57 @@ def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
         return (({k: grads[k] for k in g_p}, {k: grads[k] for k in d_p}),
                 losses.LossOutput(*(v.detach() for v in out)))
 
+    grads_fn.parked = []
     return grads_fn
+
+
+def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
+                         static_alpha: Optional[float], conv_engine: str, parked: List):
+    """The two gradient halves of the ``alternate`` strategy for one (micro-)batch:
+    ``d_grads(g_params, d_params, real, draws, alpha) -> (grads, (disc_loss, gp_loss))``
+    and ``g_grads(g_params, d_params, draws, alpha) -> (grads, (gen_loss, (min, max)))``
+    of the fake sample."""
+    gp_weight = cfg.gp_weight * max(1, int(cfg.lazy_gp)) if apply_gp else 0.0
+
+    def fns(alpha):
+        a = torch.tensor(float(alpha)) if static_alpha is None else static_alpha
+        return model_fns(arch, cfg, phase, a, conv_engine)
+
+    def d_grads(g_params, d_params, real, draws, alpha):
+        gen_fn, disc_fn, gp_disc_fn = fns(alpha)
+        d_p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
+        with _train_numerics(), _lever_scope(cfg, parked):
+            disc_loss, gp_loss = losses.forward_discriminator(
+                gen_fn, disc_fn, g_params, d_p, real, draws, loss_fn=cfg.loss_fn,
+                gp_weight=gp_weight, noise_stddev=cfg.noise_stddev, compute_gp=apply_gp,
+                gp_disc_fn=gp_disc_fn)
+            grads = losses.param_grads(disc_loss, d_p)
+        return grads, (disc_loss.detach(), gp_loss.detach())
+
+    def g_grads(g_params, d_params, draws, alpha):
+        gen_fn, disc_fn, _ = fns(alpha)
+        g_p = {k: v.detach().requires_grad_(True) for k, v in g_params.items()}
+        with _train_numerics(), _lever_scope(cfg, parked):
+            sample, gen_loss = losses.forward_generator(gen_fn, disc_fn, g_p, d_params, draws,
+                                                        loss_fn=cfg.loss_fn,
+                                                        noise_stddev=cfg.noise_stddev)
+            grads = losses.param_grads(gen_loss, g_p)
+        sample = sample.detach()
+        return grads, (gen_loss.detach(), (torch.min(sample), torch.max(sample)))
+
+    return d_grads, g_grads
+
+
+def micro_draws(draws, num_micro: int) -> Sequence[losses.Draws]:
+    """A step's draws as one ``losses.Draws`` per micro-batch: a sequence as given, or
+    one batch's ``Draws`` split into `num_micro` along the batch."""
+    if not isinstance(draws, losses.Draws):
+        return list(draws)
+    if num_micro == 1:
+        return [draws]
+    parts = [None if t is None else t.chunk(num_micro) for t in draws]
+    return [losses.Draws(*(None if p is None else p[k] for p in parts))
+            for k in range(num_micro)]
 
 
 def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: Optimizer,
@@ -207,21 +308,31 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
     ``step(state, real, rng, alpha, g_lr, d_lr, draws=None) -> (state, StepMetrics)``.
 
     `rng` is a ``torch.Generator`` on the batch's device that draws the latents, the
-    penalty's interpolation weights and the instance noise, unless `draws`
-    (``losses.Draws``) hands them in.  `alpha`, `g_lr` and `d_lr` are per-step numbers.
+    penalty's interpolation weights and the instance noise, unless `draws` hands them
+    in: a ``losses.Draws`` of the batch, or one per micro-batch under
+    ``gradient_accumulation``; under ``optim_strategy="alternate"`` a pair (the
+    discriminator's, the generator's), each of those forms.  `alpha`, `g_lr` and `d_lr`
+    are per-step numbers.
 
     static_alpha: bind alpha as a Python constant.  With ``static_alpha=0.0`` the models
     skip the phase-transition branches, which contribute exactly 0 in the stabilizing
     half of a phase (their parameters get zero gradients, as in the reference).
     Otherwise alpha goes in as a 0-dim tensor and the branches always run, as the
     reference's traced alpha does.  `conv_engine` is "direct" (cuDNN) or "flat" (the
-    hand-written kernels)."""
-    _check_ported(cfg)
+    hand-written kernels).  Under ``remat_offload`` ``step.parked_bytes`` is what the
+    last step parked in host memory."""
+    _check_options(cfg)
     dtype = compute_dtype(cfg)
     frozen = frozenset(frozen_names) if freeze else frozenset()
     hist_bins = 64 if grad_histograms else 0
+    accum = int(cfg.gradient_accumulation)
+    alternate = cfg.optim_strategy == "alternate"
     grads_fn = make_grads_fn(arch, cfg, phase, apply_gp, static_alpha,
                              conv_engine=conv_engine)
+    parked = grads_fn.parked
+    if alternate:
+        d_grads_fn, g_grads_fn = _alternate_grads_fns(arch, cfg, phase, apply_gp, static_alpha,
+                                                      conv_engine, parked)
 
     def apply_updates(optimizer, params, opt_state, grads, lr, clipping):
         grads, max_norm, norms, hists = _clip_and_norms(grads, clipping, hist_bins, frozen)
@@ -229,25 +340,63 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
         return (freeze_select(params, new_params, frozen),
                 freeze_select(opt_state, new_opt, frozen), max_norm, norms, hists)
 
+    def draw(rng, n, real, compute_gp):
+        return [losses.draw_inputs(rng, n // accum, cfg.latent_dim, real.shape[1:], dtype,
+                                   real.device, noise_stddev=cfg.noise_stddev,
+                                   compute_gp=compute_gp) for _ in range(accum)]
+
     def train_step(state: TrainState, real: torch.Tensor, rng: Optional[torch.Generator],
-                   alpha, g_lr, d_lr, draws: Optional[losses.Draws] = None):
+                   alpha, g_lr, d_lr, draws=None):
         real = real.to(dtype)
-        if draws is None:
-            draws = losses.draw_inputs(rng, real.shape[0], cfg.latent_dim, real.shape[1:],
-                                       dtype, real.device, noise_stddev=cfg.noise_stddev,
-                                       compute_gp=apply_gp)
-        (g_grads, d_grads), out = grads_fn(state.g_params, state.d_params, real, draws, alpha)
+        n = real.shape[0]
+        parked.clear()
+        if alternate:
+            d_draws, g_draws = (draws if draws is not None else
+                                (draw(rng, n, real, apply_gp), draw(rng, n, real, False)))
+
+            def d_micro(mb, dr):
+                return d_grads_fn(state.g_params, state.d_params, mb, dr, alpha)
+
+            d_grads, (disc_loss, gp_loss) = grad_accumulate(
+                d_micro, real, micro_draws(d_draws, accum), accum)
+            with torch.no_grad():
+                d_params, d_opt, max_d_norm, d_norms, d_hists = apply_updates(
+                    d_optimizer, state.d_params, state.d_opt, d_grads, d_lr, cfg.d_clipping)
+
+            def g_micro(mb, dr):
+                return g_grads_fn(state.g_params, d_params, dr, alpha)
+
+            # G trains against the updated discriminator
+            g_grads, (gen_loss, (fake_min, fake_max)) = grad_accumulate(
+                g_micro, real, micro_draws(g_draws, accum), accum)
+            with torch.no_grad():
+                g_params, g_opt, max_g_norm, g_norms, g_hists = apply_updates(
+                    g_optimizer, state.g_params, state.g_opt, g_grads, g_lr, cfg.g_clipping)
+        else:
+            def micro(mb, dr):
+                grads, out = grads_fn(state.g_params, state.d_params, mb, dr, alpha)
+                return grads, (out.gen_loss, out.disc_loss, out.gp_loss,
+                               torch.min(out.gen_sample), torch.max(out.gen_sample))
+
+            if draws is None:
+                draws = draw(rng, n, real, apply_gp)
+            (g_grads, d_grads), (gen_loss, disc_loss, gp_loss, fake_min, fake_max) = (
+                grad_accumulate(micro, real, micro_draws(draws, accum), accum))
+            with torch.no_grad():
+                g_params, g_opt, max_g_norm, g_norms, g_hists = apply_updates(
+                    g_optimizer, state.g_params, state.g_opt, g_grads, g_lr, cfg.g_clipping)
+                d_params, d_opt, max_d_norm, d_norms, d_hists = apply_updates(
+                    d_optimizer, state.d_params, state.d_opt, d_grads, d_lr, cfg.d_clipping)
 
         with torch.no_grad():
-            g_params, g_opt, max_g_norm, g_norms, g_hists = apply_updates(
-                g_optimizer, state.g_params, state.g_opt, g_grads, g_lr, cfg.g_clipping)
-            d_params, d_opt, max_d_norm, d_norms, d_hists = apply_updates(
-                d_optimizer, state.d_params, state.d_opt, d_grads, d_lr, cfg.d_clipping)
+            if cfg.use_spectral_norm:
+                d_params = refresh_spectral_u(d_params, iterations=int(cfg.spectral_iterations))
             ema = ema_update(state.ema, {**g_params, **d_params}, cfg.ema_beta)
-            metrics = StepMetrics(out.gen_loss, out.disc_loss, out.gp_loss, max_g_norm,
-                                  max_d_norm, g_norms, d_norms, g_hists, d_hists,
-                                  torch.min(out.gen_sample), torch.max(out.gen_sample),
+            metrics = StepMetrics(gen_loss, disc_loss, gp_loss, max_g_norm, max_d_norm,
+                                  g_norms, d_norms, g_hists, d_hists, fake_min, fake_max,
                                   torch.min(real[0]), torch.max(real[0]))
+        train_step.parked_bytes = sum(p.nbytes for p in parked)
         return TrainState(g_params, d_params, g_opt, d_opt, ema), metrics
 
+    train_step.parked_bytes = 0
     return train_step

@@ -76,7 +76,8 @@ from saragan_tpu_torch.optim.schedules import lr_schedule, scale_lr
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train import summaries as summ
 from saragan_tpu_torch.train.step import (TrainState, _train_numerics, compute_dtype,
-                                          init_train_state, make_train_step, split_params)
+                                          init_train_state, make_train_step, model_fns,
+                                          split_params)
 
 _TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                     "float16": torch.float16}
@@ -170,7 +171,8 @@ class Trainer:
         # events and a resumed run (which resolves the same way) see.  Held here, not
         # written into the caller's config, so that another Trainer built from the same
         # config resolves its own
-        self.conv_engine = resolve_conv_engine(cfg.conv_engine, self.device.type)
+        self.conv_engine = resolve_conv_engine(cfg.conv_engine, self.device.type,
+                                               cfg.single_chip_big_volume)
         self.arch = get_architecture(cfg.architecture)
         self.dataset_factory = dataset_factory
         self.draws_fn = draws_fn
@@ -318,14 +320,12 @@ class Trainer:
             real = real.to(dtype)
             draws = losses.draw_inputs(gen, real.shape[0], cfg.latent_dim, real.shape[1:],
                                        dtype, real.device, noise_stddev=cfg.noise_stddev)
+            gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, self.conv_engine)
             with _train_numerics():
                 out = losses.forward_simultaneous(
-                    lambda p, z: arch.generator(p, z, a, phase=phase, cfg=cfg,
-                                                conv_engine=self.conv_engine),
-                    lambda p, x: arch.discriminator(p, x, a, phase=phase, cfg=cfg,
-                                                    conv_engine=self.conv_engine),
-                    g_params, d_params, real, draws, loss_fn=cfg.loss_fn,
-                    gp_weight=cfg.gp_weight, noise_stddev=cfg.noise_stddev)
+                    gen_fn, disc_fn, g_params, d_params, real, draws, loss_fn=cfg.loss_fn,
+                    gp_weight=cfg.gp_weight, noise_stddev=cfg.noise_stddev,
+                    gp_disc_fn=gp_disc_fn)
             return tuple(v.detach() for v in out)
 
         return eval_losses

@@ -640,3 +640,130 @@ def test_two_step_cli_trainer_run_at_phase_2(cuda, tmp_path):
     losses = [e["value"] for e in events if e["tag"] in ("Loss/d_loss", "Loss/g_loss")]
     assert len(losses) == 4 and all(np.isfinite(losses))
     assert len([e for e in events if e["tag"].startswith("Timing/step_ms")]) == 2
+
+
+# ---------------------------------------------------------------------------
+# The big-volume phases: the kernels at phase 8's full resolution (C = 8 at 128x512x512),
+# on tensors of more than 2^31 elements, and the offload step's memory
+# ---------------------------------------------------------------------------
+
+BIG = (128, 512, 512)
+
+
+def _within(out, ref, limit=1e-2):
+    err = (out.float() - ref.float()).abs().max().item()
+    return err <= limit * ref.float().abs().max().item() and torch.isfinite(out).all().item()
+
+
+@pytest.mark.parametrize("kernel", ["forward", "dgrad", "wgrad", "fused", "fused_grad"])
+def test_kernels_at_the_phase8_shape_match_plain(cuda, kernel):
+    """#1, #1' (the forward on flipped, io-swapped weights), #2 and #4 forward and
+    backward at phase 8's full-resolution shape in bf16 (C = F = 8, 3x3x3), against their
+    plain versions within 1e-2 of max|plain|, as at phase 6."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn((1, 8, *BIG), generator=g, device=cuda, dtype=torch.bfloat16)
+    other = torch.randn((1, 8, *BIG), generator=g, device=cuda, dtype=torch.bfloat16)
+    b = torch.randn(8, generator=g, device=cuda)
+    if kernel in ("forward", "dgrad"):
+        w = torch.randn((3, 3, 3, 8, 8), generator=g, device=cuda) * (2 / 216) ** 0.5
+        w = w.bfloat16() if kernel == "forward" else flip_swap(w.bfloat16())
+        pairs = [(cf.conv3d_flat_cuda(x, w, kernel), cf.conv3d_flat_plain(x, w))]
+    elif kernel == "wgrad":
+        pairs = [(cf.conv3d_flat_wgrad_cuda(x, other, (3, 3, 3)),
+                  cf.conv3d_flat_wgrad_plain(x, other, (3, 3, 3)))]
+    elif kernel == "fused":
+        pairs = [(fba.fused_bias_act_pixelnorm(x, b, 0.2, True),
+                  fba.bias_act_pixelnorm_plain(x, b, 0.2, True))]
+    else:
+        pairs = list(zip(fba.fused_bias_act_pixelnorm_grad(x, b, other, 0.2, True),
+                         fba.bias_act_pixelnorm_grad_plain(x, b, other, 0.2, True)))
+    torch.cuda.synchronize()
+    for out, ref in pairs:
+        assert _within(out, ref)
+
+
+@pytest.mark.parametrize("kernel,dtype", [
+    ("forward", torch.bfloat16), ("forward", torch.float32), ("wgrad", torch.bfloat16),
+    ("fused", torch.bfloat16), ("fused_grad", torch.bfloat16)])
+def test_kernels_past_2_31_elements_match_plain_sample_by_sample(cuda, kernel, dtype):
+    """N = 9, C = 8, 128x512x512: 2.42e9 elements a tensor, past 2^31 (4.8 GB in bf16,
+    9.7 GB in f32), so the last samples lie past every 32-bit element offset.  Each
+    sample's output against the plain version of that sample alone (1e-2 of max|plain|
+    in bf16, 1e-4 in f32); the weight gradient against the sum of the samples' plain
+    gradients in f32, the bias gradient against the f64 sum of the samples' plain gx and
+    against the sum of their f32 plain gradients on the bias rounded to bf16."""
+    n, limit = 9, 1e-2 if dtype == torch.bfloat16 else 1e-4
+    g = torch.Generator(device=cuda).manual_seed(22)
+    x = torch.randn((n, 8, *BIG), generator=g, device=cuda, dtype=dtype)
+    assert x.numel() > 2 ** 31
+    b = torch.randn(8, generator=g, device=cuda)
+    if kernel == "forward":
+        w = (torch.randn((3, 3, 3, 8, 8), generator=g, device=cuda) * (2 / 216) ** 0.5).to(dtype)
+        y = cf.conv3d_flat_cuda(x, w)
+        torch.cuda.synchronize()
+        for i in range(n):
+            assert _within(y[i:i + 1], cf.conv3d_flat_plain(x[i:i + 1], w), limit), i
+    elif kernel == "fused":
+        y = fba.fused_bias_act_pixelnorm(x, b, 0.2, True)
+        torch.cuda.synchronize()
+        for i in range(n):
+            assert _within(y[i:i + 1], fba.bias_act_pixelnorm_plain(x[i:i + 1], b, 0.2, True)), i
+    else:
+        gy = torch.randn((n, 8, *BIG), generator=g, device=cuda, dtype=dtype)
+        if kernel == "wgrad":
+            dw = cf.conv3d_flat_wgrad_cuda(x, gy, (3, 3, 3))
+            torch.cuda.synchronize()
+            ref = sum(cf.conv3d_flat_wgrad_plain(x[i:i + 1].float(), gy[i:i + 1].float(),
+                                                 (3, 3, 3)) for i in range(n))
+            assert _within(dw, ref)
+        else:
+            gx, gb = fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)
+            torch.cuda.synchronize()
+            # gb is the f64 sum of gx over the batch's voxels, rounded once through bf16.
+            # gb sums 3e8 terms of either sign down to about 1e-4 of their magnitudes, so
+            # an f32 reference must take b as the kernel does, rounded to x's dtype: with
+            # b unrounded every voxel's u moves and the channels' sums drift apart by
+            # several per cent of max|gb| (printed for the record, pytest -s)
+            gb_sum = torch.zeros(8, dtype=torch.float64, device=cuda)
+            gb_f32 = {"b in bf16": torch.zeros_like(gb), "b in f32": torch.zeros_like(gb)}
+            for i in range(n):
+                rgx, _ = fba.bias_act_pixelnorm_grad_plain(x[i:i + 1], b, gy[i:i + 1], 0.2, True)
+                assert _within(gx[i:i + 1], rgx), i
+                gb_sum += rgx.double().sum(dim=[0, 2, 3, 4])
+                for name, bias in (("b in bf16", b.to(dtype).float()), ("b in f32", b)):
+                    gb_f32[name] += fba.bias_act_pixelnorm_grad_plain(
+                        x[i:i + 1].float(), bias, gy[i:i + 1].float(), 0.2, True)[1]
+            print(f"gb past 2^31 elements: kernel {gb.tolist()}, f64 sum of the plain bf16 gx "
+                  f"{gb_sum.tolist()}, f32 plain " + ", ".join(
+                      f"({name}) {v.tolist()}" for name, v in gb_f32.items()))
+            assert _within(gb, gb_sum.float().to(dtype).float())
+            assert _within(gb, gb_f32["b in bf16"])
+
+
+def test_f32_forward_takes_a_sample_past_2_31_elements(cuda):
+    """#1 in f32 on one sample of C * D * H * W = 2^31 elements (C = 64 at 128x512x512,
+    8.6 GB): its row table once held each staged row's offset from the sample's start in
+    32 bits and refused such a sample; the offsets are formed in 64 bits now."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn((1, 64, *BIG), generator=g, device=cuda)
+    w = torch.randn((3, 3, 3, 64, 8), generator=g, device=cuda) * (2 / (27 * 64)) ** 0.5
+    y = cf.conv3d_flat_cuda(x, w)
+    torch.cuda.synchronize()
+    assert _within(y, cf.conv3d_flat_plain(x, w), 1e-4)
+
+
+def test_offload_step_peak_below_the_plain_step_at_phase_7(cuda):
+    """Phase 7 (64x256x256), batch 2, bf16: the single_chip_big_volume step's peak device
+    memory is below that of the same configuration without remat_offload, and it parks
+    the block taps in host memory."""
+    import dataclasses
+
+    from saragan_tpu_torch.tools.profile_training import bench_train_config, probe
+
+    cfg = bench_train_config(7, 2, single_chip_big_volume=True)
+    rows = {name: probe(c, 7, 2, 1, cuda) for name, c in (
+        ("offload", cfg), ("plain", dataclasses.replace(cfg, remat_offload=False)))}
+    assert not rows["offload"]["oom"] and not rows["plain"]["oom"]
+    assert rows["offload"]["finite"] and rows["plain"]["finite"]
+    assert rows["offload"]["peak_mib"] < rows["plain"]["peak_mib"]
+    assert rows["offload"]["host_mib"] > 0 == rows["plain"]["host_mib"]

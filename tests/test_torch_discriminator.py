@@ -96,7 +96,15 @@ def test_full_init_names_and_shapes_match_reference(kw, phase):
 
 
 def test_spectral_norm_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_architecture("pgan").init(torch.Generator().manual_seed(0), phase=2,
-                                      cfg=Config(**CFG, use_spectral_norm=True).finalize(),
-                                      device="cpu")
+    """Spectral norm raised until it was ported; now the init under ``use_spectral_norm``
+    has the reference's names and shapes, each D weight with its ``<weight>_u`` vector
+    (the forward against the reference: tests/test_torch_step_options.py)."""
+    kw = dict(CFG, use_spectral_norm=True)
+    ref = jax.eval_shape(lambda k: jax_arch("pgan").init(k, phase=2,
+                                                         cfg=JaxConfig(**kw).finalize()),
+                         jax.random.PRNGKey(0))
+    port = get_architecture("pgan").init(torch.Generator().manual_seed(0), phase=2,
+                                         cfg=Config(**kw).finalize(), device="cpu")
+    assert {k: tuple(v.shape) for k, v in port.items()} == {k: v.shape for k, v in ref.items()}
+    us = [k for k in port if k.endswith("_u")]
+    assert us and all(k.startswith("discriminator/") and k[:-2] in port for k in us)

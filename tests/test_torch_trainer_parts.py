@@ -239,8 +239,17 @@ def test_trainer_config_fields_keep_the_reference_names_and_defaults():
         assert getattr(c, name) == getattr(r, name), name
     assert [c.batch_size_for_phase(p) for p in range(1, 6)] == [
         r.batch_size_for_phase(p) for p in range(1, 6)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Config(single_chip_big_volume=True).finalize()
+    # the single-chip big-volume preset: the reference's flags (saragan_tpu/config.py:
+    # 448-456), and the flat engine on every device (the reference's preset picks pallas)
+    c, r = Config(single_chip_big_volume=True).finalize(), JaxConfig(
+        single_chip_big_volume=True).finalize()
+    for name in ("remat_offload", "batched_passes", "fused_transitions", "remat"):
+        assert getattr(c, name) == getattr(r, name), name
+    assert (c.remat_offload, c.batched_passes, c.fused_transitions) == (True, False, False)
+    assert c.conv_engine == "unset"
+    assert [resolve_conv_engine(c.conv_engine, d, c.single_chip_big_volume)
+            for d in ("cpu", "cuda")] == ["flat", "flat"]
+    assert resolve_conv_engine("direct", "cuda", True) == "direct"  # an explicit one wins
     with pytest.raises(ValueError, match="conv_engine"):
         Config(conv_engine="pallas").finalize()
 
