@@ -120,11 +120,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    written to a temp dir: it must return, write model_8.npz with finite parameters, a
    finite Loss/d_loss event and the flat engine, and run the kernels, no plain version;
    the EMA sampler draws one finite volume of 128x512x512 from model_8.npz (f32, flat);
-13. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+13. families: surfgan at the flagship's settings (``bench.py:99-119`` with
+   architecture="surfgan": WGAN-GP, bf16, fused transitions, shared fake pass, the stacked
+   critic pass whose minibatch-stddev groups form inside each half) under `flat`:
+   (a) its phase-6 batch-8 step from the seeded init, per half a warm-up and 5 timed steps
+   with the counts set to 0 just before: ms/step, vol/s, peak MiB, finite losses, #1, #1'
+   and #2 launched through the tensor-core route only, no plain version, parameters, EMA
+   and ``generator/d_z_avg`` (refresh_state) moved, a conv with C = F + 1 (the stddev
+   channel) among the step's shapes; (b) #1, #1' and #2 at every conv shape of that step
+   in f32 and bf16 against their plain versions, as in phase 6; (c) the CLI from phase 5
+   (batch 16) into phase 6 (batch 8), 16 + 16 images per phase on the seeded dataset:
+   model_5.npz and model_6.npz finite, model_6.npz with the phase-6 init's names and
+   shapes, finite d_loss, the flat engine, the kernels run and no plain version,
+   ``d_z_avg`` moved in each phase; (d) 4 concurrent requests served
+   from model_6.npz (f32, `direct`): finite volumes, coalesced, each alone bit-equal to its
+   coalesced response (per-row noise seeds); (e) one bf16 `flat` step of each of pgan2,
+   pgandeep, stylegan and stylegan2 at phase 4, batch 8: finite losses, parameters moved,
+   #1, #1' and #2 launches by route printed;
+14. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
-``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone (without the
-result lines), for working on it.
+``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone, ``--only
+families`` phase 13 (each without the result lines), for working on it.
 """
 
 from __future__ import annotations
@@ -221,6 +238,24 @@ BIG_TRAINER_ARGS = [
     "--adam_beta2", "0.9", "--compute_dtype", "bfloat16", "--use_pallas_fusion",
     "--single_chip_big_volume", "--summary_small_every_nsteps", "4",
     "--summary_large_every_nsteps", "8", "--checkpoint_every_nsteps", "8"]
+# the families phase: surfgan at the flagship's settings (bench.py:99-119 with
+# architecture="surfgan") at phase 6, batch 8, and through the CLI from phase 5 (batch 16)
+# into phase 6 (batch 8), 16 + 16 images per phase; the other four families one step each
+# at phase 4, batch 8 (stylegan2 trains one phase)
+FAMILY = "surfgan"
+FAMILY_STEPS = 5
+OTHER_FAMILIES = ("pgan2", "pgandeep", "stylegan", "stylegan2")
+OTHER_PHASE = 4
+FAMILY_REQUESTS = [(1, 201), (3, 202), (2, 203), (2, 204)]  # (num_samples, seed)
+FAMILY_TRAINER_ARGS = [
+    FAMILY, "<data>", "--start_shape", "(1, 1, 4, 4)", "--final_shape", "(1, 128, 512, 512)",
+    "--starting_phase", "5", "--ending_phase", "6", "--latent_dim", "256",
+    "--network_size", "xs", "--base_batch_size", "256", "--mixing_nimg", "16",
+    "--stabilizing_nimg", "16", "--loss_fn", "wgan", "--gp_weight", "10",
+    "--noise_stddev", "0", "--g_lr", "1e-3", "--d_lr", "1e-3", "--adam_beta1", "0",
+    "--adam_beta2", "0.9", "--compute_dtype", "bfloat16", "--summary_small_every_nsteps", "16",
+    "--summary_large_every_nsteps", "32", "--checkpoint_every_nsteps", "32",
+    "--disable_grad_histograms"]
 FUSED_SOURCE = "saragan_tpu_torch/csrc/fused_bias_act.cu"
 MBSTD_SOURCE = "saragan_tpu_torch/csrc/minibatch_stddev.cu"
 STANDALONE_3 = "standalone: no path of the JAX package runs it (saragan_tpu/ops/core.py:553)"
@@ -1473,6 +1508,250 @@ def big_volume_entries(kernels, launches):
          BIG_STEPS))
 
 
+def _conv_launches():
+    """#1 forward, #1' dgrad and #2 launches by route since the counts were set to 0."""
+    c = read_counts()
+    return {k: c[k] for k in ("forward", "dgrad", "wgrad", "conv_tc", "conv_simt", "wgrad_tc",
+                              "wgrad_simt", "plain")}
+
+
+def family_step():
+    """surfgan's flagship step at phase 6, batch 8, bf16, under flat, both halves: the
+    main path of this phase (counts set to 0 just before each half's timed steps, read
+    just after).  Returns (report, launches over the timed steps, per-shape counts)."""
+    cfg = bench_train_config(PHASE, BATCH, architecture=FAMILY)
+    arch = get_architecture(FAMILY)
+    state0, opts = init_train_state(arch, torch.Generator().manual_seed(0), phase=PHASE,
+                                    cfg=cfg, device="cuda")
+    real = real_batch(cfg, PHASE, BATCH, "cuda")
+    rng = torch.Generator(device="cuda").manual_seed(7)
+    state, report, total = state0, {}, Counter()
+    conv_shapes, wgrad_shapes = Counter(), Counter()
+    for half, static_alpha, alpha in HALVES:
+        step = make_train_step(arch, cfg, PHASE, *opts, static_alpha=static_alpha,
+                               conv_engine="flat")
+        state, _, _ = run_steps(step, state, real, rng, alpha, 1)  # warm-up
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state, ms, metrics = run_steps(step, state, real, rng, alpha, FAMILY_STEPS)
+        counts = _conv_launches()
+        conv_shapes.update(cf.conv3d_flat_cuda.by_shape)
+        wgrad_shapes.update(cf.conv3d_flat_wgrad_cuda.by_shape)
+        total.update(counts)
+        losses_ = [[float(m.gen_loss), float(m.disc_loss), float(m.gp_loss)] for m in metrics]
+        check(all(math.isfinite(v) for row in losses_ for v in row),
+              f"{FAMILY} {half}: non-finite losses {losses_}")
+        check(counts["plain"] == 0, f"{FAMILY} {half}: plain versions ran on the card")
+        check(min(counts[k] for k in ("forward", "dgrad", "wgrad")) > 0
+              and counts["conv_simt"] == counts["wgrad_simt"] == 0
+              and counts["conv_tc"] == counts["forward"] + counts["dgrad"],
+              f"{FAMILY} {half}: launches {counts}")
+        med = statistics.median(ms)
+        report[half] = dict(step_ms=med, step_ms_all=ms, vol_s=BATCH / med * 1e3,
+                            peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                            launches_per_step={k: counts[k] / FAMILY_STEPS for k in counts},
+                            losses=losses_[-1])
+        print(f"{FAMILY} step {half}: {med:.2f} ms/step (median of {FAMILY_STEPS}, CUDA events; "
+              f"all {[round(v, 2) for v in ms]}), {BATCH / med * 1e3:.2f} vol/s, peak "
+              f"{report[half]['peak_mib']:.0f} MiB, launches per step "
+              f"{report[half]['launches_per_step']}, losses {losses_[-1]}", flush=True)
+    key = "generator/d_z_avg"
+    check(not torch.equal(state.g_params[key], state0.g_params[key]),
+          f"{FAMILY}: refresh_state did not move {key}")
+    for part in ("g_params", "d_params", "ema"):
+        check(_moved(getattr(state, part), getattr(state0, part)), f"{FAMILY}: {part} did not move")
+    c_in = max(xs[1] for (_, xs, _, _) in conv_shapes)
+    check(any(xs[1] % 2 == 1 for (_, xs, _, _) in conv_shapes),
+          f"{FAMILY}: no conv with the minibatch-stddev channel (C = F + 1), widest C {c_in}")
+    return report, dict(total), (conv_shapes, wgrad_shapes)
+
+
+def serve_family(model_path, cfg):
+    """A few concurrent requests to the service over the family's checkpoint (f32, the
+    serving default engine): finite volumes of the phase's shape, each request served
+    alone bit-equal to its coalesced response (the per-row noise seeds)."""
+    service = GeneratorService.from_checkpoint(FAMILY, model_path, cfg=cfg, phase=PHASE,
+                                               batch_size=BATCH, device="cuda")
+    srv = make_server(service, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        service.warmup()
+        check(_get(url + "/info")["architecture"] == FAMILY, "info names another family")
+        results, errors = {}, []
+
+        def client(num, seed):
+            try:
+                results[seed] = _post(url + "/generate", {"num_samples": num, "seed": seed})
+            except Exception as e:  # noqa: BLE001 (reported by the check below)
+                errors.append(f"seed {seed}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=r) for r in FAMILY_REQUESTS]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in threads), f"requests: {errors}")
+        stats = _get(url + "/stats")
+        check(stats["max_requests_coalesced"] >= 2, f"{FAMILY} serve: no coalescing: {stats}")
+        for num, seed in FAMILY_REQUESTS:
+            v = np.load(io.BytesIO(results[seed]))
+            check(v.shape == (num, 1, 32, 128, 128) and np.isfinite(v).all(),
+                  f"{FAMILY} serve seed {seed}: shape {v.shape}, finite {np.isfinite(v).all()}")
+            alone = np.load(io.BytesIO(_post(url + "/generate",
+                                             {"num_samples": num, "seed": seed})))
+            check(np.array_equal(alone, v), f"{FAMILY} serve seed {seed}: alone differs from "
+                                            f"coalesced by {np.abs(alone - v).max()}")
+        report = dict(burst_s=burst_s, batches=stats["batches"],
+                      max_requests_coalesced=stats["max_requests_coalesced"])
+        print(f"{FAMILY} serve: {report}", flush=True)
+        return report
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.close()
+        thread.join(timeout=30)
+
+
+def run_family_trainer(data: Path, logdir: Path):
+    """surfgan through ``cli.main`` from phase 5 into phase 6 (counts set to 0 just before,
+    read just after): model_5.npz and model_6.npz, finite losses, the flat engine, the
+    kernels through the tensor-core route, no plain version, and the w-average moved in
+    each phase.  Returns (report, the run's conv and wgrad shapes)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    cli.main([str(data) if a == "<data>" else a for a in FAMILY_TRAINER_ARGS]
+             + ["--logdir", str(logdir)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _conv_launches()
+    shapes = (Counter(cf.conv3d_flat_cuda.by_shape), Counter(cf.conv3d_flat_wgrad_cuda.by_shape))
+    check(counts["plain"] == 0 and min(counts[k] for k in ("forward", "dgrad", "wgrad")) > 0
+          and counts["conv_simt"] == counts["wgrad_simt"] == 0,
+          f"{FAMILY} trainer: launches {counts}")
+    events = _events(logdir)
+    check([e["text"] for e in events if e["tag"] == "config/conv_engine"] == ["flat"],
+          f"{FAMILY} trainer: engine not flat")
+    d_loss = [e["value"] for e in events if e["tag"] == "Loss/d_loss"]
+    check(d_loss and all(math.isfinite(v) for v in d_loss), f"{FAMILY} trainer: d_loss {d_loss}")
+    avg = {}
+    for p in (5, 6):
+        params, _, _ = ckpt.load_params(str(logdir / f"model_{p}.npz"), "cpu")
+        check(all(torch.isfinite(v).all() for v in params.values()),
+              f"{FAMILY} trainer: model_{p}.npz not finite")
+        avg[p] = params["generator/d_z_avg"]
+    # model_6.npz holds the names and shapes of the family's phase-6 init, which are the
+    # JAX package's (tests/test_torch_families.py), so either package reads it
+    init6 = get_architecture(FAMILY).init(torch.Generator().manual_seed(0), phase=PHASE,
+                                          cfg=bench_train_config(PHASE, BATCH,
+                                                                 architecture=FAMILY),
+                                          device="meta")
+    check({k: tuple(v.shape) for k, v in params.items()}
+          == {k: tuple(v.shape) for k, v in init6.items()},
+          f"{FAMILY} trainer: model_6.npz names or shapes differ from the phase-6 init")
+    check(avg[5].abs().max() > 0 and not torch.equal(avg[5], avg[6]),
+          f"{FAMILY} trainer: d_z_avg did not move (|model_5| {avg[5].abs().max()})")
+    ms = {p: [e["value"] for e in events if e["tag"].startswith("Timing/step_ms_")
+              and (e["step"] < 32) == (p == 5)] for p in (5, 6)}
+    report = dict(wall_s=wall_s, launches=counts, d_loss=d_loss, step_ms=ms,
+                  d_z_avg_abs_max={p: float(avg[p].abs().max()) for p in avg})
+    print(f"{FAMILY} trainer: {wall_s:.1f} s wall for phases 5 and 6, launches {counts}, "
+          f"step ms {ms}, |d_z_avg| {report['d_z_avg_abs_max']}", flush=True)
+    return report, shapes
+
+
+def other_families():
+    """One flat bf16 step of each other family at phase 4, batch 8, with finite losses;
+    the conv launches of each by route.  Returns (report, {family: its conv and wgrad
+    shapes})."""
+    report, shapes = {}, {}
+    for name in OTHER_FAMILIES:
+        cfg = bench_train_config(OTHER_PHASE, BATCH, architecture=name)
+        arch = get_architecture(name)
+        state, opts = init_train_state(arch, torch.Generator().manual_seed(0),
+                                       phase=OTHER_PHASE, cfg=cfg, device="cuda")
+        real = real_batch(cfg, OTHER_PHASE, BATCH, "cuda")
+        step = make_train_step(arch, cfg, OTHER_PHASE, *opts, conv_engine="flat")
+        zero_counts()
+        rng = torch.Generator(device="cuda").manual_seed(8)
+        new, ms, metrics = run_steps(step, state, real, rng, 0.5, 1)
+        counts = _conv_launches()
+        shapes[name] = (Counter(cf.conv3d_flat_cuda.by_shape),
+                        Counter(cf.conv3d_flat_wgrad_cuda.by_shape))
+        losses_ = [float(metrics[0].gen_loss), float(metrics[0].disc_loss),
+                   float(metrics[0].gp_loss)]
+        check(all(math.isfinite(v) for v in losses_), f"{name}: non-finite losses {losses_}")
+        check(counts["plain"] == 0 and min(counts[k] for k in ("forward", "dgrad", "wgrad")) > 0
+              and counts["conv_simt"] == counts["wgrad_simt"] == 0,
+              f"{name}: launches {counts}")
+        check(_moved(new.g_params, state.g_params), f"{name}: parameters did not move")
+        report[name] = dict(step_ms=ms[0], losses=losses_, launches=counts)
+        print(f"{name} step (phase {OTHER_PHASE}, batch {BATCH}, bf16, flat): {ms[0]:.2f} ms "
+              f"(first step), losses {losses_}, launches by route {counts}", flush=True)
+    return report, shapes
+
+
+def check_path_convs(label, shapes, checked, detail):
+    """#1, #1' and #2 against their plain versions (`check_train_convs`, f32 and bf16) at
+    each conv shape of a path that `checked` (shapes already held) does not hold yet;
+    adds them to `checked`.  Returns the entries, each shape weighted by its launches on
+    the path."""
+    conv_shapes, wgrad_shapes = (Counter({k: n for k, n in c.items() if k not in done})
+                                 for c, done in zip(shapes, checked))
+    print(f"kernels at the conv shapes of {label} not checked before: {len(conv_shapes)} of "
+          f"{len(shapes[0])} conv, {len(wgrad_shapes)} of {len(shapes[1])} wgrad", flush=True)
+    for done, c in zip(checked, (conv_shapes, wgrad_shapes)):
+        done.update(c)
+    entries = check_train_convs(conv_shapes, wgrad_shapes, 1, detail)
+    return {"/".join(k): v for k, v in entries.items()}
+
+
+def families(detail):
+    """The families phase: surfgan's flagship step (the main path), its kernels at every
+    conv shape of that step in f32 and bf16, the CLI from phase 5 into 6 and serving from
+    its checkpoint; one step of each other family; the kernels also at every conv shape
+    of the CLI run and of those steps."""
+    torch.cuda.empty_cache()
+    step_report, launches, (conv_shapes, wgrad_shapes) = family_step()
+    convs = check_train_convs(conv_shapes, wgrad_shapes, 2 * FAMILY_STEPS, detail)
+    report = dict(step=step_report, kernels={"/".join(k): v for k, v in convs.items()})
+    checked = (set(conv_shapes), set(wgrad_shapes))
+    cfg = bench_train_config(PHASE, BATCH, architecture=FAMILY)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_dataset(tmp / "data")
+        report["trainer"], shapes = run_family_trainer(tmp / "data", tmp / "run")
+        report["serve"] = serve_family(str(tmp / "run" / f"model_{PHASE}.npz"), cfg)
+    # the trainer's phase-5 (batch 16) shapes, then each other family's, held as above
+    report["path_kernels"] = {f"{FAMILY} trainer": check_path_convs(
+        f"the {FAMILY} trainer (phases 5 and 6)", shapes, checked, detail)}
+    report["others"], other_shapes = other_families()
+    for name, shapes in other_shapes.items():
+        report["path_kernels"][name] = check_path_convs(f"the {name} step", shapes, checked,
+                                                        detail)
+    return report, launches, convs
+
+
+def family_entries(convs, launches):
+    """The kernels line's rows of surfgan's path."""
+    per = (f"one {FAMILY} phase-{PHASE} batch-{BATCH} bf16 step under flat (sum over its "
+           f"launches at every conv shape of the step); launches counted over "
+           f"{2 * FAMILY_STEPS} steps, both halves")
+    return (
+        (f"conv3d_flat[forward,bf16,{FAMILY}]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
+         "saragan_tpu/ops/pallas_conv.py:124", convs[("forward", "bfloat16")],
+         launches["forward"], "library_ms", per, 2 * FAMILY_STEPS),
+        (f"conv3d_flat[dgrad,bf16,{FAMILY}]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
+         "saragan_tpu/ops/core.py:386", convs[("dgrad", "bfloat16")], launches["dgrad"],
+         "library_ms", per, 2 * FAMILY_STEPS),
+        (f"conv3d_wgrad[bf16,{FAMILY}]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad_tc.cu",
+         "saragan_tpu/ops/pallas_conv.py:183", convs[("wgrad", "bfloat16")], launches["wgrad"],
+         "library_ms", per, 2 * FAMILY_STEPS))
+
+
 def kernel_row(name, route, source, replaces, e, launches, library, per_what, unit):
     """One entry of the kernels line."""
     check(launches > 0, f"{name}: not launched")
@@ -1543,6 +1822,18 @@ def main(argv=None) -> int:
             card=card, big_volume=big, kernels=rows, shapes=detail, seconds=seconds),
             indent=1, default=str))
         print("big volume kernels: " + json.dumps(rows), flush=True)
+        return 0
+
+    if args.only == "families":  # this phase alone, for working on it: no result line
+        detail = []
+        fam, fam_launches, fam_convs = families(detail)
+        phase_done("families")
+        rows = [kernel_row(*r) for r in family_entries(fam_convs, fam_launches)]
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_families.json").write_text(json.dumps(dict(
+            card=card, families=fam, kernels=rows, shapes=detail, seconds=seconds),
+            indent=1, default=str))
+        print("families kernels: " + json.dumps(rows), flush=True)
         return 0
 
     cfg = Config(**BENCH_CFG, starting_phase=PHASE, ending_phase=PHASE).finalize()
@@ -1618,6 +1909,11 @@ def main(argv=None) -> int:
     big, big_launches, big_kernels = big_volume(detail)
     phase_done("big volume")
 
+    # the other families: surfgan at the flagship's settings (step, kernels, CLI, serving)
+    # and one step of each of pgan2, pgandeep, stylegan, stylegan2
+    fam, fam_launches, fam_convs = families(detail)
+    phase_done("families")
+
     main_launches = served["flat"][2]
     dispatches = served["flat"][1]["dispatches"]
     flat_runs = trained["flat"][1]
@@ -1682,6 +1978,7 @@ def main(argv=None) -> int:
              "saragan_tpu/ops/pallas_kernels.py:159", mbstd, mbstd_launches, None, per_mbstd,
              None))]
     kernels += [kernel_row(*r) for r in big_volume_entries(big_kernels, big_launches)]
+    kernels += [kernel_row(*r) for r in family_entries(fam_convs, fam_launches)]
     f32_train = {f"{kind}[f32]": {x: e[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "max_abs_err", "launches_per_step")}
                  for (kind, dt), e in train_convs.items() if dt == "float32"}
@@ -1691,7 +1988,7 @@ def main(argv=None) -> int:
         card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train, ptxas=ptxas,
         serving={e: served[e][1] for e in served}, training=training,
         engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume, metrics=metrics,
-        big_volume=big, seconds=seconds), indent=1, default=str))
+        big_volume=big, families=fam, seconds=seconds), indent=1, default=str))
     print(f"serving: " + json.dumps({e: served[e][1] for e in served}), flush=True)
     print("training: " + json.dumps({e: {h: dict(step_ms=r["step_ms"], peak_mib=r["peak_mib"])
                                          for h, r in trained[e][0].items()} for e in trained}),
@@ -1706,6 +2003,11 @@ def main(argv=None) -> int:
     print("big volume: " + json.dumps({k: big[k] for k in ("step_ms", "vol_s", "peak_mib",
                                                            "host_mib", "first_step")}),
           flush=True)
+    print("families: " + json.dumps(dict(
+        step={h: {k: r[k] for k in ("step_ms", "vol_s", "peak_mib")}
+              for h, r in fam["step"].items()},
+        trainer_wall_s=fam["trainer"]["wall_s"],
+        others={n: r["launches"] for n, r in fam["others"].items()})), flush=True)
     print("seconds: " + json.dumps(seconds), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1719,7 +2021,7 @@ def _parse(argv):
     import argparse
 
     p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
-    p.add_argument("--only", choices=["big_volume"], default=None,
+    p.add_argument("--only", choices=["big_volume", "families"], default=None,
                    help="build, then run this phase alone (no result line)")
     return p.parse_args(argv)
 

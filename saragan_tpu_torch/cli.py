@@ -72,10 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--starting_alpha", default=1, type=float)
     p.add_argument("--validation_fraction", default=0.1, type=float)
     p.add_argument("--test_fraction", default=0.1, type=float)
+    p.add_argument("--num_labels", default=None, type=none_or_int)
     # architecture
     p.add_argument("--latent_dim", type=int, required=True)
     p.add_argument("--network_size", default=None,
                    choices=["xxs", "xs", "s", "m", "l", "xl", "xxl"])
+    p.add_argument("--first_conv_nfilters", type=none_or_int, default=None)
     p.add_argument("--activation", type=str, default="leaky_relu")
     p.add_argument("--leakiness", type=float, default=0.2)
     p.add_argument("--conv_kernel_size", type=none_or_int, nargs="+", default=[3, 3, 3])

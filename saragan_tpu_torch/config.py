@@ -101,7 +101,12 @@ class Config:
     starting_alpha: float = 1.0
     validation_fraction: float = 0.1
     test_fraction: float = 0.1
+    # surfgan's projection conditioning: the mapping's conditioning weight when set (the
+    # trainer feeds no labels, as the reference's does not)
+    num_labels: Optional[int] = None
     latent_dim: int = 256
+    # filters of the first layer of the num_filters-table families (None: the table's)
+    first_conv_nfilters: Optional[int] = None
     network_size: Optional[str] = "xs"
     activation: str = "leaky_relu"
     leakiness: float = 0.2
@@ -249,8 +254,9 @@ class Config:
 
     def finalize(self) -> "Config":
         """Derived defaults (the transfer dtype, the LR rise/decay lengths from the phase
-        halves, D's optimizer settings mirroring G's unless d_use_different_*) and the
-        phase-range checks of the reference's finalize."""
+        halves, D's optimizer settings mirroring G's unless d_use_different_*), the
+        phase-range checks of the reference's finalize and its one-phase rule for
+        stylegan2."""
         c = dataclasses.replace(self)
         if c.transfer_dtype == "auto":
             c.transfer_dtype = "bfloat16" if c.compute_dtype == "bfloat16" else "float32"
@@ -272,6 +278,10 @@ class Config:
             c.d_adam_beta2 = c.adam_beta2
         if c.ending_phase is None:
             c.ending_phase = c.num_phases
+        if c.architecture == "stylegan2" and c.starting_phase != c.ending_phase:
+            # the reference's main.py:413-414: stylegan2 has no progressive growing
+            raise ValueError("stylegan2 does not support progressive growing; "
+                             "starting_phase must equal ending_phase")
         if c.starting_phase > c.num_phases:
             raise ValueError(
                 f"starting_phase={c.starting_phase} exceeds num_phases={c.num_phases} "

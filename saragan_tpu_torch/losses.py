@@ -8,9 +8,13 @@ Under the ``flat`` engine every conv of that double backward re-enters the hand-
 kernels through ``ops/conv3d_grad.py``.
 
 Random inputs are explicit: ``Draws`` holds the latents, the penalty's interpolation
-weights and the instance noise, drawn by ``draw_inputs`` from a ``torch.Generator`` on
-the device, or handed in pre-drawn (the parity tests feed the reference's own draws,
-``losses.py:237-241,287`` there).
+weights and the instance noise, and for the style families the inputs the reference's
+generator draws from its key (the second latents, coin and cutoff of style mixing, the
+per-layer noise source) and the step's ``refresh_state`` latents; drawn by
+``draw_inputs`` from a ``torch.Generator`` on the device, or handed in pre-drawn (the
+parity tests feed the reference's own draws, ``losses.py:237-241,287`` there).  The
+losses read z, gamma and the instance noise; the step binds the style draws into the
+generator (``train/step.py::model_fns``).
 
 Reference quirk kept: the simultaneous penalty reduces the gradient norm over axes
 (1, 2, 3), which for 3-D volumes leaves per-(sample, W-slice) slopes (reference
@@ -30,7 +34,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from saragan_tpu_torch.ops.core import in_dtype
+from saragan_tpu_torch.ops.core import LayerNoise, generator_seed, in_dtype
 
 Params = Dict[str, torch.Tensor]
 
@@ -43,18 +47,31 @@ class LossOutput(NamedTuple):
 
 
 class Draws(NamedTuple):
-    """The random inputs of one step, in the compute dtype."""
+    """The random inputs of one step (or micro-batch), in the compute dtype but for
+    ``refresh_z`` (f32, as the reference draws it)."""
     z: torch.Tensor                       # (N, latent_dim)
     gamma: Optional[torch.Tensor] = None  # (N, 1, ..., 1) U(0, 1), when the GP runs
     noise_real: Optional[torch.Tensor] = None  # N(0, 1) like real, when noise_stddev
     noise_fake: Optional[torch.Tensor] = None
+    # the style families' draws (None for the others):
+    z_mix: Optional[torch.Tensor] = None      # (N, latent_dim), style mixing's 2nd latents
+    mix_coin: Optional[torch.Tensor] = None   # () U(0, 1)
+    mix_cutoff: Optional[torch.Tensor] = None  # () int in [1, max(phase, 2))
+    refresh_z: Optional[torch.Tensor] = None  # (64, latent_dim) f32, refresh_state's
+    noise: Optional[Callable] = None          # per-layer noise source (ops.core)
+
+
+REFRESH_BATCH = 64  # latents per refresh_state, as the reference draws
 
 
 def draw_inputs(generator: Optional[torch.Generator], n: int, latent_dim: int,
                 sample_shape: Sequence[int], dtype: torch.dtype, device, *,
-                noise_stddev: float = 0.0, compute_gp: bool = True) -> Draws:
+                noise_stddev: float = 0.0, compute_gp: bool = True,
+                style_phase: Optional[int] = None) -> Draws:
     """One step's draws from `generator` (on `device`), in f32 and then cast to
-    `dtype`.  JAX's threefry bits are not reproduced, only the distributions."""
+    `dtype`.  With `style_phase` (a style family's phase) also its style-mixing draws,
+    the refresh latents and a ``LayerNoise`` seeded from the generator's state.  JAX's
+    threefry bits are not reproduced, only the distributions."""
     def normal(shape):
         return torch.randn(shape, generator=generator, device=device).to(dtype)
 
@@ -67,7 +84,17 @@ def draw_inputs(generator: Optional[torch.Generator], n: int, latent_dim: int,
     if noise_stddev:
         noise_real = normal((n, *sample_shape))
         noise_fake = normal((n, *sample_shape))
-    return Draws(z, gamma, noise_real, noise_fake)
+    draws = Draws(z, gamma, noise_real, noise_fake)
+    if style_phase is None:
+        return draws
+    return draws._replace(
+        z_mix=normal((n, latent_dim)),
+        mix_coin=torch.rand((), generator=generator, device=device),
+        mix_cutoff=torch.randint(1, max(style_phase, 2), (), generator=generator,
+                                 device=device),
+        refresh_z=torch.randn((REFRESH_BATCH, latent_dim), generator=generator,
+                              device=device),
+        noise=LayerNoise(generator_seed(generator)))
 
 
 def _instance_noise(x: torch.Tensor, noise: Optional[torch.Tensor], noise_stddev: float):
@@ -190,7 +217,7 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
                        gp_weight: float = 1.0, noise_stddev: float = 0.0,
                        gp_full_reduction: bool = False, compute_gp: bool = True,
                        gp_grad_mode: str = "revrev", batched_passes: bool = False,
-                       disc_cross_sample: bool = False, gp_disc_fn: Optional[Callable] = None
+                       gp_disc_fn: Optional[Callable] = None
                        ) -> Tuple[Tuple[Params, Params], LossOutput]:
     """WGAN simultaneous gradients with the fake critic pass shared (reference
     ``grads_simultaneous``): for the WGAN loss the cotangents of D(fake) in the
@@ -199,10 +226,12 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
     fake part of d_grads = +that; the real term and the penalty are added to d_grads.
 
     ``batched_passes`` runs the fake and real critic passes as one discriminator call on
-    ``cat([fake, real])``.  The reference vmaps D over a stacked pair; for a
-    discriminator with no cross-sample op (pgan's) that is exactly one call at batch 2N.
-    A discriminator that mixes samples (a minibatch-stddev layer, ``disc_cross_sample``)
-    would need the two passes kept apart, which is not ported: it raises.
+    ``cat([fake, real])`` with ``passes=2``.  The reference vmaps D over a stacked pair;
+    for a discriminator with no cross-sample op (pgan's) that is exactly one call at batch
+    2N, and it ignores `passes`.  A discriminator that mixes samples (surfgan's
+    minibatch-stddev head) forms its groups inside each half, as under the reference's
+    vmap.  The penalty's D runs on the N interpolates as
+    one batch and keeps its cross-sample terms, as the reference's does.
 
     ``gp_grad_mode``: "revrev" (reverse over reverse: the penalty's parameter gradient
     differentiates through the inner input gradient) or "revfwd" (``_gp_revfwd``); both
@@ -218,11 +247,8 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
     gen_sample = gen_fn(g_params, draws.z)
     fake = _instance_noise(gen_sample, draws.noise_fake, noise_stddev)
     if batched_passes:
-        if disc_cross_sample:
-            raise NotImplementedError("batched_passes with a discriminator that mixes "
-                                      "samples keeps the passes apart; not ported yet "
-                                      "(ROADMAP queue 1 item 8)")
-        scores = disc_fn(d_params, torch.cat([fake, real.to(fake.dtype)])).float()
+        stacked = torch.cat([fake, real.to(fake.dtype)])
+        scores = disc_fn(d_params, stacked, passes=2).float()
         fake_score = torch.mean(scores[:n])
         rs = scores[n:]
         real_term = torch.mean(-rs + 1e-3 * torch.square(rs))  # -critic(real) + drift

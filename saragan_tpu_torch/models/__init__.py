@@ -1,4 +1,4 @@
-"""Model families of the port (pgan only in this slice)."""
+"""Model families of the port: pgan, pgan2, pgandeep, stylegan, stylegan2, surfgan."""
 
 from saragan_tpu_torch.models.registry import Architecture, get_architecture, register
 

@@ -1,5 +1,6 @@
-"""Shared model helpers: the static-alpha test, and the block boundaries and recompute
-regions of ``remat_offload`` (counterpart of ``saragan_tpu/models/common.py:41-74``).
+"""Shared model helpers: the static-alpha test, the num_filters-table sizing of the
+families after pgan (counterpart of ``saragan_tpu/models/common.py:78-108``), and the
+block boundaries and recompute regions of ``remat_offload`` (``:41-74`` there).
 
 Under ``cfg.remat_offload`` a model's forward is a chain of recompute regions
 (``segment``), each running from one block boundary to the next, and ``block_tap`` marks
@@ -23,11 +24,61 @@ from typing import List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from saragan_tpu_torch.core import Scope
+from saragan_tpu_torch.ops.core import num_filters, num_filters_2d
+
 
 def static_alpha_zero(alpha) -> bool:
     """True when alpha is a Python 0: the models then skip the phase-transition branch
     (previous-resolution to_rgb and blend), which contributes exactly 0 there."""
     return isinstance(alpha, (int, float)) and float(alpha) == 0.0
+
+
+def adaptive_kernel(spatial_shape) -> List[int]:
+    """Per-axis kernel size: 1 where the axis is shorter than 3, else 3."""
+    return [1 if s < 3 else 3 for s in spatial_shape]
+
+
+def phase_filters(cfg, i: int) -> int:
+    """Filters at phase `i` from the num_filters tables of the network size."""
+    size = cfg.network_size or "xs"
+    if cfg.ndim == 3:
+        return num_filters(i, cfg.num_phases, cfg.base_shape, size=size)
+    return num_filters_2d(i, cfg.num_phases, size=size)
+
+
+def resolve_base_dim(cfg) -> int:
+    """Filters of the first (constant or dense) layer: ``cfg.first_conv_nfilters``, else
+    the table's entry at phase 1."""
+    if cfg.first_conv_nfilters:
+        return int(cfg.first_conv_nfilters)
+    return phase_filters(cfg, 1)
+
+
+def spectral_iters(cfg) -> int:
+    """Power iterations of the discriminator's scope: 0 (off) unless
+    ``cfg.use_spectral_norm`` (reference ``saragan_tpu/models/common.py:96-101``)."""
+    if getattr(cfg, "use_spectral_norm", False):
+        return max(1, int(getattr(cfg, "spectral_iterations", 3)))
+    return 0
+
+
+def init_from_shape_passes(g_pass, d_pass, rng: torch.Generator, *, phase: int, cfg,
+                           device):
+    """The full G+D parameters for `phase`: `g_pass(scope, z)` and `d_pass(scope, x)`
+    run once each on the meta device (shapes only, no graph, so no recompute region)
+    with init-mode scopes, which create every parameter they read on `device`, each from
+    a generator seeded by the root seed and its name (the discriminator's scope spectral
+    under ``use_spectral_norm``).  No activation is materialized, as the reference's
+    ``jax.eval_shape`` init."""
+    params = {}
+    dev = torch.device(device)
+    with torch.no_grad():
+        g_pass(Scope(params, init=True, rng=rng, device=dev),
+               torch.empty((1, cfg.latent_dim), device="meta"))
+        d_pass(Scope(params, init=True, rng=rng, device=dev, spectral=spectral_iters(cfg)),
+               torch.empty(cfg.current_shape(phase, 1), device="meta"))
+    return params
 
 
 def block_tap(x: torch.Tensor, name: str, cfg) -> torch.Tensor:
@@ -50,8 +101,10 @@ def offload_block_names(phase: int) -> List[str]:
 
 def recompute(fn, *inputs):
     """``fn(*inputs)`` as one recompute region whose kept inputs are `inputs` (``fn``
-    reads the parameters from its closure; the models use no random numbers, so no RNG
-    state is kept)."""
+    reads the parameters from its closure).  No RNG state is kept: the only random
+    numbers inside a model, the style families' noise, come from a noise source that
+    seeds each layer's draw by name (``ops.core.LayerNoise``), so the recompute draws
+    them again bit for bit."""
     return checkpoint(fn, *inputs, use_reentrant=False, preserve_rng_state=False)
 
 

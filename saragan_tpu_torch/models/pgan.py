@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from saragan_tpu_torch.core import Params, Scope, zeros_initializer
-from saragan_tpu_torch.models.common import block_tap, segment, static_alpha_zero
+from saragan_tpu_torch.models.common import (block_tap, init_from_shape_passes, segment,
+                                              spectral_iters, static_alpha_zero)
 from saragan_tpu_torch.models.registry import Architecture, register
 from saragan_tpu_torch.ops import core as ops
 from saragan_tpu_torch.ops.fused_bias_act import bias_act_pixelnorm
@@ -146,9 +147,11 @@ def _generator(scope, z, alpha, phase, cfg, param, engine):
 
 
 def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
-              conv_engine: str = "direct") -> torch.Tensor:
+              conv_engine: str = "direct", noise=None, mix=None,
+              train: bool = True) -> torch.Tensor:
     """G(z) at `phase`: (N, latent_dim) -> (N, C, *spatial).  `alpha` is a Python float
-    (0 skips the transition branch) or a 0-dim tensor (the branch always runs)."""
+    (0 skips the transition branch) or a 0-dim tensor (the branch always runs).  pgan
+    draws no noise and mixes no styles: `noise`, `mix` and `train` change nothing."""
     return _generator(Scope(params), z, alpha, phase, cfg, cfg.leakiness, conv_engine)
 
 
@@ -221,40 +224,25 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine):
     return segment(out, cfg, x, image)
 
 
-def spectral_iters(cfg) -> int:
-    """Power iterations of the discriminator's scope: 0 (off) unless
-    ``cfg.use_spectral_norm`` (reference ``saragan_tpu/models/common.py:96-101``)."""
-    if getattr(cfg, "use_spectral_norm", False):
-        return max(1, int(getattr(cfg, "spectral_iterations", 3)))
-    return 0
-
-
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
-                  conv_engine: str = "direct") -> torch.Tensor:
+                  conv_engine: str = "direct", passes: int = 1) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1) scores.  `alpha` as for the
-    generator."""
+    generator.  No op mixes samples, so stacked passes (`passes`) need nothing."""
     return _discriminator(Scope(params, spectral=spectral_iters(cfg)), x, alpha, phase, cfg,
                           cfg.leakiness, conv_engine)
 
 
 def init(rng: torch.Generator, *, phase: int, cfg, device) -> Params:
     """The full G+D parameters for `phase` (names and shapes of the reference's
-    ``arch.init``).  Both init forwards run on the meta device, so only the parameters
-    are materialized, on `device`; each draws from a generator seeded by the root seed
-    and the parameter's name."""
-    params: Params = {}
-    scope = Scope(params, init=True, rng=rng, device=torch.device(device))
-    z = torch.empty((1, cfg.latent_dim), device="meta")
+    ``arch.init``), from shape-only passes on the meta device
+    (``models.common.init_from_shape_passes``)."""
     # the fused op reads the same "bias" parameter; the shape-only pass skips its
     # dispatch, so an init never counts as a call of its plain version
-    shapes_cfg = dataclasses.replace(cfg, remat_offload=False)
-    _generator(scope, z, 1.0, phase, dataclasses.replace(shapes_cfg, use_pallas_fusion=False),
-               cfg.leakiness, "direct")
-    x = torch.empty(cfg.current_shape(phase, 1), device="meta")
-    d_scope = Scope(params, init=True, rng=rng, device=torch.device(device),
-                    spectral=spectral_iters(cfg))
-    _discriminator(d_scope, x, 1.0, phase, shapes_cfg, cfg.leakiness, "direct")
-    return params
+    g_cfg = dataclasses.replace(cfg, use_pallas_fusion=False)
+    return init_from_shape_passes(
+        lambda s, z: _generator(s, z, 1.0, phase, g_cfg, cfg.leakiness, "direct"),
+        lambda s, x: _discriminator(s, x, 1.0, phase, cfg, cfg.leakiness, "direct"),
+        rng, phase=phase, cfg=cfg, device=device)
 
 
 register(Architecture("pgan", init, generator, discriminator))

@@ -1,18 +1,27 @@
 """Architecture registry: families by name, one calling convention.
 
     init(rng, *, phase, cfg, device)                            -> flat G+D Params dict
-    generator(params, z, alpha, *, phase, cfg, conv_engine)     -> images
-    discriminator(params, x, alpha, *, phase, cfg, conv_engine) -> (N, 1) scores
+    generator(params, z, alpha, *, phase, cfg, conv_engine, noise=None, mix=None,
+              train=True)                                       -> images
+    discriminator(params, x, alpha, *, phase, cfg, conv_engine, passes=1) -> (N, 1) scores
+    refresh_state(g_params, z, *, phase, cfg)                   -> g_params
 
-pgan is ported (generator and discriminator); the other families come with later
-slices.  ``disc_cross_sample`` says whether the discriminator mixes samples (a
-minibatch-stddev layer): the train step's stacked critic pass is one call on the
-concatenated fake and real batches only when it does not.
+All six families of the reference are registered (``saragan_tpu/models/registry.py``).
+``noise`` (a noise source, ``ops.core.LayerNoise`` / ``NoiseByName``) and ``mix`` (a
+``models.style_ops.StyleMix``, the draws of style mixing) feed the style families'
+per-layer noise and style mixing, as the reference's ``rng`` does; None leaves them out,
+as the reference does without an rng.  The other families take them and draw nothing.
+``train=False`` is the samplers' mode (no style mixing; truncation where the family
+applies it).  ``passes`` says how many batches x stacks along axis 0 (the stacked critic
+pass): a discriminator that mixes samples (surfgan's minibatch-stddev head) keeps them
+apart, the others ignore it.  ``refresh_state`` is the
+style families' per-step w-average update (``d_z_avg``) from a batch of latents `z`;
+None for the families without that state.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 
 class Architecture(NamedTuple):
@@ -20,7 +29,7 @@ class Architecture(NamedTuple):
     init: Callable
     generator: Callable
     discriminator: Callable
-    disc_cross_sample: bool = False
+    refresh_state: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, Architecture] = {}
@@ -32,9 +41,14 @@ def register(arch: Architecture) -> Architecture:
 
 
 def get_architecture(name: str) -> Architecture:
-    import saragan_tpu_torch.models.pgan  # noqa: F401  (registers itself)
+    # imported for their registration
+    import saragan_tpu_torch.models.pgan  # noqa: F401
+    import saragan_tpu_torch.models.pgan2  # noqa: F401
+    import saragan_tpu_torch.models.pgandeep  # noqa: F401
+    import saragan_tpu_torch.models.stylegan  # noqa: F401
+    import saragan_tpu_torch.models.stylegan2  # noqa: F401
+    import saragan_tpu_torch.models.surfgan  # noqa: F401
 
     if name not in _REGISTRY:
-        raise ValueError(f"Unknown or not yet ported architecture {name!r}; have "
-                         f"{sorted(_REGISTRY)}")
+        raise ValueError(f"Unknown architecture {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -18,6 +18,13 @@ The conv engine is an explicit argument, never a module global:
 bf16: an op rounds where the reference's rounds.  A Python constant that meets an
 activation (a leaky-ReLU slope, an epsilon, a blend factor) is first rounded to the
 activation's dtype, as ``jnp.asarray(c, x.dtype)`` does there.
+
+Per-layer noise (the style families) comes from a noise source, a callable
+``noise(name, shape, dtype, device) -> tensor``: ``LayerNoise`` draws each layer's noise
+from a generator seeded by (seed, layer name), as the reference keys it with
+``fold_in(rng, _stable_hash(name))``, so a recompute region draws it again bit for bit
+and the draw does not depend on call order; ``NoiseByName`` hands in given tensors by
+name (the parity tests feed the reference's own noise).
 """
 
 from __future__ import annotations
@@ -25,13 +32,14 @@ from __future__ import annotations
 import functools
 import itertools
 import math
-from typing import Optional, Sequence
+import zlib
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from saragan_tpu_torch.core import Scope, normal_initializer, zeros_initializer
+from saragan_tpu_torch.core import Scope, _name_seed, normal_initializer, zeros_initializer
 from saragan_tpu_torch.ops.conv3d_grad import conv3d_c
 
 CONV_ENGINES = ("direct", "flat")
@@ -178,6 +186,19 @@ def conv(scope: Scope, x: torch.Tensor, fmaps: int, kernel: Sequence[int], activ
     return conv_apply(x, w.to(x.dtype), engine)
 
 
+def group_conv(x: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:
+    """Grouped SAME stride-1 conv; w: (*kernel, in_per_group, out_total), output channel
+    o in group o // (out_total / groups), as the reference's ``feature_group_count``
+    (``saragan_tpu/ops/core.py:566-580``).  No family calls it."""
+    conv = {2: F.conv2d, 3: F.conv3d}[x.ndim - 2]
+    return conv(x, _torch_weight(w).to(x.dtype), padding="same", groups=groups)
+
+
+def depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One filter per input channel, w: (*kernel, 1, C) (reference ``core.py:583-586``)."""
+    return group_conv(x, w, groups=x.shape[1])
+
+
 def leaky_relu(x: torch.Tensor, alpha_lr: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, x * in_dtype(alpha_lr, x.dtype))
 
@@ -268,6 +289,27 @@ def upscale_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _box_sum(w: torch.Tensor, axis: int) -> torch.Tensor:
+    """w'[j] = w[j - 1] + w[j] along `axis` (length k + 1, zero outside)."""
+    z = torch.zeros_like(w.narrow(axis, 0, 1))
+    return torch.cat([z, w], dim=axis) + torch.cat([w, z], dim=axis)
+
+
+def conv_downscale(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """downscale(conv(x, w)) for a SAME conv with odd kernel w, as one stride-2 conv with
+    the box-averaged (k + 1)^r kernel (reference ``saragan_tpu/ops/core.py:775-815``).
+    Exact only where no nonlinearity sits between the conv and the pool, so no family
+    calls it, as in the reference."""
+    r = x.ndim - 2
+    wp = w
+    for axis in range(r):
+        wp = _box_sum(wp, axis)
+    wp = wp * 0.5 ** r
+    conv = {2: F.conv2d, 3: F.conv3d}[r]
+    pads = [(int(k) - 1) // 2 for k in w.shape[:r]]
+    return conv(x, _torch_weight(wp).to(x.dtype), stride=2, padding=pads)
+
+
 def avg_pool(x: torch.Tensor, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
     """Average pooling of all spatial axes (stride = window = factor), as reshape + mean;
     the mean accumulates in f32 and rounds once to x.dtype, as the reference's jnp.mean
@@ -299,6 +341,129 @@ def pixel_norm(x: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
     m = sq.mean(dim=1, keepdim=True) if x.dtype == torch.float64 else \
         sq.mean(dim=1, keepdim=True, dtype=torch.float32).to(x.dtype)
     return x * torch.rsqrt(m + in_dtype(epsilon, x.dtype))
+
+
+def mean_keepdim(t: torch.Tensor, dims) -> torch.Tensor:
+    """Mean over `dims` (kept), accumulated in f32 and returned in t's dtype, as the
+    reference's jnp.mean does for bf16 (f64 stays f64)."""
+    if t.dtype == torch.float64:
+        return t.mean(dim=dims, keepdim=True)
+    return t.mean(dim=dims, keepdim=True, dtype=torch.float32).to(t.dtype)
+
+
+def instance_norm(x: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
+    """Per-sample, per-channel normalization over the spatial axes, in x's dtype (the
+    means accumulated in f32), as the reference rounds it (``saragan_tpu/ops/core.py:
+    869-876``)."""
+    if x.ndim < 4:
+        raise ValueError(f"instance_norm needs a spatial input; got {tuple(x.shape)}")
+    dims = tuple(range(2, x.ndim))
+    x = x - mean_keepdim(x, dims)
+    return x * torch.rsqrt(mean_keepdim(torch.square(x), dims)
+                           + in_dtype(epsilon, x.dtype))
+
+
+def minibatch_stddev_layer(x: torch.Tensor, group_size: int = 4,
+                           passes: int = 1) -> torch.Tensor:
+    """Append the per-group stddev statistic as one more channel (reference
+    ``saragan_tpu/ops/core.py:847-866``), statistics in f32 whatever x's dtype.
+
+    The reference's groups are strided across the batch: it reshapes to (G, N/G, ...),
+    so sample n is in the group of n mod N/G.  `passes` > 1 says that x holds that many
+    batches stacked along axis 0 (the stacked critic pass, [fake, real]) and forms the
+    groups inside each, as the reference's ``jax.vmap`` over the stacked passes does."""
+    n = x.shape[0] // passes
+    if n * passes != x.shape[0]:
+        raise ValueError(f"batch {x.shape[0]} is not {passes} passes of one size")
+    g = min(group_size, n)
+    if n % g:
+        raise ValueError(f"minibatch stddev: group {g} does not divide the batch {n}")
+    s = tuple(x.shape)
+    y = x.reshape(passes, g, n // g, *s[1:]).float()
+    y = y - y.mean(dim=1, keepdim=True)
+    y = torch.sqrt(torch.square(y).mean(dim=1) + 1e-8)  # (passes, n / g, C, *S)
+    y = y.mean(dim=tuple(range(2, y.ndim)), keepdim=True).to(x.dtype)
+    y = y.unsqueeze(1).expand(passes, g, n // g, 1, *s[2:]).reshape(x.shape[0], 1, *s[2:])
+    return torch.cat([x, y], dim=1)
+
+
+def _layer_normal(seed: int, name: str, shape, device) -> torch.Tensor:
+    gen = torch.Generator(device=device).manual_seed(_name_seed(seed, name))
+    return torch.randn(tuple(shape), generator=gen, device=device)
+
+
+class LayerNoise:
+    """Noise source: each layer's N(0, 1) noise from a generator seeded by (seed, layer
+    name), drawn in f32 and cast.  `seeds` is one seed for the whole batch or one per
+    sample (row j from ``seeds[j]``, as a (1, ...) draw): a sample's noise is then the
+    same served alone or in a batch.  On the meta device it gives shapes only."""
+
+    def __init__(self, seeds: Union[int, Sequence[int]]):
+        self.seeds = (int(seeds),) if isinstance(seeds, int) else tuple(int(s) for s in seeds)
+
+    def __call__(self, name: str, shape, dtype: torch.dtype, device) -> torch.Tensor:
+        device = torch.device(device)
+        if device.type == "meta":
+            return torch.empty(tuple(shape), dtype=dtype, device=device)
+        if len(self.seeds) == 1:
+            return _layer_normal(self.seeds[0], name, shape, device).to(dtype)
+        if len(self.seeds) != shape[0]:
+            raise ValueError(f"{len(self.seeds)} noise seeds for a batch of {shape[0]}")
+        return torch.cat([_layer_normal(s, name, (1, *shape[1:]), device)
+                          for s in self.seeds]).to(dtype)
+
+    def chunk(self, num: int) -> list:
+        """One source per micro-batch: the rows' seeds split, or one seed derived per
+        part."""
+        if len(self.seeds) == 1:
+            return [LayerNoise(_name_seed(self.seeds[0], f"part/{k}")) for k in range(num)]
+        m = len(self.seeds) // num
+        return [LayerNoise(self.seeds[k * m:(k + 1) * m]) for k in range(num)]
+
+
+class NoiseByName:
+    """Noise source of given tensors, {layer name: (N, 1, *spatial)}."""
+
+    def __init__(self, tensors: Mapping[str, torch.Tensor]):
+        self.tensors = dict(tensors)
+
+    def __call__(self, name: str, shape, dtype: torch.dtype, device) -> torch.Tensor:
+        t = self.tensors[name]
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"noise {name!r} has shape {tuple(t.shape)}, the layer "
+                             f"needs {tuple(shape)}")
+        return t.to(device=device, dtype=dtype)
+
+    def chunk(self, num: int) -> list:
+        parts = {k: v.chunk(num) for k, v in self.tensors.items()}
+        return [NoiseByName({k: p[i] for k, p in parts.items()}) for i in range(num)]
+
+
+def generator_seed(generator: Optional[torch.Generator]) -> int:
+    """A seed for the noise of one draw: a hash of `generator`'s current state (read on
+    the host, no device sync), so draws from one generator at different points differ.
+    None gives 0."""
+    if generator is None:
+        return 0
+    return zlib.crc32(generator.get_state().numpy().tobytes())
+
+
+def apply_noise(scope: Scope, x: torch.Tensor, noise, name: str) -> torch.Tensor:
+    """Learned-strength per-voxel noise (reference ``saragan_tpu/ops/core.py:879-884``):
+    x + n * strength with n of shape (N, 1, *spatial) from the noise source `noise`
+    under the layer name `name`."""
+    strength = scope.get("noise_strength", (), zeros_initializer()).to(x.dtype)
+    n = noise(name, (x.shape[0], 1, *x.shape[2:]), x.dtype, x.device)
+    return x + n * strength
+
+
+def style_mod(scope: Scope, x: torch.Tensor, dlatent: torch.Tensor, activation: str,
+              param=None) -> torch.Tensor:
+    """AdaIN-style modulation (reference ``saragan_tpu/ops/core.py:887-892``)."""
+    s = scope.sub("style_mod")
+    style = apply_bias(s, dense(s, dlatent, x.shape[1] * 2, activation, param=param))
+    style = style.reshape((-1, 2, x.shape[1]) + (1,) * (x.ndim - 2))
+    return x * (style[:, 0] + 1) + style[:, 1]
 
 
 def to_rgb(scope: Scope, x: torch.Tensor, channels: int = 1,

@@ -6,8 +6,12 @@ normalization and writes ``.npy`` volumes; ``generate`` writes the full report: 
 mosaics of real and fake batches, the fakes as ``.npy`` and the means of the enabled
 metrics (FID, SWD, PSNR, SSIM, MSE, NRMSE) in ``summary.txt``.
 
-Samplers run the serving configuration: fused transitions and the fused
-bias+act+pixel-norm kernel forced on, f32 end to end, under inference mode and with
+Samplers call the family in sampling mode (``train=False``: no style mixing;
+truncation where the family applies it) with per-layer noise, as the reference's
+samplers hand the generator a key (``saragan_tpu/tools/generate.py:52-55``): the style
+families draw it from a ``LayerNoise`` seeded from the sampler's generator, or per row
+from the row's own seed.  They run the serving configuration: fused transitions and the
+fused bias+act+pixel-norm kernel forced on, f32 end to end, under inference mode and with
 cuDNN's TF32 off (``_inference_context``), so the ``direct`` engine's library convs
 compute in full f32 like the reference.  Dense layers use ``torch.matmul``, which is
 f32 unless the process itself turns on TF32 matmuls.  The conv engine is an explicit
@@ -35,7 +39,7 @@ from saragan_tpu_torch.metrics import (calculate_fid_given_batch_volumes, get_me
 from saragan_tpu_torch.metrics.fid import default_extractor
 from saragan_tpu_torch.metrics.save_metrics import metric_flags
 from saragan_tpu_torch.models import get_architecture
-from saragan_tpu_torch.ops.core import CONV_ENGINES
+from saragan_tpu_torch.ops.core import CONV_ENGINES, LayerNoise, generator_seed
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train.summaries import grid_to_uint8, image_grid, png_bytes
 
@@ -80,7 +84,8 @@ def make_volume_sampler(cfg: Config, phase: int, batch_size: int = 4, alpha: flo
         with _inference_context():
             z = torch.randn((batch_size, cfg.latent_dim), generator=generator, device=dev)
             return arch.generator(params, z, alpha, phase=phase, cfg=cfg,
-                                  conv_engine=conv_engine)
+                                  conv_engine=conv_engine, train=False,
+                                  noise=LayerNoise(generator_seed(generator)))
 
     return gen
 
@@ -91,10 +96,11 @@ def make_keyed_sampler(cfg: Config, phase: int, batch_size: int = 4, alpha: floa
     """`gen(g_params, seeds (B,), idxs (B,)) -> (B, C, ...)` tensor on `device`.
 
     Row j depends ONLY on (seeds[j], idxs[j]): its latent comes from its own
-    ``torch.Generator`` seeded with ``(seed & 0xffffffff) << 32 | (idx & 0xffffffff)``
-    and no op of the forward mixes rows, so a sample is bit-identical whether its
-    request is served alone or micro-batched with others in the same batch size.
-    JAX's threefry bits are not reproduced.
+    ``torch.Generator`` seeded with ``(seed & 0xffffffff) << 32 | (idx & 0xffffffff)``,
+    a style family's noise from a ``LayerNoise`` of the same per-row seeds, and no op of
+    the forward mixes rows, so a sample is bit-identical whether its request is served
+    alone or micro-batched with others in the same batch size.  JAX's threefry bits are
+    not reproduced.
 
     `fetch_dtype` ("float16"/"bfloat16") casts the output on the device before the
     caller fetches it: half the device->host bytes, about 3 decimal digits kept."""
@@ -109,13 +115,14 @@ def make_keyed_sampler(cfg: Config, phase: int, batch_size: int = 4, alpha: floa
             raise ValueError(f"sampler built for batch {batch_size}, got {len(seeds)} seeds "
                              f"and {len(idxs)} indices")
         with _inference_context():
-            rows = []
-            for s, j in zip(seeds, idxs):
-                g = torch.Generator(dev).manual_seed(
-                    ((int(s) & 0xFFFFFFFF) << 32) | (int(j) & 0xFFFFFFFF))
-                rows.append(torch.randn((1, cfg.latent_dim), generator=g, device=dev))
+            row_seeds = [((int(s) & 0xFFFFFFFF) << 32) | (int(j) & 0xFFFFFFFF)
+                         for s, j in zip(seeds, idxs)]
+            rows = [torch.randn((1, cfg.latent_dim), device=dev,
+                                generator=torch.Generator(dev).manual_seed(r))
+                    for r in row_seeds]
             out = arch.generator(params, torch.cat(rows), alpha, phase=phase, cfg=cfg,
-                                 conv_engine=conv_engine)
+                                 conv_engine=conv_engine, train=False,
+                                 noise=LayerNoise(row_seeds))
             return out if out_dtype is None else out.to(out_dtype)
 
     return gen

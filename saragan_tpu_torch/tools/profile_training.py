@@ -2,7 +2,7 @@
 levers buy at the big-volume phases.
 
     python -m saragan_tpu_torch.tools.profile_training [--phase 6] [--batch 8] [--steps 5]
-        [--compute_dtype bfloat16|float32]
+        [--compute_dtype bfloat16|float32] [--architecture pgan|surfgan|...]
     python -m saragan_tpu_torch.tools.profile_training --probe --phase 8 --batch 2
         [--single_chip_big_volume] [--remat] [--remat_offload] [--gradient_accumulation K]
         [--preset_model]
@@ -14,6 +14,8 @@ pgan 'xs', start (1,1,4,4), final (1,128,512,512), latent 256, WGAN-GP with weig
 Adam (beta1 0, beta2 0.9, lr 1e-3), bf16 activations with f32 parameters, Adam state and
 EMA, fused transitions, shared-fake-pass gradients and the stacked critic pass, and the
 fused bias+act+pixel-norm on, so that under ``flat`` every kernel of the port runs.
+``--architecture`` runs another family at the same settings (surfgan: the bench's flags
+with ``architecture="surfgan"``; the fused op is pgan's and does not run there).
 Parameters come from the port's seeded init and the batch from numpy, both on the card.
 The step is driven as ``bench.py:122-164`` (``measure_step``) drives it:
 ``init_train_state``, then
@@ -201,7 +203,7 @@ def host_enqueue_ms(step, state, real, rng, alpha, n):
 def measure(cfg, phase, batch, engine, steps, device):
     """Both halves under `engine`: {half: {step_ms, step_ms_all, peak_mib, losses,
     profile, idle_share, host_ms, host_ms_all}}."""
-    arch = get_architecture("pgan")
+    arch = get_architecture(cfg.architecture)
     state, (g_opt, d_opt) = init_train_state(arch, torch.Generator().manual_seed(0),
                                              phase=phase, cfg=cfg, device=device)
     real = real_batch(cfg, phase, batch, device)
@@ -234,7 +236,7 @@ def probe(cfg: Config, phase: int, batch: int, steps: int, device) -> dict:
                gradient_accumulation=cfg.gradient_accumulation,
                batched_passes=cfg.batched_passes, fused_transitions=cfg.fused_transitions)
     try:
-        arch = get_architecture("pgan")
+        arch = get_architecture(cfg.architecture)
         state, (g_opt, d_opt) = init_train_state(arch, torch.Generator().manual_seed(0),
                                                  phase=phase, cfg=cfg, device=device)
         real = torch.randn(cfg.current_shape(phase, batch),
@@ -306,6 +308,8 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--compute_dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--architecture", default="pgan",
+                   help="the family (the bench's settings otherwise)")
     p.add_argument("--probe", action="store_true", help="one configuration, one JSON line")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--remat_offload", action="store_true")
@@ -324,7 +328,8 @@ def main(argv=None):
     out = Path(__file__).resolve().parents[2] / "chiprun_out"
     if args.probe:
         cfg = bench_train_config(args.phase, args.batch, compute_dtype=args.compute_dtype,
-                                 remat=args.remat, remat_offload=args.remat_offload,
+                                 architecture=args.architecture, remat=args.remat,
+                                 remat_offload=args.remat_offload,
                                  gradient_accumulation=args.gradient_accumulation,
                                  single_chip_big_volume=args.single_chip_big_volume,
                                  **(PRESET_MODEL if args.preset_model else {}))
@@ -337,9 +342,10 @@ def main(argv=None):
         out.mkdir(exist_ok=True)
         (out / "memory_sweep.json").write_text(json.dumps(dict(card=card, rows=rows), indent=1))
         return
-    cfg = bench_train_config(args.phase, args.batch, compute_dtype=args.compute_dtype)
-    report = dict(card=card, phase=args.phase, batch=args.batch,
-                  compute_dtype=args.compute_dtype, engines={})
+    cfg = bench_train_config(args.phase, args.batch, compute_dtype=args.compute_dtype,
+                             architecture=args.architecture)
+    report = dict(card=card, architecture=args.architecture, phase=args.phase,
+                  batch=args.batch, compute_dtype=args.compute_dtype, engines={})
     for engine in ("flat", "direct"):
         report["engines"][engine] = measure(cfg, args.phase, args.batch, engine, args.steps, dev)
         print(json.dumps({engine: report["engines"][engine]}), flush=True)

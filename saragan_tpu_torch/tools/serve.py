@@ -28,6 +28,7 @@ over several devices (``--serve_devices > 1``); both raise.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import io
 import json
 import threading
@@ -263,6 +264,8 @@ class GeneratorService:
             raise NotImplementedError("data-parallel serving (--serve_devices > 1) is not "
                                       "ported yet")
         dev = resolve_device(device)
+        # the family served is `architecture`, whatever family `cfg` names
+        cfg = dataclasses.replace(cfg, architecture=architecture)
         g_params, _ = _load_generator_params(model_path, use_ema, dev)
         sizes = sorted({int(b) for b in (batch_sizes or [batch_size])})
 

@@ -37,11 +37,14 @@ Memory levers, as the reference wraps its model closures (``step.py:189-220``):
 * ``gradient_accumulation`` K > 1: K micro-batches, gradients and reported scalars
   averaged in f32 (``optim/accumulate.py``), one optimizer apply.
 
-Recompute runs the same deterministic kernels on the same inputs, so a step under
-either lever is bit-equal to the plain step.  ``use_spectral_norm``: after the updates
-every ``*_u`` vector of D is power-iterated against its new weight
-(``ops.core.refresh_spectral_u``, reference ``step.py:373-380``); Adam leaves the ``*_u``
-entries where they are (their gradients are exactly 0).
+Recompute runs the same deterministic kernels on the same inputs, and the style
+families' noise source redraws each layer's noise from its own seeded generator, so a
+step under either lever is bit-equal to the plain step.  After the updates, in the
+reference's order (``step.py:367-385``): the style families' ``refresh_state`` moves
+``generator/d_z_avg`` from the draws' 64 refresh latents (Adam sees its gradient, exactly
+0, and leaves it; the EMA averages it); under ``use_spectral_norm`` every ``*_u`` vector
+of D is power-iterated against its new weight (``ops.core.refresh_spectral_u``); then the
+EMA.
 
 The step builds its graph eagerly and makes no host synchronisation: losses and metrics
 come back as device tensors.
@@ -59,6 +62,7 @@ from saragan_tpu_torch import losses
 from saragan_tpu_torch._device import resolve_device
 from saragan_tpu_torch.core import Params, filter_params
 from saragan_tpu_torch.models.common import offload_taps, recompute
+from saragan_tpu_torch.models.style_ops import StyleMix
 from saragan_tpu_torch.ops.core import refresh_spectral_u
 from saragan_tpu_torch.optim.accumulate import grad_accumulate
 from saragan_tpu_torch.optim.ema import ema_init, ema_update
@@ -173,23 +177,41 @@ def _check_options(cfg):
 
 
 def _remat(fn):
-    """``fn(params, x)`` as one recompute region (params from the call's closure)."""
-    def wrapped(params, x):
-        return recompute(lambda t: fn(params, t), x)
+    """``fn(params, x, **kw)`` as one recompute region (params from the call's
+    closure)."""
+    def wrapped(params, x, **kw):
+        return recompute(lambda t: fn(params, t, **kw), x)
 
     return wrapped
 
 
-def model_fns(arch, cfg, phase: int, alpha, conv_engine: str):
+def style_phase(arch, phase: int) -> Optional[int]:
+    """`phase` for a style family (one with a w-average to refresh: it also draws
+    per-layer noise and style-mixing inputs each step), else None: the ``style_phase``
+    of ``losses.draw_inputs``."""
+    return phase if arch.refresh_state is not None else None
+
+
+def model_fns(arch, cfg, phase: int, alpha, conv_engine: str,
+              draws: Optional[losses.Draws] = None):
     """(gen_fn, disc_fn, gp_disc_fn) of one step at `alpha` (a number or a 0-dim
     tensor), wrapped as the memory levers of `cfg` ask; gp_disc_fn is None where the
-    penalty uses disc_fn."""
+    penalty uses disc_fn.  gen_fn(p, z) runs in training mode with the style draws of
+    `draws` (its noise source and style mixing; none without draws);
+    disc_fn(p, x, passes=1)."""
+    mix = None
+    if draws is not None and draws.z_mix is not None:
+        mix = StyleMix(draws.z_mix, draws.mix_coin, draws.mix_cutoff)
+    noise = None if draws is None else draws.noise
+
     def wrap(c):
         def gen_fn(p, z):
-            return arch.generator(p, z, alpha, phase=phase, cfg=c, conv_engine=conv_engine)
+            return arch.generator(p, z, alpha, phase=phase, cfg=c, conv_engine=conv_engine,
+                                  noise=noise, mix=mix)
 
-        def disc_fn(p, x):
-            return arch.discriminator(p, x, alpha, phase=phase, cfg=c, conv_engine=conv_engine)
+        def disc_fn(p, x, passes=1):
+            return arch.discriminator(p, x, alpha, phase=phase, cfg=c, conv_engine=conv_engine,
+                                      passes=passes)
 
         return gen_fn, disc_fn
 
@@ -229,7 +251,7 @@ def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
     def grads_fn(g_params: Params, d_params: Params, real: torch.Tensor,
                  draws: losses.Draws, alpha):
         a = torch.tensor(float(alpha)) if static_alpha is None else static_alpha
-        gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, conv_engine)
+        gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, conv_engine, draws)
         g_p = {k: v.detach().requires_grad_(True) for k, v in g_params.items()}
         d_p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         common = dict(gp_weight=gp_weight, noise_stddev=cfg.noise_stddev,
@@ -239,8 +261,7 @@ def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
             if fused:
                 return losses.grads_simultaneous(
                     gen_fn, disc_fn, g_p, d_p, real, draws, gp_grad_mode=cfg.gp_grad_mode,
-                    batched_passes=cfg.batched_passes,
-                    disc_cross_sample=arch.disc_cross_sample, **common)
+                    batched_passes=cfg.batched_passes, **common)
             out = losses.forward_simultaneous(gen_fn, disc_fn, g_p, d_p, real, draws,
                                               loss_fn=cfg.loss_fn, **common)
             grads = losses.param_grads(out.gen_loss + out.disc_loss, {**g_p, **d_p})
@@ -259,12 +280,12 @@ def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
     of the fake sample."""
     gp_weight = cfg.gp_weight * max(1, int(cfg.lazy_gp)) if apply_gp else 0.0
 
-    def fns(alpha):
+    def fns(alpha, draws):
         a = torch.tensor(float(alpha)) if static_alpha is None else static_alpha
-        return model_fns(arch, cfg, phase, a, conv_engine)
+        return model_fns(arch, cfg, phase, a, conv_engine, draws)
 
     def d_grads(g_params, d_params, real, draws, alpha):
-        gen_fn, disc_fn, gp_disc_fn = fns(alpha)
+        gen_fn, disc_fn, gp_disc_fn = fns(alpha, draws)
         d_p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         with _train_numerics(), _lever_scope(cfg, parked):
             disc_loss, gp_loss = losses.forward_discriminator(
@@ -275,7 +296,7 @@ def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
         return grads, (disc_loss.detach(), gp_loss.detach())
 
     def g_grads(g_params, d_params, draws, alpha):
-        gen_fn, disc_fn, _ = fns(alpha)
+        gen_fn, disc_fn, _ = fns(alpha, draws)
         g_p = {k: v.detach().requires_grad_(True) for k, v in g_params.items()}
         with _train_numerics(), _lever_scope(cfg, parked):
             sample, gen_loss = losses.forward_generator(gen_fn, disc_fn, g_p, d_params, draws,
@@ -288,15 +309,24 @@ def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
     return d_grads, g_grads
 
 
+_BATCH_DRAWS = ("z", "gamma", "noise_real", "noise_fake", "z_mix")
+
+
 def micro_draws(draws, num_micro: int) -> Sequence[losses.Draws]:
     """A step's draws as one ``losses.Draws`` per micro-batch: a sequence as given, or
-    one batch's ``Draws`` split into `num_micro` along the batch."""
+    one batch's ``Draws`` split into `num_micro`: the per-sample draws along the batch,
+    the noise source by its ``chunk``, the mixing coin and cutoff shared, the refresh
+    latents with the first part (the step reads them there)."""
     if not isinstance(draws, losses.Draws):
         return list(draws)
     if num_micro == 1:
         return [draws]
-    parts = [None if t is None else t.chunk(num_micro) for t in draws]
-    return [losses.Draws(*(None if p is None else p[k] for p in parts))
+    parts = {f: getattr(draws, f).chunk(num_micro) for f in _BATCH_DRAWS
+             if getattr(draws, f) is not None}
+    noise = None if draws.noise is None else draws.noise.chunk(num_micro)
+    return [draws._replace(**{f: p[k] for f, p in parts.items()},
+                           noise=None if noise is None else noise[k],
+                           refresh_z=draws.refresh_z if k == 0 else None)
             for k in range(num_micro)]
 
 
@@ -308,11 +338,12 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
     ``step(state, real, rng, alpha, g_lr, d_lr, draws=None) -> (state, StepMetrics)``.
 
     `rng` is a ``torch.Generator`` on the batch's device that draws the latents, the
-    penalty's interpolation weights and the instance noise, unless `draws` hands them
-    in: a ``losses.Draws`` of the batch, or one per micro-batch under
-    ``gradient_accumulation``; under ``optim_strategy="alternate"`` a pair (the
-    discriminator's, the generator's), each of those forms.  `alpha`, `g_lr` and `d_lr`
-    are per-step numbers.
+    penalty's interpolation weights, the instance noise and a style family's draws,
+    unless `draws` hands them in: a ``losses.Draws`` of the batch, or one per
+    micro-batch under ``gradient_accumulation``; under ``optim_strategy="alternate"`` a
+    pair (the discriminator's, the generator's), each of those forms.  A style family's
+    ``refresh_state`` takes the refresh latents of the (generator's) first micro-batch.
+    `alpha`, `g_lr` and `d_lr` are per-step numbers.
 
     static_alpha: bind alpha as a Python constant.  With ``static_alpha=0.0`` the models
     skip the phase-transition branches, which contribute exactly 0 in the stabilizing
@@ -343,7 +374,9 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
     def draw(rng, n, real, compute_gp):
         return [losses.draw_inputs(rng, n // accum, cfg.latent_dim, real.shape[1:], dtype,
                                    real.device, noise_stddev=cfg.noise_stddev,
-                                   compute_gp=compute_gp) for _ in range(accum)]
+                                   compute_gp=compute_gp,
+                                   style_phase=style_phase(arch, phase))
+                for _ in range(accum)]
 
     def train_step(state: TrainState, real: torch.Tensor, rng: Optional[torch.Generator],
                    alpha, g_lr, d_lr, draws=None):
@@ -353,12 +386,13 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
         if alternate:
             d_draws, g_draws = (draws if draws is not None else
                                 (draw(rng, n, real, apply_gp), draw(rng, n, real, False)))
+            d_draws, g_draws = micro_draws(d_draws, accum), micro_draws(g_draws, accum)
+            refresh_z = g_draws[0].refresh_z
 
             def d_micro(mb, dr):
                 return d_grads_fn(state.g_params, state.d_params, mb, dr, alpha)
 
-            d_grads, (disc_loss, gp_loss) = grad_accumulate(
-                d_micro, real, micro_draws(d_draws, accum), accum)
+            d_grads, (disc_loss, gp_loss) = grad_accumulate(d_micro, real, d_draws, accum)
             with torch.no_grad():
                 d_params, d_opt, max_d_norm, d_norms, d_hists = apply_updates(
                     d_optimizer, state.d_params, state.d_opt, d_grads, d_lr, cfg.d_clipping)
@@ -368,7 +402,7 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
 
             # G trains against the updated discriminator
             g_grads, (gen_loss, (fake_min, fake_max)) = grad_accumulate(
-                g_micro, real, micro_draws(g_draws, accum), accum)
+                g_micro, real, g_draws, accum)
             with torch.no_grad():
                 g_params, g_opt, max_g_norm, g_norms, g_hists = apply_updates(
                     g_optimizer, state.g_params, state.g_opt, g_grads, g_lr, cfg.g_clipping)
@@ -378,10 +412,11 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
                 return grads, (out.gen_loss, out.disc_loss, out.gp_loss,
                                torch.min(out.gen_sample), torch.max(out.gen_sample))
 
-            if draws is None:
-                draws = draw(rng, n, real, apply_gp)
+            draws = micro_draws(draw(rng, n, real, apply_gp) if draws is None else draws,
+                                accum)
+            refresh_z = draws[0].refresh_z
             (g_grads, d_grads), (gen_loss, disc_loss, gp_loss, fake_min, fake_max) = (
-                grad_accumulate(micro, real, micro_draws(draws, accum), accum))
+                grad_accumulate(micro, real, draws, accum))
             with torch.no_grad():
                 g_params, g_opt, max_g_norm, g_norms, g_hists = apply_updates(
                     g_optimizer, state.g_params, state.g_opt, g_grads, g_lr, cfg.g_clipping)
@@ -389,6 +424,8 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
                     d_optimizer, state.d_params, state.d_opt, d_grads, d_lr, cfg.d_clipping)
 
         with torch.no_grad():
+            if arch.refresh_state is not None:
+                g_params = arch.refresh_state(g_params, refresh_z, phase=phase, cfg=cfg)
             if cfg.use_spectral_norm:
                 d_params = refresh_spectral_u(d_params, iterations=int(cfg.spectral_iterations))
             ema = ema_update(state.ema, {**g_params, **d_params}, cfg.ema_beta)

@@ -70,6 +70,7 @@ from saragan_tpu_torch._device import resolve_device
 from saragan_tpu_torch.config import Config, resolve_conv_engine
 from saragan_tpu_torch.data import NumpyPathDataset, Prefetcher, get_numpy_dataset, normalize_numpy
 from saragan_tpu_torch.models import get_architecture
+from saragan_tpu_torch.ops.core import LayerNoise, generator_seed
 from saragan_tpu_torch.optim.ema import fold_ema
 from saragan_tpu_torch.optim.freeze import apply_freeze_names
 from saragan_tpu_torch.optim.schedules import lr_schedule, scale_lr
@@ -77,7 +78,7 @@ from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train import summaries as summ
 from saragan_tpu_torch.train.step import (TrainState, _train_numerics, compute_dtype,
                                           init_train_state, make_train_step, model_fns,
-                                          split_params)
+                                          split_params, style_phase)
 
 _TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                     "float16": torch.float16}
@@ -319,8 +320,10 @@ class Trainer:
             a = torch.tensor(float(alpha))
             real = real.to(dtype)
             draws = losses.draw_inputs(gen, real.shape[0], cfg.latent_dim, real.shape[1:],
-                                       dtype, real.device, noise_stddev=cfg.noise_stddev)
-            gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, self.conv_engine)
+                                       dtype, real.device, noise_stddev=cfg.noise_stddev,
+                                       style_phase=style_phase(arch, phase))
+            gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, self.conv_engine,
+                                                    draws)
             with _train_numerics():
                 out = losses.forward_simultaneous(
                     gen_fn, disc_fn, g_params, d_params, real, draws, loss_fn=cfg.loss_fn,
@@ -332,8 +335,9 @@ class Trainer:
 
     def _make_sample_fn(self, phase: int):
         """sample(g_params, generator, n, alpha) -> (n, C, ...) f32 numpy: z drawn from
-        `generator` (on its own device) in the compute dtype, the generator run on the
-        trainer's device and engine without a graph."""
+        `generator` (on its own device) in the compute dtype, the generator run in
+        sampling mode (``train=False``, a style family's noise seeded from `generator`)
+        on the trainer's device and engine without a graph."""
         cfg, arch, dtype = self.cfg, self.arch, compute_dtype(self.cfg)
 
         def sample(g_params, generator: torch.Generator, n: int, alpha: float) -> np.ndarray:
@@ -341,7 +345,8 @@ class Trainer:
             with torch.inference_mode(), _train_numerics():
                 out = arch.generator(g_params, z.to(self.device, dtype),
                                      torch.tensor(float(alpha)), phase=phase, cfg=cfg,
-                                     conv_engine=self.conv_engine)
+                                     conv_engine=self.conv_engine, train=False,
+                                     noise=LayerNoise(generator_seed(generator)))
             return out.float().cpu().numpy()
 
         return sample

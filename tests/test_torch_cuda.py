@@ -4,8 +4,9 @@ misaligned and small shapes, the wgrad's two stagers through its 16- and 32-outp
 the f32 wgrad, the fused op's forward and backward kernels at C from 1 to 512 and N = 1,
 a sample alone against its slot in a batch, misaligned views and one launch per call;
 the standalone #3, through both routes, and #5 too), the conv's derivative algebra
-against cuDNN's double backward in f32 and bf16, one train step under ``flat``, and a
-two-step CLI trainer run.
+against cuDNN's double backward in f32 and bf16, one train step under ``flat``, each
+other family's f32 gradients under ``flat`` against ``direct``, and a two-step CLI
+trainer run.
 
 Needs an NVIDIA GPU and nvcc; skipped without them.  This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -600,6 +601,71 @@ def test_phase2_train_step_runs_on_the_kernels(cuda, dtype):
     assert all(torch.isfinite(v).item() for v in (m.gen_loss, m.disc_loss, m.gp_loss))
     assert any(not torch.equal(new.d_params[k], state.d_params[k]) for k in state.d_params)
     assert any(not torch.equal(new.g_params[k], state.g_params[k]) for k in state.g_params)
+
+
+@pytest.mark.parametrize("arch", ["pgan2", "pgandeep", "stylegan", "stylegan2", "surfgan"])
+def test_family_f32_gradients_flat_as_close_to_f64_as_direct(cuda, arch):
+    """Each family's f32 gradients of one step at phase 2 (stylegan2: 1) under `flat`
+    (the kernels) and `direct` (cuDNN, TF32 off), from one state and one set of draws
+    (the style families' noise and mixing included), against the same step computed in
+    f64 under `direct`.  Per variable, the kernels' largest gradient error is at most
+    3e-3 of the network's largest gradient, or twice cuDNN's f32 error on that variable
+    where that is larger: a variable that f32 rounding moves alike in both engines
+    (stylegan G's constant-input noise strength, 1.07e-2 of the largest gradient under
+    either on an H100) sets no limit for the other variables.  The
+    f32 kernels hold each output within 1e-4 * max|y| of their plain versions (measured
+    1.5e-5 to 3.3e-5, PERF.md section 6); a scalar's gradient that sums such outputs over
+    every voxel, a noise strength's over 4 x 256 x 64 terms, gathers that as a random
+    walk, about 256 x 1.5e-5 * max|dy| (stylegan2's read 1.32e-3 of the network's largest
+    gradient on an H100, cuDNN 8e-7).  Under `flat` #1, #1' and #2 run and no plain
+    version; surfgan's head conv takes C = 257."""
+    from saragan_tpu_torch import losses
+    from saragan_tpu_torch.train.step import make_grads_fn, style_phase
+
+    phase = 1 if arch == "stylegan2" else 2
+    cfg = Config(architecture=arch, start_shape="(1, 4, 4, 4)", final_shape="(1, 16, 16, 16)",
+                 starting_phase=phase, ending_phase=phase, latent_dim=16, network_size="xxs",
+                 loss_fn="wgan", gp_weight=10.0).finalize()
+    a = get_architecture(arch)
+    state, _ = init_train_state(a, torch.Generator().manual_seed(0), phase=phase, cfg=cfg,
+                                device=cuda)
+    real = torch.randn(cfg.current_shape(phase, 4),
+                       generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    draws = losses.draw_inputs(torch.Generator(device=cuda).manual_seed(2), 4, 16,
+                               real.shape[1:], torch.float32, cuda,
+                               style_phase=style_phase(a, phase))
+    f64 = draws._replace(**{f: getattr(draws, f).double() for f in ("z", "gamma", "z_mix")
+                            if getattr(draws, f) is not None})
+    grads = {}
+    for engine, dtype, dr in (("direct", torch.float64, f64), ("direct", torch.float32, draws),
+                              ("flat", torch.float32, draws)):
+        c = Config(**{**cfg.__dict__, "compute_dtype": str(dtype).split(".")[-1]})
+        before = (cf.conv3d_flat_cuda.launches, cf.conv3d_flat_wgrad_cuda.launches,
+                  cf.conv3d_flat_plain.calls, cf.conv3d_flat_wgrad_plain.calls)
+        (g, d), out = make_grads_fn(a, c, phase, conv_engine=engine)(
+            state.g_params, state.d_params, real.to(dtype), dr, 0.5)
+        torch.cuda.synchronize()
+        after = (cf.conv3d_flat_cuda.launches, cf.conv3d_flat_wgrad_cuda.launches,
+                 cf.conv3d_flat_plain.calls, cf.conv3d_flat_wgrad_plain.calls)
+        launched = [x - y for x, y in zip(after, before)]
+        if engine == "flat":
+            assert launched[0] > 0 and launched[1] > 0 and launched[2:] == [0, 0], launched
+        else:
+            assert launched == [0, 0, 0, 0], launched
+        assert torch.isfinite(out.disc_loss).item() and torch.isfinite(out.gen_loss).item()
+        grads[(engine, dtype)] = (g, d)
+    for net in (0, 1):
+        exact = grads[("direct", torch.float64)][net]
+        top = max(v.abs().max().item() for v in exact.values())
+        err = {engine: {k: (grads[(engine, torch.float32)][net][k] - v).abs().max().item() / top
+                        for k, v in exact.items()} for engine in ("flat", "direct")}
+        worst = {engine: max(e.items(), key=lambda kv: kv[1]) for engine, e in err.items()}
+        over = {k: (e, err["direct"][k]) for k, e in err["flat"].items()
+                if e > 2 * err["direct"][k]}
+        print(f"{arch} {'GD'[net]}: f32 error / largest gradient, per variable: flat worst "
+              f"{worst['flat']}, direct worst {worst['direct']}; flat past twice direct: "
+              f"{max(over.items(), key=lambda kv: kv[1][0]) if over else None}")
+        assert all(e <= 3e-3 for e, _ in over.values()), (net, over)
 
 
 def test_two_step_cli_trainer_run_at_phase_2(cuda, tmp_path):

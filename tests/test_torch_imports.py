@@ -36,13 +36,16 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the trainer slice's and the metrics slice's modules, which the hook must reach
+# the trainer slice's, the metrics slice's and the model families' modules, which the
+# hook must reach
 REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             "saragan_tpu_torch.train.trainer", "saragan_tpu_torch.data.dataset",
             "saragan_tpu_torch.optim.schedules", "saragan_tpu_torch.optim.freeze",
             "saragan_tpu_torch.ops.minibatch_stddev", "saragan_tpu_torch.tools.profile_mbstd",
             *(f"saragan_tpu_torch.metrics.{m}"
-              for m in ("fid", "inception", "kms", "save_metrics", "skim", "swd"))}
+              for m in ("fid", "inception", "kms", "save_metrics", "skim", "swd")),
+            *(f"saragan_tpu_torch.models.{m}"
+              for m in ("pgan2", "pgandeep", "style_ops", "stylegan", "stylegan2", "surfgan"))}
 
 
 def test_port_imports_with_jax_and_reference_blocked():

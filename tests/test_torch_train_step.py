@@ -163,8 +163,9 @@ def _loss_fns(jcfg, cfg, alpha):
     def gen(p, z):
         return pa.generator(p, z, alpha, phase=PHASE, cfg=cfg, conv_engine="flat")
 
-    def disc(p, x):
-        return pa.discriminator(p, x, alpha, phase=PHASE, cfg=cfg, conv_engine="flat")
+    def disc(p, x, passes=1):
+        return pa.discriminator(p, x, alpha, phase=PHASE, cfg=cfg, conv_engine="flat",
+                                passes=passes)
 
     return jgen, jdisc, gen, disc
 

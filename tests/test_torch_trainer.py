@@ -256,3 +256,35 @@ def test_cli_refuses_hpo_and_unset_values(tmp_path):
         cli_main(argv + ["--base_batch_size", "4", "--optuna_ntrials", "2"])
     with pytest.raises(ValueError, match="base_batch_size"):
         cli_main(argv)
+
+
+def test_cli_trains_surfgan_and_warm_start_carries_d_z_avg(tmp_path):
+    """A style family through the CLI on the CPU: phases 1 -> 2 write model_1.npz and
+    model_2.npz, which the JAX package reads with its surfgan's names and shapes; the
+    w-average moves every step (refresh_state), and the phase-2 warm start restores
+    ``generator/d_z_avg`` from model_1.npz by name."""
+    make_data(tmp_path / "data")
+    logdir = tmp_path / "logs"
+    cli_main(["surfgan", str(tmp_path / "data"), "--start_shape", "(1, 4, 4, 4)",
+              "--final_shape", "(1, 16, 16, 16)", "--starting_phase", "1", "--ending_phase",
+              "2", "--latent_dim", "16", "--network_size", "xxs", "--base_batch_size", "4",
+              "--mixing_nimg", "8", "--stabilizing_nimg", "8", "--noise_stddev", "0",
+              "--g_lr", "1e-3", "--d_lr", "1e-3", "--loss_fn", "wgan", "--gp_weight", "10",
+              "--disable_grad_histograms", "--logdir", str(logdir), "--device", "cpu"])
+    m1, _, _ = ckpt.load_params(str(logdir / "model_1.npz"), "cpu")
+    m2, _, _ = ckpt.load_params(str(logdir / "model_2.npz"), "cpu")
+    avg1, avg2 = m1["generator/d_z_avg"], m2["generator/d_z_avg"]
+    assert avg1.abs().max() > 0 and not torch.equal(avg1, avg2)
+    assert all(torch.isfinite(v).all() for v in m2.values())
+    cfg_kw = base_cfg(tmp_path, architecture="surfgan", network_size="xxs", filter_spec=None,
+                      logdir=str(logdir))
+    ref = jax_arch("surfgan").init(jax.random.PRNGKey(0), phase=2,
+                                   cfg=JaxConfig(**cfg_kw).finalize())
+    ref_params, ref_ema, _ = jax_ckpt.load_params(str(logdir / "model_2.npz"))
+    for loaded in (ref_params, ref_ema):
+        assert {k: v.shape for k, v in loaded.items()} == {k: v.shape for k, v in ref.items()}
+    cfg = Config(**cfg_kw).finalize()
+    state, _ = init_train_state(get_architecture("surfgan"), torch.Generator().manual_seed(0),
+                                phase=2, cfg=cfg, device="cpu")
+    restored = Trainer(cfg, device="cpu", verbose=False)._restore_for_phase(2, state)
+    assert torch.equal(restored.g_params["generator/d_z_avg"], avg1)
