@@ -137,11 +137,37 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    coalesced response (per-row noise seeds); (e) one bf16 `flat` step of each of pgan2,
    pgandeep, stylegan and stylegan2 at phase 4, batch 8: finite losses, parameters moved,
    #1, #1' and #2 launches by route printed;
-14. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+14. hpo: the flagship configuration (pgan 'xs', WGAN-GP, bf16, fused transitions, shared
+   fake pass, stacked critic, the fused op, `flat`) at phase 6, batch 8:
+   (a) each of the eight optimizers (Adam, SGD, Momentum, Adadelta, RAdam, LAMB, LARS,
+   AdamW) for two mixing steps of the flagship step with the previous phase's names
+   frozen, the counts set to 0 just before: finite losses, the other parameters moved,
+   the frozen ones did not, #1, #1', #2 and #4 (and its backward) launched exactly as
+   under Adam through the tensor-core route, no plain version; one update of G and D on
+   the card against the same update on the CPU from the same state and gradients
+   (max|card - CPU| within 1e-6 of max|CPU| per tensor) and its time (CUDA events, median
+   of 5) beside Adam's;
+   (b) a 3-trial TPE study through the CLI (``cli.main`` in process, counts set to 0 just
+   before and read just after) on the seeded dataset: phase 6 only, 8 + 8 images a trial,
+   the learning rates, their schedules, both optimizers, the betas, rho and momentum
+   drawn by each trial (passed as None), scored by FID over random features (a metric
+   pass at the first step and the validation split's at the phase's end): every trial
+   COMPLETE with a finite value, its params covering the drawn names, the kernels
+   launched and no plain version, the device memory allocated at every trial's start and
+   after the study equal to the byte; seconds and peak MiB per trial;
+   (c) best-trial replay of that database (``--optuna_use_best_trial``, a subprocess, no
+   metric pass): exit 0, the best trial's number and params replayed; (d) two inter-trial workers
+   (``--optuna_distributed``, SARAGAN_WORKER_ID 0 and 1, SARAGAN_NUM_WORKERS 2, no metric
+   pass) on a new SQLite study, subprocesses sharing the card with (c): both exit 0, two
+   COMPLETE trials, one per worker, each worker's checkpoint in its own logdir;
+   (e) the generate CLI with ``--config_args --first_conv_nfilters 64`` on a surfgan
+   checkpoint written with a 64-filter first layer: two finite 32x128x128 volumes;
+15. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone, ``--only
-families`` phase 13 (each without the result lines), for working on it.
+families`` phase 13, ``--only hpo`` phase 14 (each without the result lines), for working
+on it.
 """
 
 from __future__ import annotations
@@ -1752,6 +1778,319 @@ def family_entries(convs, launches):
          "library_ms", per, 2 * FAMILY_STEPS))
 
 
+# the hpo phase: every optimizer on the flagship step, and the CLI's HPO run modes on the
+# flagship configuration at phase 6 (batch 8: --base_batch_size 256), 8 + 8 images a
+# trial, the optimizer, its hyperparameters and the learning rates drawn by each trial
+HPO_TRIALS = 3
+HPO_ARGS = [
+    "pgan", "<data>", "--start_shape", "(1, 1, 4, 4)", "--final_shape", "(1, 128, 512, 512)",
+    "--starting_phase", "6", "--ending_phase", "6", "--latent_dim", "256",
+    "--network_size", "xs", "--base_batch_size", "256", "--mixing_nimg", "8",
+    "--stabilizing_nimg", "8", "--loss_fn", "wgan", "--gp_weight", "10", "--noise_stddev", "0",
+    "--compute_dtype", "bfloat16", "--use_pallas_fusion", "--conv_engine", "flat",
+    "--optimizer", "None", "--d_use_different_optimizer", "--d_optimizer", "None",
+    "--adam_beta1", "None", "--adam_beta2", "None", "--rho", "None", "--momentum", "None",
+    "--summary_small_every_nsteps", "8", "--summary_large_every_nsteps", "16",
+    "--disable_grad_histograms"]
+# scored by FID over random features: one metric pass (training and EMA weights) at the
+# first step, and the validation split's at the phase's end
+HPO_METRIC_ARGS = ["--calc_metrics", "--compute_FID", "--allow_uncalibrated_fid",
+                   "--disable_compute_metrics_test"]
+HPO_DRAWN = {"generator_LR", "discriminator_LR", "optimizer", "d_optimizer", "adam_beta1",
+             "adam_beta2", "adadelta_rho", "SGD_momentum", "g_lr_sched_inc",
+             "g_lr_sched_dec", "d_lr_sched_inc", "d_lr_sched_dec"}
+OPTIMIZERS = ("Adam", "SGD", "Momentum", "Adadelta", "RAdam", "LAMB", "LARS", "AdamW")
+_TRIAL_LINE = re.compile(r"HPO trial (\d+) starts: device memory allocated (\d+) B "
+                         r"\(previous trial's peak (\d+) B\)")
+_DONE_LINE = re.compile(r"HPO study done: device memory allocated (\d+) B "
+                        r"\(last trial's peak (\d+) B\)")
+
+
+def _rel_err(a, b):
+    """max |a - b| / max |b| over a tensor (0 where both are 0): the card divides by a
+    number as a product with its reciprocal, one rounding off the CPU's quotient, which
+    an element near 0 would magnify without bound."""
+    a, b = a.double().cpu(), b.double().cpu()
+    diff = float((a - b).abs().max())
+    return diff / float(b.abs().max()) if diff else 0.0
+
+
+def _update_ms(opts, state, grads, reps=5):
+    """The G and D updates of one step, timed (CUDA events, median of `reps` after a
+    warm-up)."""
+    def once():
+        opts[0].update(grads[0], state.g_opt, state.g_params, 1e-3)
+        opts[1].update(grads[1], state.d_opt, state.d_params, 1e-3)
+
+    once()
+    ms = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        once()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms)
+
+
+def optimizers_on_the_step():
+    """(a) Each optimizer on the flagship step (phase 6, batch 8, bf16, flat), two mixing
+    steps with the previous phase's names frozen: finite losses, the other parameters
+    moved, the frozen ones did not, the kernels launched as often as under Adam (tensor
+    cores only) and no plain version; then one update of each network on the card against
+    the CPU's from the same state and gradients (max|card - CPU| within 1e-6
+    of max|CPU| per tensor), and its time."""
+    from saragan_tpu_torch.optim.freeze import apply_freeze_names
+
+    arch = get_architecture("pgan")
+    base = bench_train_config(PHASE, BATCH)
+    real = real_batch(base, PHASE, BATCH, "cuda")
+    rows = {}
+    for name in OPTIMIZERS:
+        cfg = dataclasses.replace(base, optimizer=name, d_optimizer=name)
+        state0, opts = init_train_state(arch, torch.Generator().manual_seed(0), phase=PHASE,
+                                        cfg=cfg, device="cuda")
+        prev = arch.init(torch.Generator().manual_seed(0), phase=PHASE - 1, cfg=cfg,
+                         device="meta")
+        frozen = apply_freeze_names({**state0.g_params, **state0.d_params}, prev)
+        step = make_train_step(arch, cfg, PHASE, *opts, frozen_names=frozen, freeze=True,
+                               static_alpha=None, conv_engine="flat")
+        rng = torch.Generator(device="cuda").manual_seed(1)
+        zero_counts()
+        state, step_ms, metrics = run_steps(step, state0, real, rng, 0.5, 2)
+        counts = read_counts()
+        losses = [[float(m.gen_loss), float(m.disc_loss), float(m.gp_loss)] for m in metrics]
+        check(all(math.isfinite(v) for row in losses for v in row),
+              f"hpo[{name}]: non-finite losses {losses}")
+        check(counts["plain"] == 0, f"hpo[{name}]: {counts['plain']} plain-version calls")
+        check(counts["conv_simt"] == counts["wgrad_simt"] == 0
+              and min(counts[k] for k in ("forward", "dgrad", "wgrad", "fused",
+                                          "fused_grad")) > 0,
+              f"hpo[{name}]: launches {counts}")
+        old, new = {**state0.g_params, **state0.d_params}, {**state.g_params, **state.d_params}
+        check(frozen and all(torch.equal(old[k], new[k]) for k in frozen),
+              f"hpo[{name}]: a frozen name moved under mixing")
+        moved = sum(not torch.equal(old[k], new[k]) for k in old if k not in frozen)
+        check(moved > 0 and _moved(state.g_params, state0.g_params)
+              and _moved(state.d_params, state0.d_params), f"hpo[{name}]: nothing moved")
+        # one update on the card and on the CPU from the same state and gradients
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        grads = tuple({k: torch.randn(v.shape, generator=gen, device="cuda") * 1e-2
+                       for k, v in params.items()} for params in (state.g_params,
+                                                                   state.d_params))
+        err = 0.0
+        for opt, params, opt_state, g in ((opts[0], state.g_params, state.g_opt, grads[0]),
+                                          (opts[1], state.d_params, state.d_opt, grads[1])):
+            p_gpu, s_gpu = opt.update(g, opt_state, params, 1e-3)
+            cpu = {k: v.cpu() for k, v in params.items()}
+            cpu_state = opt_state._replace(slots={s: {k: v.cpu() for k, v in d.items()}
+                                                  for s, d in opt_state.slots.items()})
+            p_cpu, s_cpu = opt.update({k: v.cpu() for k, v in g.items()}, cpu_state, cpu,
+                                      1e-3)
+            pairs = [(p_gpu[k], p_cpu[k]) for k in cpu]
+            pairs += [(s_gpu.slots[s][k], s_cpu.slots[s][k]) for s in s_cpu.slots for k in cpu]
+            err = max([err] + [_rel_err(a, b) for a, b in pairs])
+        check(err <= 1e-6, f"hpo[{name}]: the card's update differs from the CPU's by {err}")
+        rows[name] = dict(
+            update_ms=_update_ms(opts, state, grads), step_ms=step_ms, losses=losses[-1],
+            frozen=len(frozen), moved=moved, max_rel_err_vs_cpu=err,
+            launches={k: counts[k] for k in ("forward", "dgrad", "wgrad", "fused",
+                                             "fused_grad")},
+            slots=list(opts[0].slot_names))
+        del state0, state, step, grads
+    adam = rows["Adam"]
+    for name, r in rows.items():
+        check(r["launches"] == adam["launches"],
+              f"hpo[{name}]: launches {r['launches']}, under Adam {adam['launches']}")
+        print(f"hpo[{name}]: update of G and D {r['update_ms']:.3f} ms/step (Adam "
+              f"{adam['update_ms']:.3f}; CUDA events, median of 5), steps "
+              f"{[round(v, 2) for v in r['step_ms']]} ms, card vs CPU {r['max_rel_err_vs_cpu']:.2e} "
+              f"relative, {r['frozen']} frozen names kept, {r['moved']} others moved, "
+              f"launches {r['launches']}", flush=True)
+    return rows
+
+
+class _Tee(io.TextIOBase):
+    """sys.stdout that also keeps the lines matching `pattern` with their time."""
+
+    def __init__(self, out, pattern):
+        self.out, self.pattern, self.hits, self._buf = out, pattern, [], ""
+
+    def write(self, text):
+        self._buf += text
+        *lines, self._buf = self._buf.split("\n")
+        for line in lines:
+            if self.pattern.search(line):
+                self.hits.append((time.perf_counter(), line))
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _hpo_args(data: Path, logdir: Path, db: Path, study: str, *extra):
+    return [str(data) if a == "<data>" else a for a in HPO_ARGS] + [
+        "--logdir", str(logdir), "--optuna_storage", f"sqlite:///{db}",
+        "--optuna_study_name", study, *extra]
+
+
+def cli_study(data: Path, tmp: Path):
+    """(b) A study through the CLI (``cli.main`` in process, the counts set to 0 just
+    before and read just after): every trial COMPLETE with a finite value, its params
+    covering the drawn names, the kernels launched and no plain version, the device
+    memory at each trial's start and at the end the same."""
+    from saragan_tpu_torch.hpo import load_study
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tee = _Tee(sys.stdout, re.compile(f"{_TRIAL_LINE.pattern}|{_DONE_LINE.pattern}"))
+    sys.stdout = tee
+    try:
+        cli.main(_hpo_args(data, tmp / "study", tmp / "s.db", "smoke", *HPO_METRIC_ARGS,
+                           "--optuna_ntrials", str(HPO_TRIALS), "--optuna_sampler", "TPE"))
+    finally:
+        sys.stdout = tee.out
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["plain"] == 0, f"hpo study: {counts['plain']} plain-version calls")
+    check(min(counts[k] for k in ("forward", "dgrad", "wgrad", "fused", "fused_grad")) > 0
+          and counts["conv_simt"] == counts["wgrad_simt"] == 0, f"hpo study: {counts}")
+    trials = load_study("smoke", f"sqlite:///{tmp / 's.db'}").trials
+    check([t.state for t in trials] == ["COMPLETE"] * HPO_TRIALS
+          and all(t.value is not None and math.isfinite(t.value) for t in trials),
+          f"hpo study: {[(t.state, t.value) for t in trials]}")
+    check(all(HPO_DRAWN <= set(t.params) for t in trials),
+          f"hpo study: params {[sorted(t.params) for t in trials]}")
+    starts = [_TRIAL_LINE.search(line) for _, line in tee.hits if _TRIAL_LINE.search(line)]
+    done = [_DONE_LINE.search(line) for _, line in tee.hits if _DONE_LINE.search(line)]
+    check([int(m.group(1)) for m in starts] == list(range(HPO_TRIALS)) and len(done) == 1,
+          f"hpo study: memory lines {tee.hits}")
+    levels = [int(m.group(2)) for m in starts] + [int(done[0].group(1))]
+    check(len(set(levels)) == 1,
+          f"hpo study: device memory allocated at the trials' starts and the end {levels}")
+    peaks = [int(m.group(3)) for m in starts[1:]] + [int(done[0].group(2))]
+    times = [t for t, _ in tee.hits]
+    trial_s = [b - a for a, b in zip(times, times[1:])]
+    report = dict(wall_s=wall_s, trial_s=trial_s, peak_mib=[p / 2 ** 20 for p in peaks],
+                  allocated_bytes=levels, launches=counts,
+                  trials=[dict(number=t.number, value=t.value, params=t.params)
+                          for t in trials])
+    print(f"hpo study: {HPO_TRIALS} trials COMPLETE, values "
+          f"{[round(t.value, 4) for t in trials]}, optimizers "
+          f"{[(t.params['optimizer'], t.params['d_optimizer']) for t in trials]}; "
+          f"{[round(v, 1) for v in trial_s]} s per trial, peak "
+          f"{[round(p / 2 ** 20) for p in peaks]} MiB per trial, device memory allocated "
+          f"{levels[0]} B at every trial's start and after the study; {wall_s:.1f} s; "
+          f"launches {counts}", flush=True)
+    return report
+
+
+def _cli_process(args, env=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **(env or {}))
+    return subprocess.Popen([sys.executable, "-u", "-m", "saragan_tpu_torch", *args],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(procs, timeout=600):
+    """{name: (exit code, output)} of the subprocesses, each killed if it outlives the
+    limit."""
+    out = {}
+    try:
+        for name, p in procs.items():
+            text, _ = p.communicate(timeout=timeout)
+            out[name] = (p.returncode, text)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def replay_and_workers(data: Path, tmp: Path, study_report):
+    """(c) best-trial replay of the study's database and (d) two inter-trial workers on
+    a new study (no metric pass in any of them: the workers' values are None), all three
+    processes at once on the one card."""
+    from saragan_tpu_torch.hpo import load_study
+
+    t0 = time.perf_counter()
+    # the replay trains the best trial's params without the metric passes: its value is
+    # not stored, and the passes' host time is most of a trial
+    procs = {"replay": _cli_process(_hpo_args(data, tmp / "replay", tmp / "s.db", "smoke",
+                                              "--optuna_use_best_trial"))}
+    for wid in (0, 1):
+        procs[f"worker{wid}"] = _cli_process(
+            _hpo_args(data, tmp / "inter", tmp / "inter.db", "inter", "--optuna_distributed",
+                      "--optuna_ntrials", "2", "--optuna_sampler", "random"),
+            env={"SARAGAN_WORKER_ID": str(wid), "SARAGAN_NUM_WORKERS": "2"})
+    done = _finish(procs)
+    wall_s = time.perf_counter() - t0
+    for name, (rc, text) in done.items():
+        check(rc == 0, f"hpo {name} exited {rc}:\n{text[-3000:]}")
+    best = min((t for t in study_report["trials"]), key=lambda t: t["value"])
+    replay = re.search(r"Replaying best trial (\d+) with params (.*)", done["replay"][1])
+    check(replay and int(replay.group(1)) == best["number"]
+          and replay.group(2).strip() == str(best["params"]),
+          f"hpo replay: {replay and replay.group(0)} against the best trial {best}")
+    check((tmp / "replay" / f"model_{PHASE}.npz").is_file(), "hpo replay: no checkpoint")
+    trials = load_study("inter", f"sqlite:///{tmp / 'inter.db'}").trials
+    ran = {name: [int(m) for m in re.findall(r"HPO trial (\d+) starts", done[name][1])]
+           for name in ("worker0", "worker1")}
+    check([t.state for t in trials] == ["COMPLETE", "COMPLETE"]
+          and sorted(ran["worker0"] + ran["worker1"]) == [0, 1]
+          and all(len(v) == 1 for v in ran.values())
+          and all((tmp / "inter" / str(w) / f"model_{PHASE}.npz").is_file() for w in (0, 1)),
+          f"hpo inter-trial: {[t.state for t in trials]}, trials by worker {ran}")
+    print(f"hpo replay: best trial {best['number']} replayed, exit 0; inter-trial: 2 workers "
+          f"on one study, trials by worker {ran}, both COMPLETE, exit 0; {wall_s:.1f} s for "
+          f"the three processes", flush=True)
+    return dict(replayed=best["number"], workers=ran, wall_s=wall_s)
+
+
+def generate_config_args(tmp: Path):
+    """(e) The generate CLI with --config_args on a surfgan checkpoint written with a
+    --first_conv_nfilters (64) other than the table's: two finite volumes at phase 6."""
+    from saragan_tpu_torch.tools import generate as gen_tool
+
+    cfg = bench_train_config(PHASE, BATCH, architecture=FAMILY, first_conv_nfilters=64)
+    params = get_architecture(FAMILY).init(torch.Generator().manual_seed(0), phase=PHASE,
+                                           cfg=cfg, device="cuda")
+    model = ckpt.save_params(str(tmp / "surfgan64" / f"model_{PHASE}"), params, ema=params)
+    out = tmp / "generated"
+    t0 = time.perf_counter()
+    gen_tool.main([FAMILY, str(tmp / "data"), model, str(out), "--phase", str(PHASE),
+                   "--minimal", "--num_samples", "2", "--config_args",
+                   "--first_conv_nfilters", "64"])
+    seconds = time.perf_counter() - t0
+    vols = [np.load(out / f"fake_{i:04d}.npy") for i in range(2)]
+    shape = tuple(cfg.current_shape(PHASE, 1)[2:])
+    check(all(v.shape == shape and np.isfinite(v).all() for v in vols),
+          f"generate --config_args: {[v.shape for v in vols]}")
+    print(f"generate --config_args --first_conv_nfilters 64: 2 finite volumes of {shape} "
+          f"from a {FAMILY} checkpoint with a 64-filter first layer, {seconds:.1f} s",
+          flush=True)
+    return dict(seconds=seconds, shape=shape)
+
+
+def hpo():
+    """The hpo phase: (a) every optimizer on the flagship step, (b) a 3-trial CLI study,
+    (c) best-trial replay, (d) two inter-trial workers, (e) generate --config_args."""
+    torch.cuda.empty_cache()
+    report = dict(optimizers=optimizers_on_the_step())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_dataset(tmp / "data")
+        report["study"] = cli_study(tmp / "data", tmp)
+        report["replay_and_workers"] = replay_and_workers(tmp / "data", tmp, report["study"])
+        report["generate"] = generate_config_args(tmp)
+    return report
+
+
 def kernel_row(name, route, source, replaces, e, launches, library, per_what, unit):
     """One entry of the kernels line."""
     check(launches > 0, f"{name}: not launched")
@@ -1822,6 +2161,14 @@ def main(argv=None) -> int:
             card=card, big_volume=big, kernels=rows, shapes=detail, seconds=seconds),
             indent=1, default=str))
         print("big volume kernels: " + json.dumps(rows), flush=True)
+        return 0
+
+    if args.only == "hpo":  # this phase alone, for working on it: no result line
+        report = hpo()
+        phase_done("hpo")
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_hpo.json").write_text(json.dumps(dict(
+            card=card, hpo=report, seconds=seconds), indent=1, default=str))
         return 0
 
     if args.only == "families":  # this phase alone, for working on it: no result line
@@ -1914,6 +2261,10 @@ def main(argv=None) -> int:
     fam, fam_launches, fam_convs = families(detail)
     phase_done("families")
 
+    # every optimizer on the flagship step, and the CLI's HPO run modes at phase 6
+    hpo_report = hpo()
+    phase_done("hpo")
+
     main_launches = served["flat"][2]
     dispatches = served["flat"][1]["dispatches"]
     flat_runs = trained["flat"][1]
@@ -1988,7 +2339,8 @@ def main(argv=None) -> int:
         card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train, ptxas=ptxas,
         serving={e: served[e][1] for e in served}, training=training,
         engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume, metrics=metrics,
-        big_volume=big, families=fam, seconds=seconds), indent=1, default=str))
+        big_volume=big, families=fam, hpo=hpo_report, seconds=seconds), indent=1,
+        default=str))
     print(f"serving: " + json.dumps({e: served[e][1] for e in served}), flush=True)
     print("training: " + json.dumps({e: {h: dict(step_ms=r["step_ms"], peak_mib=r["peak_mib"])
                                          for h, r in trained[e][0].items()} for e in trained}),
@@ -2008,6 +2360,10 @@ def main(argv=None) -> int:
               for h, r in fam["step"].items()},
         trainer_wall_s=fam["trainer"]["wall_s"],
         others={n: r["launches"] for n, r in fam["others"].items()})), flush=True)
+    print("hpo: " + json.dumps(dict(
+        update_ms={n: r["update_ms"] for n, r in hpo_report["optimizers"].items()},
+        trial_s=hpo_report["study"]["trial_s"], peak_mib=hpo_report["study"]["peak_mib"],
+        study_wall_s=hpo_report["study"]["wall_s"])), flush=True)
     print("seconds: " + json.dumps(seconds), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2021,7 +2377,7 @@ def _parse(argv):
     import argparse
 
     p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
-    p.add_argument("--only", choices=["big_volume", "families"], default=None,
+    p.add_argument("--only", choices=["big_volume", "families", "hpo"], default=None,
                    help="build, then run this phase alone (no result line)")
     return p.parse_args(argv)
 

@@ -6,20 +6,23 @@ limited to the fields the port has):
 The flag names, defaults and None-able types are the reference's.  Added:
 ``--conv_engine {direct,flat}`` (cuDNN, or the hand-written kernels; without it the
 trainer takes ``flat`` on a CUDA device and ``direct`` on the CPU) and ``--device`` (CUDA
-unless named; ``--device cpu`` trains on the CPU).  ``main`` builds the
-``Trainer`` and runs it, as the reference's harness does without HPO (with
-``--calc_metrics``, with ``make_metrics_callback(cfg)`` as its metrics callback); on a
+unless named; ``--device cpu`` trains on the CPU).  ``main`` goes through
+``hpo.harness.run`` as the reference's does: one training run, or an HPO study with
+``--optuna_ntrials`` / ``--optuna_walltime`` / ``--optuna_storage`` (each trial a
+``Trainer`` run, scored with ``make_metrics_callback``), a best-trial replay
+(``--optuna_use_best_trial``) or an inter-trial worker (``--optuna_distributed``); on a
 SIGTERM or SIGINT it prints the resume hint and exits 75.  ``--single_chip_big_volume``
 is the reference's preset for phases 7 and 8 on one device (``config.py``: host-offloaded
 block taps, the unstacked critic, unfused transitions, the ``flat`` engine).  Flags of
-options the port does not run yet (``--optuna_ntrials``, ``--horovod``, ``--dataset
-imagenet``) are accepted and raise ``NotImplementedError`` naming ROADMAP.md.
+options the port does not run yet (``--horovod``, ``--dataset imagenet``) are accepted and
+raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 
 from saragan_tpu_torch.config import Config
@@ -109,6 +112,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", type=none_or_str, choices=_optim_choices, default="Adam")
     p.add_argument("--d_use_different_optimizer", default=False, action="store_true")
     p.add_argument("--d_optimizer", type=none_or_str, choices=_optim_choices, default="Adam")
+    p.add_argument("--weight_decay", type=float, default=0.01,
+                   help="weight decay of LAMB, LARS and AdamW (not of biases, noise "
+                        "strengths and spectral-norm vectors)")
+    p.add_argument("--d_use_different_weight_decay", default=False, action="store_true")
+    p.add_argument("--d_weight_decay", type=float, default=0.01)
     p.add_argument("--gradient_accumulation", type=int, default=1)
     p.add_argument("--use_spectral_norm", default=False, action="store_true",
                    help="spectral-normalize the discriminator's weights")
@@ -156,6 +164,14 @@ def build_parser() -> argparse.ArgumentParser:
                    default=0.9)
     p.add_argument("--d_use_different_beta2", default=False, action="store_true")
     p.add_argument("--d_adam_beta2", type=none_or_float, default=0.9)
+    p.add_argument("--rho", type=none_or_float, default=0.95)
+    p.add_argument("--d_use_different_rho", default=False, action="store_true")
+    p.add_argument("--d_rho", type=none_or_float, default=0.95)
+    p.add_argument("--momentum", type=none_or_float, default=0.9)
+    p.add_argument("--d_use_different_momentum", default=False, action="store_true")
+    p.add_argument("--d_momentum", type=none_or_float, default=0.9)
+    p.add_argument("--g_annealing", default=1, type=float)
+    p.add_argument("--d_annealing", default=1, type=float)
     # summaries
     p.add_argument("--calc_metrics", default=False, action="store_true")
     p.add_argument("--compute_metrics_train", default=False, action="store_true")
@@ -177,8 +193,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--allow_uncalibrated_fid", default=False, action="store_true",
                    help="allow random-feature FID when no Inception weights are "
                         "available (run-internal values only)")
-    p.add_argument("--optuna_ntrials", default=None, type=none_or_int,
-                   help="HPO: not ported")
+    # HPO
+    p.add_argument("--optuna_distributed", default=False, action="store_true",
+                   help="inter-trial HPO: worker SARAGAN_WORKER_ID of SARAGAN_NUM_WORKERS")
+    p.add_argument("--optuna_ntrials", default=None, type=none_or_int)
+    p.add_argument("--hpo_seeds", default=1, type=int,
+                   help="seeds per trial; > 1 reports the median objective over reseeded runs")
+    p.add_argument("--optuna_walltime", default=None, type=none_or_float,
+                   help="with --optuna_ntrials None, keep starting trials until this many "
+                        "seconds have passed")
+    p.add_argument("--optuna_use_best_trial", default=False, action="store_true")
+    p.add_argument("--optuna_storage", default=None, type=str)
+    p.add_argument("--optuna_study_name", default=None, type=str)
+    p.add_argument("--optuna_pruner", default="median", choices=["median", "SHA", "nopruner"])
+    p.add_argument("--optuna_sampler", default="TPE",
+                   choices=["random", "TPE", "CMA", "NSGAII", "MOTPE"])
+    p.add_argument("--optuna_warmup_steps", default=20000, type=int)
+    p.add_argument("--optuna_TPE_multivariate", default=False, action="store_true")
+    p.add_argument("--optuna_CMA_consider_pruned_trials", default=False, action="store_true")
+    p.add_argument("--optuna_CMA_restart_strategy", default=None, type=none_or_str,
+                   choices=[None, "ipop"])
+    p.add_argument("--optuna_CMA_inc_popsize", default=2, type=int)
+    p.add_argument("--optuna_square_kernels", default=False, action="store_true")
     # input normalization
     p.add_argument("--data_mean", default=None, type=none_or_float)
     p.add_argument("--data_stddev", default=None, type=none_or_float)
@@ -204,26 +240,13 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.optuna_ntrials is not None:
-        raise NotImplementedError("HPO (--optuna_ntrials) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 13)")
-    cfg = config_from_args(args).finalize()
-    # None means "let an HPO trial pick it"; without HPO the run needs a value
-    for field in ("g_lr", "d_lr", "base_batch_size", "optimizer", "noise_stddev"):
-        if getattr(cfg, field) is None:
-            raise ValueError(f"--{field} is unset (None): pass --{field} explicitly")
-    from saragan_tpu_torch.train.trainer import Trainer, TrainingInterrupted
+    cfg = config_from_args(args)
+    from saragan_tpu_torch.hpo import harness
+    from saragan_tpu_torch.train.trainer import TrainingInterrupted
 
-    metrics_cb = None
-    if cfg.calc_metrics:
-        from saragan_tpu_torch.metrics.save_metrics import make_metrics_callback
-
-        # resolved before training: compute_FID without Inception weights fails here
-        # (UncalibratedFIDError) unless --allow_uncalibrated_fid
-        metrics_cb = make_metrics_callback(cfg, device=args.device)
-    trainer = Trainer(cfg, device=args.device, metrics_callback=metrics_cb)
     try:
-        return trainer.run()
+        return harness.run(cfg, functools.partial(harness.default_objective,
+                                                  device=args.device))
     except TrainingInterrupted as e:
         # the exact-resume checkpoint is on disk; 75 (EX_TEMPFAIL) lets a wrapper requeue
         print(f"INTERRUPTED: {e}", flush=True)

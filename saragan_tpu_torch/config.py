@@ -8,9 +8,9 @@ cuDNN, the reference's choice off the TPU; or "flat", the hand-written kernels),
 down to every conv, never a process-wide gate.  Left "unset", the trainer resolves it
 for its device (``resolve_conv_engine``), as the reference's ``apply_runtime_opts`` picks
 an engine by backend.  Fields of options the port does not run
-yet (other optimizers than Adam, ``horovod``, the ImageNet dataset) are kept so a
-configuration reads the same in both packages; the code that meets them raises and names
-ROADMAP.md.
+yet (``horovod``, the ImageNet dataset) are kept so a configuration reads the same in both
+packages; the code that meets them raises and names ROADMAP.md.  ``g_annealing`` and
+``d_annealing`` are fields only, in the reference too.
 
 ``single_chip_big_volume`` is the reference's preset for phases 7 and 8 (64x256x256 and
 128x512x512 volumes) on one device (``saragan_tpu/config.py:448-456``): ``finalize``
@@ -151,6 +151,17 @@ class Config:
     adam_beta2: Optional[float] = 0.9
     d_use_different_beta2: bool = False
     d_adam_beta2: Optional[float] = 0.9
+    rho: Optional[float] = 0.95  # Adadelta
+    d_use_different_rho: bool = False
+    d_rho: Optional[float] = 0.95
+    momentum: Optional[float] = 0.9  # Momentum, LARS
+    d_use_different_momentum: bool = False
+    d_momentum: Optional[float] = 0.9
+    weight_decay: float = 0.01  # LAMB, LARS, AdamW (the decayed names only)
+    d_use_different_weight_decay: bool = False
+    d_weight_decay: float = 0.01
+    g_annealing: float = 1.0
+    d_annealing: float = 1.0
     gradient_accumulation: int = 1
     compute_dtype: str = "float32"  # "bfloat16": bf16 activations, f32 params and state
     remat: bool = False
@@ -184,6 +195,22 @@ class Config:
     compute_psnrs: bool = False
     compute_mses: bool = False
     compute_nrmses: bool = False
+    # --- HPO (saragan_tpu/config.py:219-245; hpo/harness.py) ---
+    optuna_distributed: bool = False  # inter-trial: workers share one study
+    optuna_ntrials: Optional[int] = None
+    hpo_seeds: int = 1  # seeds per trial; > 1 reports the median objective
+    optuna_walltime: Optional[float] = None  # with ntrials None: start trials until then
+    optuna_use_best_trial: bool = False
+    optuna_storage: Optional[str] = None
+    optuna_study_name: Optional[str] = None
+    optuna_pruner: str = "median"
+    optuna_sampler: str = "TPE"
+    optuna_warmup_steps: int = 20000
+    optuna_TPE_multivariate: bool = False
+    optuna_CMA_consider_pruned_trials: bool = False
+    optuna_CMA_restart_strategy: Optional[str] = None
+    optuna_CMA_inc_popsize: int = 2
+    optuna_square_kernels: bool = False
     # host->device batch dtype; "auto" = bfloat16 under bfloat16 compute, else float32
     transfer_dtype: str = "auto"
     profile_dir: Optional[str] = None  # torch.profiler trace of steps 5-10 of the first phase
@@ -276,6 +303,12 @@ class Config:
             c.d_adam_beta1 = c.adam_beta1
         if not c.d_use_different_beta2:
             c.d_adam_beta2 = c.adam_beta2
+        if not c.d_use_different_rho:
+            c.d_rho = c.rho
+        if not c.d_use_different_momentum:
+            c.d_momentum = c.momentum
+        if not c.d_use_different_weight_decay:
+            c.d_weight_decay = c.weight_decay
         if c.ending_phase is None:
             c.ending_phase = c.num_phases
         if c.architecture == "stylegan2" and c.starting_phase != c.ending_phase:

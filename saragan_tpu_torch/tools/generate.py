@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from saragan_tpu_torch._device import resolve_device
-from saragan_tpu_torch.config import Config
+from saragan_tpu_torch.config import Config, num_phases_from_shapes
 from saragan_tpu_torch.core import filter_params
 from saragan_tpu_torch.data import get_numpy_dataset, invert_normalize_numpy, normalize_numpy
 from saragan_tpu_torch.metrics import (calculate_fid_given_batch_volumes, get_mean_squared_error,
@@ -268,14 +268,46 @@ _METRIC_FIELDS = ("compute_FID", "compute_swds", "compute_ssims", "compute_psnrs
                   "allow_uncalibrated_fid")  # metric_flags' fields and the extractor's
 
 
+def config_from_cli(args) -> Config:
+    """generate's Config.  Without ``--config_args``: its model flags
+    (``config_from_args``).  With them: the training CLI's parser
+    (``saragan_tpu_torch.cli.build_parser``) reads ``[architecture, dataset_path]``, then
+    generate's model and metric flags as defaults, then ``--config_args``, which override
+    them, and ``cli.config_from_args(...).finalize()`` builds the Config, so every flag
+    that shapes the generator (``--first_conv_nfilters``, ``--kernel_spec``,
+    ``--filter_spec``, ``--activation``, ...) rebuilds it as it was trained."""
+    if not args.config_args:
+        return config_from_args(args)
+    from saragan_tpu_torch import cli
+
+    ending = args.phase or num_phases_from_shapes(args.start_shape, args.final_shape)
+    argv = [args.architecture, args.dataset_path, "--start_shape", args.start_shape,
+            "--final_shape", args.final_shape, "--latent_dim", str(args.latent_dim),
+            "--starting_phase", str(args.phase or 1), "--ending_phase", str(ending),
+            "--noise_stddev", "0"]
+    if args.network_size is not None:
+        argv += ["--network_size", args.network_size]
+    for name in ("data_mean", "data_stddev", "inception_weights"):
+        if getattr(args, name) is not None:
+            argv += [f"--{name}", str(getattr(args, name))]
+    argv += [f"--{name}" for name in _METRIC_FIELDS
+             if name != "inception_weights" and getattr(args, name)]
+    train_args = cli.build_parser().parse_args(argv + list(args.config_args))
+    return cli.config_from_args(train_args).finalize()
+
+
 def main(argv=None):
     """python -m saragan_tpu_torch.tools.generate <arch> <dataset> <model> <out> [--minimal]
-    [--compute_FID --allow_uncalibrated_fid | --inception_weights NPZ] [--compute_swds] ..."""
+    [--compute_FID --allow_uncalibrated_fid | --inception_weights NPZ] [--compute_swds] ...
+    [--config_args <training CLI flags>...]"""
     p = argparse.ArgumentParser(prog="saragan_tpu_torch.tools.generate")
     p.add_argument("architecture")
     p.add_argument("dataset_path", help="the npy pyramid the report's real volumes come from")
     p.add_argument("model_path")
     p.add_argument("output_dir")
+    p.add_argument("--config_args", nargs=argparse.REMAINDER, default=[],
+                   help="the rest of the command line goes to the training CLI's parser "
+                        "(the flags that rebuild the generator as it was trained)")
     add_model_args(p)
     p.add_argument("--num_samples", type=int, default=16)
     p.add_argument("--batch_size", type=int, default=4)
@@ -288,7 +320,7 @@ def main(argv=None):
     p.add_argument("--allow_uncalibrated_fid", default=False, action="store_true",
                    help="FID over random conv features when no Inception weights are given")
     args = p.parse_args(argv)
-    cfg = config_from_args(args)
+    cfg = config_from_cli(args)
     if args.minimal:
         paths = generate_minimal(
             args.architecture, args.model_path, args.output_dir, cfg=cfg, phase=args.phase,

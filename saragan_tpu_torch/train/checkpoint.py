@@ -5,7 +5,7 @@
   checkpoint written by either package loads in the other.  Cadence checkpoints are
   ``model_<phase>_ckpt_<step>``, the phase-final one (EMA folded in) ``model_<phase>``.
 * full-state files (``..._full.pkl`` at the cadence, ``..._interrupt.pkl`` on a signal)
-  for an exact mid-phase resume: the whole ``TrainState`` with the Adam slots, plus the
+  for an exact mid-phase resume: the whole ``TrainState`` with the optimizer slots, plus the
   trainer's counters.  Their format is the port's own, a ``torch.save`` of plain dicts
   of CPU tensors; the port cannot read the reference's pickles of JAX arrays, nor the
   reference the port's.  The ``.pkl`` suffix keeps the reference's file names, which
@@ -83,10 +83,10 @@ def _cpu(params: Params) -> Dict[str, torch.Tensor]:
 
 
 def save_full_state(path: str, state, counters: Dict[str, object]) -> str:
-    """Write `state` (a ``train.step.TrainState`` with Adam states) and the trainer's
-    counters to `path`.pkl, atomically."""
+    """Write `state` (a ``train.step.TrainState``; its optimizer states as the count and
+    one dict per slot) and the trainer's counters to `path`.pkl, atomically."""
     def opt(o):
-        return {"count": int(o.count), "mu": _cpu(o.mu), "nu": _cpu(o.nu)}
+        return {"count": int(o.count), **{s: _cpu(d) for s, d in o.slots.items()}}
 
     blob = {"state": {"g_params": _cpu(state.g_params), "d_params": _cpu(state.d_params),
                       "g_opt": opt(state.g_opt), "d_opt": opt(state.d_opt),
@@ -103,7 +103,7 @@ def save_full_state(path: str, state, counters: Dict[str, object]) -> str:
 
 def load_full_state(path: str, device=None):
     """(TrainState on `device`, counters) from a file of ``save_full_state``."""
-    from saragan_tpu_torch.optim.factory import AdamState
+    from saragan_tpu_torch.optim.factory import OptState
     from saragan_tpu_torch.train.step import TrainState
 
     dev = resolve_device(device)
@@ -116,7 +116,7 @@ def load_full_state(path: str, device=None):
         return {k: v.to(dev) for k, v in params.items()}
 
     def opt(o):
-        return AdamState(int(o["count"]), to(o["mu"]), to(o["nu"]))
+        return OptState(int(o["count"]), {s: to(d) for s, d in o.items() if s != "count"})
 
     state = TrainState(to(st["g_params"]), to(st["d_params"]), opt(st["g_opt"]),
                        opt(st["d_opt"]), to(st["ema"]))

@@ -2,8 +2,8 @@
 
 One step of the simultaneous G/D update: the losses' gradients with respect to both
 parameter sets, optional global-norm clipping per network (with per-variable norms
-reported on the clipped gradients), Adam with ``-lr * u`` applied at update time, and
-the EMA over G+D.  Two gradient paths, as in the reference:
+reported on the clipped gradients), the configured optimizer (any of the eight of
+``optim/factory.py``) with ``-lr * u`` applied at update time, and the EMA over G+D.  Two gradient paths, as in the reference:
 
 * ``fused_grads`` with the WGAN loss (the flagship): ``losses.grads_simultaneous``, one
   discriminator backward over the fake batch for both networks, the fake and real
@@ -11,14 +11,14 @@ the EMA over G+D.  Two gradient paths, as in the reference:
 * otherwise ``losses.forward_simultaneous`` and one gradient of gen_loss + disc_loss
   (the logistic loss always takes this path).
 
-Numerics: parameters, gradients, Adam state and EMA are f32; with
+Numerics: parameters, gradients, optimizer state and EMA are f32; with
 ``compute_dtype="bfloat16"`` the batch and latents are bf16 and the models cast weights
 to the activation dtype at use (no autocast).  Library convs (the ``direct`` engine, the
 polyphase transitions) run under deterministic cuDNN with TF32 off, as serving does,
 and matmuls with TF32 off (``_train_numerics``).
 
 Previous-phase freezing (``freeze`` with ``frozen_names``): frozen parameters and their
-Adam slots keep their old values, and the clip norm and every gradient statistic cover
+optimizer slots keep their old values, and the clip norm and every gradient statistic cover
 only the other names.  ``grad_histograms``: the step also returns per-variable 64-bin
 gradient histograms, binned on the device (the trainer's variant for summary steps).
 
@@ -41,10 +41,10 @@ Recompute runs the same deterministic kernels on the same inputs, and the style
 families' noise source redraws each layer's noise from its own seeded generator, so a
 step under either lever is bit-equal to the plain step.  After the updates, in the
 reference's order (``step.py:367-385``): the style families' ``refresh_state`` moves
-``generator/d_z_avg`` from the draws' 64 refresh latents (Adam sees its gradient, exactly
-0, and leaves it; the EMA averages it); under ``use_spectral_norm`` every ``*_u`` vector
-of D is power-iterated against its new weight (``ops.core.refresh_spectral_u``); then the
-EMA.
+``generator/d_z_avg`` from the draws' 64 refresh latents (its gradient is exactly 0, so
+only a weight decay moves it in the update; the EMA averages it); under
+``use_spectral_norm`` every ``*_u`` vector of D is power-iterated against its new
+weight (``ops.core.refresh_spectral_u``); then the EMA.
 
 The step builds its graph eagerly and makes no host synchronisation: losses and metrics
 come back as device tensors.
@@ -107,7 +107,7 @@ def split_params(params: Params) -> Tuple[Params, Params]:
 
 def init_train_state(arch, rng: torch.Generator, *, phase: int, cfg,
                      device=None) -> Tuple[TrainState, Tuple[Optimizer, Optimizer]]:
-    """Parameters from the port's seeded init on `device` (CUDA unless named), Adam
+    """Parameters from the port's seeded init on `device` (CUDA unless named), optimizer
     state and EMA; returns (state, (g_optimizer, d_optimizer))."""
     params = arch.init(rng, phase=phase, cfg=cfg, device=resolve_device(device))
     g_params, d_params = split_params(params)

@@ -45,8 +45,13 @@ device) of steps 5 to 10 of the starting phase, written there as a Chrome trace
 (``trace_phase<p>_steps5-10.json``; cut at the phase's end if it has fewer steps, none if
 it ends before step 5).
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP.md): an HPO ``trial``
-(item 13), a mesh or ``horovod`` (item 12), the ImageNet / 2-D dataset (item 9).
+HPO: a ``trial`` (the engine's or Optuna's, with ``report(value, step)`` and
+``should_prune()``) gets each calibrated FID of the metric pass under the training
+weights; when it asks to prune past ``optuna_warmup_steps`` images into the phase the run
+raises ``TrialPruned``.  An uncalibrated (random-feature) FID is never reported.
+
+Not ported (each raises ``NotImplementedError`` naming ROADMAP.md): a mesh or ``horovod``
+(item 12), the ImageNet / 2-D dataset (item 9).
 The reference's native C++ prefetcher is not ported either: the loop runs the Python
 prefetch thread, as the reference does without that library, and says so in its log.
 """
@@ -100,6 +105,10 @@ def step_generator(base: int, salt: int, device) -> torch.Generator:
     uninterrupted one."""
     digest = hashlib.sha256(f"{base}/{salt}".encode()).digest()
     return torch.Generator(device=device).manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+
+
+class TrialPruned(Exception):
+    """Raised to prune an HPO trial (mirrors optuna.TrialPruned)."""
 
 
 class TrainingDiverged(Exception):
@@ -159,11 +168,10 @@ class Trainer:
         """dataset_factory(phase) -> dataset overrides the npy pyramid (tests).
         draws_fn(phase, local_step) -> losses.Draws hands every step its random inputs
         (tests feed the reference's draws); None draws them on the device.
+        trial: an HPO trial with ``report(value, step)`` and ``should_prune()``.
         `device` is CUDA unless named."""
         if mesh is not None or cfg.horovod:
             _not_ported("training over a mesh or more than one process (queue 1 item 12)")
-        if trial is not None:
-            _not_ported("an HPO trial (queue 1 item 13)")
         if cfg.dataset == "imagenet" or (cfg.dataset is None and cfg.ndim == 2):
             _not_ported("the ImageNet / 2-D dataset (queue 1 item 9)")
         self.cfg = cfg
@@ -178,6 +186,7 @@ class Trainer:
         self.dataset_factory = dataset_factory
         self.draws_fn = draws_fn
         self.metrics_callback = metrics_callback
+        self.trial = trial
         self.global_size = 1  # processes: one (the mesh is not ported)
         self.verbose = verbose
         self.prefetch = prefetch
@@ -231,7 +240,7 @@ class Trainer:
     def _restore_for_phase(self, phase: int, state: TrainState) -> TrainState:
         """Phase chaining / continue_path: weights restored by name intersection,
         counters reset, the EMA reseeded from the restored weights; a ``.pkl`` path
-        restores the whole state, Adam slots and counters included."""
+        restores the whole state, optimizer slots and counters included."""
         cfg = self.cfg
         restore_path = None
         if phase > cfg.starting_phase:
@@ -352,8 +361,9 @@ class Trainer:
         return sample
 
     def _run_metrics(self, state: TrainState, npy_val, sample, global_step: int,
-                     alpha: float):
-        """The metric pass under the training weights, then under the EMA (``_EMA``)."""
+                     in_phase_step: int, alpha: float):
+        """The metric pass under the training weights, then under the EMA (``_EMA``);
+        the first's FID goes to the HPO trial, if calibrated, which may prune the run."""
         m = self.metrics_callback(self, _sampler(sample, state.g_params, alpha), npy_val,
                                   global_step, "")
         self.metrics_callback(self, _sampler(sample, split_params(state.ema)[0], alpha),
@@ -361,6 +371,13 @@ class Trainer:
         fid = (m or {}).get("FID")
         if fid is not None:
             self.last_fid = float(fid)
+        # never feed an uncalibrated (random-feature) FID to the pruner: callbacks built
+        # by make_metrics_callback carry `fid_calibrated`
+        calibrated = getattr(self.metrics_callback, "fid_calibrated", True)
+        if self.trial is not None and fid is not None and calibrated:
+            self.trial.report(fid, global_step)
+            if self.trial.should_prune() and in_phase_step > self.cfg.optuna_warmup_steps:
+                raise TrialPruned()
 
     def _to_device(self, batch: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         """Host batch -> device tensor at the transfer dtype: rounded by torch on the
@@ -638,7 +655,8 @@ class Trainer:
 
                 if metrics_step:
                     t_metrics = time.time()
-                    self._run_metrics(state, npy_val, sample, global_step, alpha)
+                    self._run_metrics(state, npy_val, sample, global_step, in_phase_step,
+                                      alpha)
                     self.writer.scalar("Timing/metrics_s", time.time() - t_metrics, global_step)
 
                 if summary or metrics_step:

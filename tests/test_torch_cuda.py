@@ -5,8 +5,9 @@ the f32 wgrad, the fused op's forward and backward kernels at C from 1 to 512 an
 a sample alone against its slot in a batch, misaligned views and one launch per call;
 the standalone #3, through both routes, and #5 too), the conv's derivative algebra
 against cuDNN's double backward in f32 and bf16, one train step under ``flat``, each
-other family's f32 gradients under ``flat`` against ``direct``, and a two-step CLI
-trainer run.
+other family's f32 gradients under ``flat`` against ``direct``, a two-step CLI
+trainer run, every optimizer's update against the CPU's, and a two-trial HPO study of the
+flagship configuration on the kernels.
 
 Needs an NVIDIA GPU and nvcc; skipped without them.  This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -833,3 +834,89 @@ def test_offload_step_peak_below_the_plain_step_at_phase_7(cuda):
     assert rows["offload"]["finite"] and rows["plain"]["finite"]
     assert rows["offload"]["peak_mib"] < rows["plain"]["peak_mib"]
     assert rows["offload"]["host_mib"] > 0 == rows["plain"]["host_mib"]
+
+
+# ---------------------------------------------------------------------------
+# The HPO slice: every optimizer's update on the card, and a study of the flagship
+# configuration whose trials run on the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["Adam", "SGD", "Momentum", "Adadelta", "RAdam", "LAMB",
+                                  "LARS", "AdamW"])
+def test_optimizer_update_on_the_card_matches_the_cpu(cuda, name):
+    """Three updates of a conv weight, a bias, a noise strength, a spectral vector and an
+    all-zero weight, the same gradients on the card and on the CPU: parameters and every
+    slot within 1e-6 relative (the trust ratio's norms sum in another order)."""
+    from saragan_tpu_torch.optim.factory import make_optimizer
+
+    g = torch.Generator().manual_seed(0)
+    params = {"g/conv/weight": torch.randn(3, 3, 3, 64, 64, generator=g),
+              "g/conv/bias": torch.zeros(64), "g/conv/noise_strength": torch.zeros(()),
+              "d/dense/weight": torch.randn(512, 256, generator=g),
+              "d/dense/weight_u": torch.randn(1, 256, generator=g),
+              "d/zero/weight": torch.zeros(4, 4)}
+    opt = make_optimizer(name, beta1=0.1, beta2=0.9, rho=0.9, momentum=0.8, weight_decay=0.05)
+    states = {dev: (dict((k, v.to(dev)) for k, v in params.items()), None)
+              for dev in ("cpu", "cuda")}
+    for step in range(3):
+        grads = {k: torch.randn(v.shape, generator=g) * 10.0 ** -step for k, v in params.items()}
+        grads["d/dense/weight_u"].zero_()
+        grads["d/zero/weight"].zero_()
+        for dev, (p, s) in states.items():
+            s = opt.init(p) if s is None else s
+            states[dev] = opt.update({k: v.to(dev) for k, v in grads.items()}, s, p, 1e-2)
+    (p_cpu, s_cpu), (p_gpu, s_gpu) = states["cpu"], states["cuda"]
+    assert s_gpu.count == s_cpu.count == 3 and s_gpu.slots.keys() == s_cpu.slots.keys()
+    pairs = [(p_gpu[k], p_cpu[k]) for k in params]
+    pairs += [(s_gpu.slots[s][k], s_cpu.slots[s][k]) for s in s_cpu.slots for k in params]
+    for gpu, cpu in pairs:
+        assert gpu.device.type == "cuda"
+        torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-6, atol=1e-7)
+
+
+def test_two_trial_study_of_the_flagship_config_runs_the_kernels(cuda, tmp_path):
+    """Two trials of an in-process study (the harness, random sampler) of the flagship
+    configuration (pgan 'xs', WGAN-GP, bf16, the fused op, `flat`) at phase 4 (batch 32,
+    8x32x32), 32 + 32 images, each trial drawing its optimizer: both COMPLETE, #1, #2 and
+    #4 launched, no plain version, and the second trial leaves the device memory at the
+    level it found (the first may leave the process's cuBLAS workspace behind)."""
+    import numpy as np
+
+    from saragan_tpu_torch.hpo import harness
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "data" / "32x32").mkdir(parents=True)
+    for i in range(40):
+        np.save(tmp_path / "data" / "32x32" / f"{i}.npy",
+                rng.normal(size=(8, 32, 32)).astype(np.float32))
+    cfg = Config(architecture="pgan", dataset_path=str(tmp_path / "data"),
+                 start_shape="(1, 1, 4, 4)", final_shape="(1, 128, 512, 512)",
+                 starting_phase=4, ending_phase=4, latent_dim=256, network_size="xs",
+                 base_batch_size=256, mixing_nimg=32, stabilizing_nimg=32, loss_fn="wgan",
+                 gp_weight=10.0, noise_stddev=0.0, g_lr=1e-3, d_lr=1e-3, optimizer=None,
+                 compute_dtype="bfloat16", use_pallas_fusion=True, conv_engine="flat",
+                 grad_histograms=False, optuna_ntrials=2, optuna_sampler="random",
+                 logdir=str(tmp_path / "logs"))
+    levels = []
+
+    def objective(trial, run_cfg):
+        torch.cuda.synchronize()
+        levels.append(torch.cuda.memory_allocated())
+        return harness.default_objective(trial, run_cfg, device="cuda")
+
+    counts = (cf.conv3d_flat_cuda.launches, cf.conv3d_flat_wgrad_cuda.launches,
+              fba.fused_bias_act_pixelnorm.launches, fba.fused_bias_act_pixelnorm_grad.launches)
+    plain = (cf.conv3d_flat_plain.calls, cf.conv3d_flat_wgrad_plain.calls,
+             fba.bias_act_pixelnorm_plain.calls, fba.bias_act_pixelnorm_grad_plain.calls)
+    study = harness.run(cfg, objective)
+    torch.cuda.synchronize()
+    levels.append(torch.cuda.memory_allocated())
+    assert [t.state for t in study.trials] == ["COMPLETE", "COMPLETE"]
+    assert all(t.params["optimizer"] in ("Adam", "SGD", "Adadelta") for t in study.trials)
+    after = (cf.conv3d_flat_cuda.launches, cf.conv3d_flat_wgrad_cuda.launches,
+             fba.fused_bias_act_pixelnorm.launches, fba.fused_bias_act_pixelnorm_grad.launches)
+    assert all(a > b for a, b in zip(after, counts)), (after, counts)
+    assert (cf.conv3d_flat_plain.calls, cf.conv3d_flat_wgrad_plain.calls,
+            fba.bias_act_pixelnorm_plain.calls, fba.bias_act_pixelnorm_grad_plain.calls) == plain
+    assert levels[2] == levels[1], levels

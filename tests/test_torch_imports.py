@@ -36,9 +36,11 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the trainer slice's, the metrics slice's and the model families' modules, which the
-# hook must reach
+# the trainer slice's, the metrics slice's, the model families' and the HPO slice's
+# modules, which the hook must reach
 REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
+            "saragan_tpu_torch.optim.factory", "saragan_tpu_torch.hpo",
+            *(f"saragan_tpu_torch.hpo.{m}" for m in ("engine", "harness", "suggestions")),
             "saragan_tpu_torch.train.trainer", "saragan_tpu_torch.data.dataset",
             "saragan_tpu_torch.optim.schedules", "saragan_tpu_torch.optim.freeze",
             "saragan_tpu_torch.ops.minibatch_stddev", "saragan_tpu_torch.tools.profile_mbstd",
@@ -55,6 +57,37 @@ def test_port_imports_with_jax_and_reference_blocked():
     names = set(out.stdout.split())
     assert len(names) >= 20  # every module of the port was imported
     assert REQUIRED <= names, REQUIRED - names
+
+
+_ENGINE_IMPORT = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {"torch", "jax", "jaxlib", "optax", "saragan_tpu"}:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import importlib.util
+spec = importlib.util.spec_from_file_location("engine", "saragan_tpu_torch/hpo/engine.py")
+engine = sys.modules["engine"] = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(engine)
+study = engine.create_study(sampler=engine.samplers.TPESampler(seed=0))
+study.optimize(lambda t: t.suggest_float("x", 0, 1), n_trials=12)
+assert not [m for m in sys.modules if m.split(".")[0] in {"torch", "jax", "saragan_tpu"}]
+print(len(study.trials))
+"""
+
+
+def test_hpo_engine_needs_neither_torch_nor_the_jax_package():
+    """The engine is numpy and sqlite3 only: it imports and runs a study with torch, JAX
+    and the JAX package blocked (loaded from its file, outside the package, whose
+    ``__init__`` imports torch)."""
+    out = subprocess.run([sys.executable, "-c", _ENGINE_IMPORT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["12"]
 
 
 _REF_IMPORT = re.compile(

@@ -1,6 +1,7 @@
 """The port's phase-loop trainer: a two-phase run against the JAX package's Trainer,
-phase chaining by name, bitwise resume after a preemption, the CLI's SIGTERM path, and
-the options that are not ported.
+phase chaining by name, bitwise resume after a preemption, the CLI's SIGTERM path, an
+HPO trial and study through the trainer and the CLI, and the options that are not
+ported.
 
 Parity run: a tiny pgan (start (1,4,4,4), final (1,16,16,16), latent 16, batch 4 then 2,
 8 + 8 images per half) with the same data, the same draws (the port's through
@@ -237,6 +238,19 @@ def test_sigterm_at_the_cli_exits_75_and_resumes(tmp_path):
     assert not [f for f in os.listdir(logdir) if f.endswith("_interrupt.pkl")]
 
 
+class FakeTrial:
+    """An HPO trial that records its reports and asks to prune every time."""
+
+    def __init__(self):
+        self.reports = []
+
+    def report(self, value, step):
+        self.reports.append((value, step))
+
+    def should_prune(self):
+        return True
+
+
 @pytest.mark.parametrize("change,match", [  # ids as before calc_metrics and profile_dir
     pytest.param(dict(horovod=True), "mesh", id="change1-mesh"),
     pytest.param(dict(dataset="imagenet"), "ImageNet", id="change3-ImageNet")])
@@ -244,16 +258,28 @@ def test_unported_options_raise(tmp_path, change, match):
     cfg = Config(**base_cfg(tmp_path, **change)).finalize()
     with pytest.raises(NotImplementedError, match=match):
         Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="HPO"):
-        Trainer(Config(**base_cfg(tmp_path)).finalize(), device="cpu", trial=object())
+    # an HPO trial runs (HPO is ported): without metrics nothing is reported or pruned
+    make_data(tmp_path / "data")
+    trial = FakeTrial()
+    tr = Trainer(Config(**base_cfg(tmp_path, ending_phase=1,
+                                   logdir=str(tmp_path / "trial"))).finalize(),
+                 device="cpu", trial=trial, verbose=False)
+    assert tr.trial is trial and tr.run() is None and trial.reports == []
+    assert (tmp_path / "trial" / "model_1.npz").is_file()
 
 
 def test_cli_refuses_hpo_and_unset_values(tmp_path):
+    """The CLI runs an HPO study (an in-memory one here: two trials of one tiny phase),
+    and refuses a run whose values no trial fills."""
+    make_data(tmp_path)
     argv = ["pgan", str(tmp_path), "--start_shape", "(1, 4, 4, 4)", "--final_shape",
             "(1, 8, 8, 8)", "--starting_phase", "1", "--ending_phase", "1", "--latent_dim",
             "16", "--noise_stddev", "0", "--g_lr", "1e-3", "--d_lr", "1e-3", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_main(argv + ["--base_batch_size", "4", "--optuna_ntrials", "2"])
+    study = cli_main(argv + ["--base_batch_size", "4", "--optuna_ntrials", "2",
+                             "--mixing_nimg", "4", "--stabilizing_nimg", "4",
+                             "--disable_grad_histograms", "--logdir", str(tmp_path / "hpo")])
+    assert [t.state for t in study.trials] == ["COMPLETE", "COMPLETE"]
+    assert all("g_lr_sched_inc" in t.params for t in study.trials)
     with pytest.raises(ValueError, match="base_batch_size"):
         cli_main(argv)
 
