@@ -162,22 +162,48 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    COMPLETE trials, one per worker, each worker's checkpoint in its own logdir;
    (e) the generate CLI with ``--config_args --first_conv_nfilters 64`` on a surfgan
    checkpoint written with a 64-filter first layer: two finite 32x128x128 volumes;
-15. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+15. tools: the rest of tools/ at the flagship's width (bench.py:99-119's model at phase 6,
+   batch 8):
+   (a) ``tools.test_network``'s CLI for each of the six families (f32, the engine resolved
+   for the card), counts set to 0 before each: finite losses, the 32x128x128 output, #1,
+   #1' and #2 launched through the CUDA-core route, no plain version; the kernels against
+   their plain versions (f32) at every conv shape of those steps not checked before;
+   (b) ``tools.export_model``'s CLI on the trainer's phase-6 pgan checkpoint (seeded init
+   params under ``--only tools``), the artifact served over HTTP (``from_artifact``), 4
+   concurrent requests: finite volumes, coalesced, each alone bit-equal to its coalesced
+   response, no hand-written kernel launched (the artifact holds none, by the reference's
+   design); the artifact bit-equal to the live generator under `direct` (fused
+   transitions, no fused op) on the same z and within 1e-4 * max|ref| of the checkpoint
+   path under `flat` with the fused op; its MB and the ms per batch-8 forward of the
+   artifact and of the checkpoint path under `direct` and `flat` (CUDA events, median of
+   20); the artifact loaded in a subprocess that never imports the package, bit-equal;
+   (c) the same checkpoint (params + EMA) through ``tools.tf_checkpoint``'s export, show
+   and import: every array bit-equal, the service over the imported npz bit-equal to the
+   service over the original; seconds per pass, the CRC-32C route and its MB/s;
+   (d) a synthetic LIDC-like CT series (160 slices of 512x512 int16, slope 1, intercept
+   -1024, 2.5 x 0.703125 x 0.703125 mm, written with ``tools.dicom.write_ct_slice``)
+   through ``tools.prepare_data.create_dataset`` on the card: 8 levels, 128x512x512 down to
+   1x4x4, each within 2^-21 (HU/1024 units) of the same stages on the CPU; the device
+   stages' seconds per volume, card and CPU; the 128x128 level read by
+   ``get_numpy_dataset`` at phase 6;
+16. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone, ``--only
-families`` phase 13, ``--only hpo`` phase 14 (each without the result lines), for working
-on it.
+families`` phase 13, ``--only hpo`` phase 14, ``--only tools`` phase 15 (each without the
+result lines), for working on it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
 import math
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -1720,31 +1746,33 @@ def other_families():
     return report, shapes
 
 
-def check_path_convs(label, shapes, checked, detail):
-    """#1, #1' and #2 against their plain versions (`check_train_convs`, f32 and bf16) at
-    each conv shape of a path that `checked` (shapes already held) does not hold yet;
-    adds them to `checked`.  Returns the entries, each shape weighted by its launches on
-    the path."""
-    conv_shapes, wgrad_shapes = (Counter({k: n for k, n in c.items() if k not in done})
+def check_path_convs(label, shapes, checked, detail, dtypes=(torch.float32, torch.bfloat16)):
+    """#1, #1' and #2 against their plain versions (`check_train_convs`, in `dtypes`) at
+    each conv shape of a path that `checked` (the shapes already held, launch keys without
+    their dtype) does not hold yet; adds them to `checked`.  Returns the entries, each shape
+    weighted by its launches on the path."""
+    conv_shapes, wgrad_shapes = (Counter({k: n for k, n in c.items() if k[:-1] not in done})
                                  for c, done in zip(shapes, checked))
     print(f"kernels at the conv shapes of {label} not checked before: {len(conv_shapes)} of "
           f"{len(shapes[0])} conv, {len(wgrad_shapes)} of {len(shapes[1])} wgrad", flush=True)
     for done, c in zip(checked, (conv_shapes, wgrad_shapes)):
-        done.update(c)
-    entries = check_train_convs(conv_shapes, wgrad_shapes, 1, detail)
+        done.update(k[:-1] for k in c)
+    entries = check_train_convs(conv_shapes, wgrad_shapes, 1, detail, dtypes)
     return {"/".join(k): v for k, v in entries.items()}
 
 
-def families(detail):
+def families(detail, checked):
     """The families phase: surfgan's flagship step (the main path), its kernels at every
     conv shape of that step in f32 and bf16, the CLI from phase 5 into 6 and serving from
     its checkpoint; one step of each other family; the kernels also at every conv shape
-    of the CLI run and of those steps."""
+    of the CLI run and of those steps that `checked` (launch keys without their dtype,
+    extended here) does not hold yet."""
     torch.cuda.empty_cache()
     step_report, launches, (conv_shapes, wgrad_shapes) = family_step()
     convs = check_train_convs(conv_shapes, wgrad_shapes, 2 * FAMILY_STEPS, detail)
     report = dict(step=step_report, kernels={"/".join(k): v for k, v in convs.items()})
-    checked = (set(conv_shapes), set(wgrad_shapes))
+    for done, c in zip(checked, (conv_shapes, wgrad_shapes)):
+        done.update(k[:-1] for k in c)
     cfg = bench_train_config(PHASE, BATCH, architecture=FAMILY)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2091,6 +2119,327 @@ def hpo():
     return report
 
 
+# the tools phase: the rest of tools/ at the flagship's width (bench.py:99-119's model at
+# phase 6): test_network for every family (f32, as its CLI builds it, batch 8), the
+# phase-6 pgan generator exported and served from the artifact, its checkpoint through a
+# TF bundle and back, and a synthetic LIDC-like CT series through the DICOM reader and
+# the data preparation on the card
+TOOLS_FAMILIES = ("pgan", "pgan2", "pgandeep", "stylegan", "stylegan2", "surfgan")
+TOOLS_NET_ARGS = ["--phase", str(PHASE), "--start_shape", "(1, 1, 4, 4)", "--final_shape",
+                  "(1, 128, 512, 512)", "--latent_dim", "256", "--network_size", "xs",
+                  "--batch_size", str(BATCH)]
+CT_SLICES, CT_SPACING = 160, (2.5, 0.703125, 0.703125)  # (z, y, x) mm, LIDC-IDRI's
+# card against CPU, per pyramid level in HU/1024 units: two float32 ulps at the top of the
+# normalized range [-1, 2] (2^-21): the resample's float64 sums may round to float32 one
+# ulp apart on the two devices, which the Lanczos filter (sum of |weights| < 2) carries
+# into each level, plus the level's own rounding
+PYRAMID_CARD_ATOL = 2.0 ** -21
+
+
+def tools_test_network(checked, detail):
+    """``tools.test_network``'s CLI for every family at phase 6 (batch 8, f32, the engine
+    resolved for the card: flat), counts set to 0 before each: the report finite, #1, #1'
+    and #2 launched through the CUDA-core route and no plain version; then the kernels
+    against their plain versions (f32) at every conv shape of those steps not checked
+    before.  Returns (report, path kernel entries)."""
+    from saragan_tpu_torch.tools import test_network
+
+    report, shapes = {}, (Counter(), Counter())
+    for name in TOOLS_FAMILIES:
+        torch.cuda.empty_cache()
+        zero_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            r = test_network.main([name] + TOOLS_NET_ARGS)
+        counts = _conv_launches()
+        shapes[0].update(cf.conv3d_flat_cuda.by_shape)
+        shapes[1].update(cf.conv3d_flat_wgrad_cuda.by_shape)
+        lines = out.getvalue().splitlines()
+        check(r["conv_engine"] == "flat" and r["device"].startswith("cuda"),
+              f"test_network {name}: {r['conv_engine']} on {r['device']}")
+        check(math.isfinite(r["gen_loss"]) and math.isfinite(r["disc_loss"]),
+              f"test_network {name}: losses {r['gen_loss']}, {r['disc_loss']}")
+        check(r["generator_output_shape"] == (BATCH, 1, 32, 128, 128),
+              f"test_network {name}: G output {r['generator_output_shape']}")
+        check(counts["plain"] == 0 and min(counts[k] for k in ("forward", "dgrad", "wgrad")) > 0
+              and counts["conv_tc"] == counts["wgrad_tc"] == 0,
+              f"test_network {name}: launches {counts}")
+        report[name] = dict(r, launches=counts, listing_lines=len(lines) - 4)
+        print(f"test_network {name}: " + json.dumps(report[name], default=str), flush=True)
+    kernels = check_path_convs("test_network (six families, phase 6, batch 8, f32)", shapes,
+                               checked, detail, dtypes=(torch.float32,))
+    return report, kernels
+
+
+def _serving_forward(cfg, params, engine):
+    """The checkpoint path's forward on a given z (``tools/generate.py``'s serving
+    configuration: fused transitions, the fused op, f32, deterministic cuDNN)."""
+    scfg = dataclasses.replace(cfg, fused_transitions=True, use_pallas_fusion=True)
+    arch = get_architecture("pgan")
+
+    def forward(z):
+        with torch.inference_mode(), torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+            return arch.generator(params, z, 0.0, phase=PHASE, cfg=scfg, conv_engine=engine,
+                                  train=False)
+
+    return forward
+
+
+_LOAD_ALONE = r"""
+import sys
+import numpy as np
+import torch
+program = torch.export.load(sys.argv[1])
+z = torch.from_numpy(np.load(sys.argv[2])).cuda()
+with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                 deterministic=True, allow_tf32=False):
+    out = program.module()(z)
+want = np.load(sys.argv[3])
+assert np.array_equal(out.cpu().numpy(), want), float(np.abs(out.cpu().numpy() - want).max())
+assert not [m for m in sys.modules if m.split(".")[0] in ("saragan_tpu_torch", "saragan_tpu")]
+print("loaded without the package, bit-equal")
+"""
+
+
+def tools_artifact(model_path: Path, cfg, tmp: Path):
+    """``export_model``'s CLI on the phase-6 pgan checkpoint, then the artifact served over
+    HTTP: 4 concurrent requests (counts set to 0 just before: the artifact launches no
+    hand-written kernel, by the reference's design), each request alone bit-equal to its
+    coalesced response; the artifact bit-equal to the live generator under `direct`
+    (fused transitions, no fused op) on the same z and within 1e-4 * max|ref| of the
+    checkpoint path under `flat` with the fused op; the ms per forward of the three
+    routes; the artifact loaded in a process that never imports the package."""
+    from saragan_tpu_torch.tools import export_model
+
+    art = tmp / "g.pt2"
+    t0 = time.perf_counter()
+    export_model.main(["pgan", "--model_path", str(model_path), "--out", str(art), "--phase",
+                       str(PHASE), "--batch_size", str(BATCH), "--latent_dim", "256",
+                       "--start_shape", "(1, 1, 4, 4)", "--final_shape", "(1, 128, 512, 512)",
+                       "--network_size", "xs"])
+    export_s = time.perf_counter() - t0
+    service = GeneratorService.from_artifact(str(art), latent_dim=256)
+    srv = make_server(service, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        service.warmup()
+        info = _get(url + "/info")
+        check(info["source"] == "torch_export_artifact" and info["batch_size"] == BATCH
+              and info["device"].startswith("cuda"), f"artifact info {info}")
+        zero_counts()
+        results, errors = {}, []
+
+        def client(num, seed):
+            try:
+                results[seed] = _post(url + "/generate", {"num_samples": num, "seed": seed})
+            except Exception as e:  # noqa: BLE001 (reported by the check below)
+                errors.append(f"seed {seed}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=r) for r in REQUESTS]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in threads), f"requests: {errors}")
+        launches = read_counts()
+        stats = _get(url + "/stats")
+        check(stats["max_requests_coalesced"] >= 2, f"artifact: no coalescing: {stats}")
+        check(sum(v for k, v in launches.items()) == 0,
+              f"artifact: a hand-written kernel or plain version ran: {launches}")
+        for num, seed in REQUESTS:
+            v = np.load(io.BytesIO(results[seed]))
+            check(v.shape == (num, 1, 32, 128, 128) and np.isfinite(v).all(),
+                  f"artifact seed {seed}: shape {v.shape}, finite {np.isfinite(v).all()}")
+            alone = np.load(io.BytesIO(_post(url + "/generate", {"num_samples": num, "seed": seed})))
+            check(np.array_equal(alone, v), f"artifact seed {seed}: alone differs from coalesced "
+                                            f"by {np.abs(alone - v).max()}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.close()
+        thread.join(timeout=30)
+
+    gen = export_model.load_exported(str(art))
+    g_params, _ = _load_generator_params(str(model_path), True, "cuda")
+    z = torch.from_numpy(np.random.default_rng(21).normal(size=(BATCH, 256)).astype(np.float32)
+                         ).cuda()
+    out = gen(z)
+    export_cfg = dataclasses.replace(cfg, fused_transitions=True, use_pallas_fusion=False)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                     deterministic=True, allow_tf32=False):
+        live_out = get_architecture("pgan").generator(g_params, z, 0.0, phase=PHASE,
+                                                      cfg=export_cfg, conv_engine="direct",
+                                                      train=False)
+    flat = _serving_forward(cfg, g_params, "flat")
+    direct = _serving_forward(cfg, g_params, "direct")
+    flat_out = flat(z)
+    live_diff = (out - live_out).abs().max().item()
+    flat_diff = (out - flat_out).abs().max().item()
+    scale = flat_out.abs().max().item()
+    check(torch.equal(out, live_out), f"artifact vs live generator (direct): {live_diff}")
+    check(flat_diff <= 1e-4 * scale, f"artifact vs checkpoint path (flat + #4): {flat_diff} "
+                                     f"> 1e-4 * {scale}")
+    ms = dict(artifact=time_ms(lambda: gen(z)), checkpoint_direct=time_ms(lambda: direct(z)),
+              checkpoint_flat=time_ms(lambda: flat(z)))
+    np.save(tmp / "z.npy", z.cpu().numpy())
+    np.save(tmp / "out.npy", out.cpu().numpy())
+    alone = subprocess.run([sys.executable, "-c", _LOAD_ALONE, str(art), str(tmp / "z.npy"),
+                            str(tmp / "out.npy")], cwd=str(tmp), capture_output=True, text=True,
+                           timeout=300)
+    check(alone.returncode == 0, f"artifact in a process without the package: {alone.stderr}")
+    report = dict(mb=art.stat().st_size / 1e6, export_s=export_s, burst_s=burst_s,
+                  dispatches=stats["batches"], max_requests_coalesced=stats["max_requests_coalesced"],
+                  launches=launches, live_max_abs_diff=live_diff, flat_max_abs_diff=flat_diff,
+                  flat_scale=scale, forward_ms=ms, alone=alone.stdout.strip())
+    print(f"artifact: {report['mb']:.2f} MB, exported in {export_s:.2f} s; 4 concurrent requests "
+          f"in {burst_s:.3f} s ({stats['batches']} dispatches); bit-equal to the live generator; "
+          f"vs flat + #4 max|diff| {flat_diff:.3g} of {scale:.3g}; ms per batch-8 forward "
+          f"(CUDA events, median of 20): {json.dumps(ms)}; subprocess: {report['alone']}",
+          flush=True)
+    return report
+
+
+def tools_tf_checkpoint(model_path: Path, cfg, tmp: Path):
+    """The checkpoint (params + EMA) through ``tf_checkpoint``'s CLI: export, show, import;
+    every array bit-equal, the service over the imported npz bit-equal to the service over
+    the original; seconds per pass, the CRC-32C route and its MB/s."""
+    from saragan_tpu_torch.tools import tf_checkpoint as tfc
+
+    prefix, back = tmp / "tf" / f"model_{PHASE}", tmp / "back" / f"model_{PHASE}.npz"
+    seconds = {}
+    for cmd, argv in (("export", [str(model_path), str(prefix)]), ("show", [str(prefix)]),
+                      ("import", [str(prefix), str(back)])):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            check(tfc.main([cmd] + argv) == 0, f"tf_checkpoint {cmd}")
+        seconds[cmd] = time.perf_counter() - t0
+    p0, e0, _ = ckpt.load_params(str(model_path), "cpu")
+    p1, e1, meta = ckpt.load_params(str(back), "cpu")
+    check(meta.get("imported_from_tf") == 1.0 and set(p0) == set(p1) and set(e0) == set(e1),
+          "tf_checkpoint: names differ after the round trip")
+    check(all(torch.equal(p0[k], p1[k]) for k in p0) and all(torch.equal(e0[k], e1[k]) for k in e0),
+          "tf_checkpoint: an array changed in the round trip")
+    shard = (tmp / "tf" / f"model_{PHASE}.data-00000-of-00001").read_bytes()
+    t0 = time.perf_counter()
+    tfc.crc32c(shard)
+    crc_s = time.perf_counter() - t0
+    vols = []
+    for path in (model_path, back):
+        service = GeneratorService.from_checkpoint("pgan", str(path), cfg=cfg, phase=PHASE,
+                                                   batch_size=BATCH, device="cuda")
+        try:
+            vols.append(service.generate(BATCH, seed=5))
+        finally:
+            service.close()
+    check(np.array_equal(*vols), "tf_checkpoint: the imported checkpoint serves other volumes")
+    report = dict(seconds=seconds, crc32c_route=tfc.CRC32C_ROUTE, data_mb=len(shard) / 1e6,
+                  crc32c_mb_s=len(shard) / 1e6 / crc_s, tensors=len(p0) + len(e0))
+    print(f"tf_checkpoint: {report['tensors']} tensors, data shard {report['data_mb']:.1f} MB; "
+          f"s per pass {json.dumps(seconds)}; CRC-32C route {tfc.CRC32C_ROUTE}, "
+          f"{report['crc32c_mb_s']:.1f} MB/s; round trip bit-equal, served volumes bit-equal",
+          flush=True)
+    return report
+
+
+def write_ct_series(root: Path):
+    """A synthetic LIDC-like CT series: 160 slices of 512x512 int16 (slope 1, intercept
+    -1024), spacing 2.5 x 0.703125 x 0.703125 mm, a body with lungs and a spine in air,
+    made from a seed."""
+    from saragan_tpu_torch.tools import dicom
+
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(12)
+    yy, xx = np.mgrid[:512, :512]
+    body = ((yy - 256) / 200) ** 2 + ((xx - 256) / 230) ** 2 <= 1
+    lungs = ((((yy - 240) / 90) ** 2 + ((xx - 170) / 60) ** 2 <= 1)
+             | (((yy - 240) / 90) ** 2 + ((xx - 342) / 60) ** 2 <= 1))
+    spine = ((yy - 380) / 30) ** 2 + ((xx - 256) / 30) ** 2 <= 1
+    base = np.where(body, 40.0, -1000.0)
+    base[lungs] = -850.0
+    base[spine] = 700.0
+    for i in range(CT_SLICES):
+        hu = base + rng.normal(0.0, 20.0, base.shape)
+        stored = np.clip(np.round(hu + 1024.0), 0, 4095).astype(np.int16)
+        dicom.write_ct_slice(str(root / f"{i:04d}.dcm"), stored, instance_number=i + 1,
+                             z_position=CT_SPACING[0] * i, pixel_spacing=CT_SPACING[1:],
+                             slice_thickness=CT_SPACING[0], rescale_slope=1.0,
+                             rescale_intercept=-1024.0)
+
+
+def tools_prepare_data(tmp: Path):
+    """The series through ``create_dataset`` on the card (8 levels, 128x512x512 down to
+    1x4x4), every level within PYRAMID_CARD_ATOL of the same stages on the CPU; seconds of
+    the device stages per volume, card and CPU; the 128x128 level read back with
+    ``get_numpy_dataset`` at phase 6."""
+    from saragan_tpu_torch.tools import dicom, prepare_data
+
+    series = tmp / "ct" / "case0000"
+    t0 = time.perf_counter()
+    write_ct_series(series)
+    write_s = time.perf_counter() - t0
+    mb_in = sum(f.stat().st_size for f in series.iterdir()) / 1e6
+    t0 = time.perf_counter()
+    check(prepare_data.create_dataset([str(series)], str(tmp / "data")) == [0],
+          "create_dataset")
+    dataset_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    array, spacing = dicom.read_series(str(series))
+    read_s = time.perf_counter() - t0
+    check(array.shape == (CT_SLICES, 512, 512) and spacing == CT_SPACING,
+          f"series read as {array.shape}, spacing {spacing}")
+    seconds = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        levels = prepare_data.process_volume(array, spacing, device=dev)
+        torch.cuda.synchronize()
+        seconds[dev] = time.perf_counter() - t0
+    diffs = {}
+    for level in levels:
+        size = level.shape[-1]
+        got = np.load(tmp / "data" / f"{size}x{size}" / "0000.npy")
+        want = level.to(torch.float32).numpy()
+        check(got.shape == want.shape and np.isfinite(got).all(), f"level {size}: {got.shape}")
+        diffs[f"{size}x{size}"] = float(np.abs(got.astype(np.float64) - want).max())
+        check(diffs[f"{size}x{size}"] <= PYRAMID_CARD_ATOL,
+              f"level {size}x{size}: card vs CPU {diffs[f'{size}x{size}']} > {PYRAMID_CARD_ATOL}")
+    check(sorted(diffs, key=lambda k: int(k.split("x")[0])) == [
+        f"{s}x{s}" for s in (4, 8, 16, 32, 64, 128, 256, 512)], f"levels {sorted(diffs)}")
+    ds = get_numpy_dataset(PHASE, PHASE, "(1, 1, 4, 4)", str(tmp / "data"), None)
+    batch = ds.batch(1)
+    check(batch.shape[-3:] == (32, 128, 128) and np.isfinite(batch).all(),
+          f"get_numpy_dataset at phase {PHASE}: {batch.shape}")
+    report = dict(input_mb=mb_in, write_series_s=write_s, read_series_s=read_s,
+                  create_dataset_s=dataset_s, stages_s=seconds, card_vs_cpu_max_abs=diffs,
+                  phase6_batch_shape=list(batch.shape))
+    print(f"prepare_data: {CT_SLICES} slices of 512x512 ({mb_in:.1f} MB) -> 8 levels; "
+          f"create_dataset on the card {dataset_s:.2f} s (read {read_s:.2f} s); device stages "
+          f"per volume: card {seconds['cuda']:.3f} s, CPU {seconds['cpu']:.3f} s; card vs CPU "
+          f"max|diff| {max(diffs.values()):.3g} (limit {PYRAMID_CARD_ATOL:.3g}); phase-6 batch "
+          f"{list(batch.shape)}", flush=True)
+    return report
+
+
+def tools(detail, checked, model_path: Path, cfg):
+    """The tools phase: test_network for every family, export -> serve --artifact, the TF
+    bundle round trip, DICOM -> pyramid on the card."""
+    report = {}
+    report["test_network"], report["test_network_kernels"] = tools_test_network(checked, detail)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        report["artifact"] = tools_artifact(model_path, cfg, tmp)
+        report["tf_checkpoint"] = tools_tf_checkpoint(model_path, cfg, tmp)
+        report["prepare_data"] = tools_prepare_data(tmp)
+    return report
+
+
 def kernel_row(name, route, source, replaces, e, launches, library, per_what, unit):
     """One entry of the kernels line."""
     check(launches > 0, f"{name}: not launched")
@@ -2171,9 +2520,24 @@ def main(argv=None) -> int:
             card=card, hpo=report, seconds=seconds), indent=1, default=str))
         return 0
 
+    if args.only == "tools":  # this phase alone, for working on it: no result line
+        detail = []
+        cfg = Config(**BENCH_CFG, starting_phase=PHASE, ending_phase=PHASE).finalize()
+        params = get_architecture("pgan").init(torch.Generator().manual_seed(0), phase=PHASE,
+                                               cfg=cfg, device="cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            model = ckpt.save_params(str(Path(tmp) / f"model_{PHASE}"), params, ema=params)
+            tools_report = tools(detail, (set(), set()), Path(model), cfg)
+        phase_done("tools")
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_tools.json").write_text(json.dumps(dict(
+            card=card, tools=tools_report, shapes=detail, seconds=seconds), indent=1,
+            default=str))
+        return 0
+
     if args.only == "families":  # this phase alone, for working on it: no result line
         detail = []
-        fam, fam_launches, fam_convs = families(detail)
+        fam, fam_launches, fam_convs = families(detail, (set(), set()))
         phase_done("families")
         rows = [kernel_row(*r) for r in family_entries(fam_convs, fam_launches)]
         OUT_DIR.mkdir(exist_ok=True)
@@ -2213,6 +2577,9 @@ def main(argv=None) -> int:
                for engine in ("flat", "direct")}
     phase_done("train step")
     conv_shapes, wgrad_shapes = trained["flat"][2]
+    # the conv shapes held against the plain versions so far (launch keys without their
+    # dtype), which later phases skip
+    checked = ({k[:-1] for k in conv_shapes}, {k[:-1] for k in wgrad_shapes})
     train_steps = TRAIN_STEPS * 2  # both halves
     train_convs = check_train_convs(conv_shapes, wgrad_shapes, train_steps, detail)
     train_fused, train_fused_grad = check_train_fused(fused_shapes, detail)
@@ -2223,10 +2590,13 @@ def main(argv=None) -> int:
 
     # the trainer through its CLI: phase 5 -> 6 at full width, then a preempted and
     # resumed run of the same command that must end bit-equal
+    keep = tempfile.TemporaryDirectory()  # the trained checkpoint, for the tools phase
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         write_dataset(tmp / "data")
         trainer = run_trainer(tmp / "data", tmp / "run")
+        trained_model = Path(keep.name) / f"model_{PHASE}.npz"
+        shutil.copy(tmp / "run" / f"model_{PHASE}.npz", trained_model)
         phase_done("trainer")
         resume = check_bitwise_resume(tmp / "data", tmp / "resumed", tmp / "run")
         phase_done("bitwise resume")
@@ -2258,12 +2628,18 @@ def main(argv=None) -> int:
 
     # the other families: surfgan at the flagship's settings (step, kernels, CLI, serving)
     # and one step of each of pgan2, pgandeep, stylegan, stylegan2
-    fam, fam_launches, fam_convs = families(detail)
+    fam, fam_launches, fam_convs = families(detail, checked)
     phase_done("families")
 
     # every optimizer on the flagship step, and the CLI's HPO run modes at phase 6
     hpo_report = hpo()
     phase_done("hpo")
+
+    # the rest of tools/: test_network per family, export -> serve --artifact, the TF
+    # bundle round trip, DICOM -> pyramid on the card
+    tools_report = tools(detail, checked, trained_model, cfg)
+    keep.cleanup()
+    phase_done("tools")
 
     main_launches = served["flat"][2]
     dispatches = served["flat"][1]["dispatches"]
@@ -2339,8 +2715,8 @@ def main(argv=None) -> int:
         card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train, ptxas=ptxas,
         serving={e: served[e][1] for e in served}, training=training,
         engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume, metrics=metrics,
-        big_volume=big, families=fam, hpo=hpo_report, seconds=seconds), indent=1,
-        default=str))
+        big_volume=big, families=fam, hpo=hpo_report, tools=tools_report, seconds=seconds),
+        indent=1, default=str))
     print(f"serving: " + json.dumps({e: served[e][1] for e in served}), flush=True)
     print("training: " + json.dumps({e: {h: dict(step_ms=r["step_ms"], peak_mib=r["peak_mib"])
                                          for h, r in trained[e][0].items()} for e in trained}),
@@ -2364,6 +2740,13 @@ def main(argv=None) -> int:
         update_ms={n: r["update_ms"] for n, r in hpo_report["optimizers"].items()},
         trial_s=hpo_report["study"]["trial_s"], peak_mib=hpo_report["study"]["peak_mib"],
         study_wall_s=hpo_report["study"]["wall_s"])), flush=True)
+    print("tools: " + json.dumps(dict(
+        test_network_step_s={n: r["step_seconds"] for n, r in tools_report["test_network"].items()},
+        artifact_forward_ms=tools_report["artifact"]["forward_ms"],
+        artifact_mb=tools_report["artifact"]["mb"],
+        tf_checkpoint_s=tools_report["tf_checkpoint"]["seconds"],
+        crc32c_mb_s=tools_report["tf_checkpoint"]["crc32c_mb_s"],
+        pyramid_s=tools_report["prepare_data"]["stages_s"])), flush=True)
     print("seconds: " + json.dumps(seconds), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2377,7 +2760,7 @@ def _parse(argv):
     import argparse
 
     p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
-    p.add_argument("--only", choices=["big_volume", "families", "hpo"], default=None,
+    p.add_argument("--only", choices=["big_volume", "families", "hpo", "tools"], default=None,
                    help="build, then run this phase alone (no result line)")
     return p.parse_args(argv)
 

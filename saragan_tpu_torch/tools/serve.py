@@ -11,6 +11,10 @@ bit-identical whether a request is served alone or coalesced in the same batch s
     python -m saragan_tpu_torch.tools.serve pgan --model_path runs/model_6.npz \
         --phase 6 --latent_dim 256 --start_shape "(1, 1, 4, 4)" \
         --final_shape "(1, 128, 512, 512)" --conv_engine flat --port 8753
+    python -m saragan_tpu_torch.tools.serve --artifact g.pt2 --port 8753
+
+``--artifact`` serves a params-baked program of ``tools/export_model.py`` (no model code,
+no checkpoint); its batch size and latent size come from the program's input signature.
 
 Endpoints:
   GET  /healthz    -> {"status": "ok"}
@@ -21,8 +25,8 @@ Endpoints:
                       (N capped by --max_samples; client errors are 400, server
                       faults 500)
 
-Not ported yet: serving a StableHLO artifact (``--artifact``) and data-parallel serving
-over several devices (``--serve_devices > 1``); both raise.
+Not ported yet: data-parallel serving over several devices (``--serve_devices > 1``); it
+raises.
 """
 
 from __future__ import annotations
@@ -296,6 +300,48 @@ class GeneratorService:
         return cls({size: make_run(size) for size in sizes}, None, info,
                    cfg.data_mean, cfg.data_stddev, max_samples=max_samples)
 
+    @classmethod
+    def from_artifact(cls, path: str, latent_dim: Optional[int] = None,
+                      data_mean: Optional[float] = None,
+                      data_stddev: Optional[float] = None,
+                      max_samples: Optional[int] = None, device=None):
+        """Serve a params-baked artifact of ``tools.export_model`` (a ``torch.export``
+        program) on `device` (the CUDA device unless named)."""
+        from saragan_tpu_torch.tools.export_model import load_exported
+
+        gen = load_exported(path, device)
+        if gen.takes_params:
+            raise ValueError(f"{path} takes (params, z); serving needs a params-baked "
+                             f"artifact (export without --no_bake_params)")
+        # the artifact's input signature fixes (batch, latent_dim)
+        batch_size, art_latent = gen.batch_size, gen.latent_dim
+        if latent_dim is not None and latent_dim != art_latent:
+            raise ValueError(f"--latent_dim {latent_dim} != artifact's {art_latent}")
+
+        def run_slots(seeds: np.ndarray, idxs: np.ndarray) -> np.ndarray:
+            # the artifact's input is the latent batch, so each row's latent is drawn on
+            # the host, as the JAX package draws it: z row k from
+            # default_rng([seeds[k], idxs[k]]) with both words masked to uint32, so the
+            # whole int32 seed range is accepted (negative seeds included) and both
+            # packages' artifacts get the same z
+            z = np.stack([
+                np.random.default_rng(
+                    [int(s) & 0xFFFFFFFF, int(j) & 0xFFFFFFFF]
+                ).normal(size=art_latent)
+                for s, j in zip(seeds, idxs)
+            ]).astype(np.float32)
+            return gen(z).cpu().float().numpy()
+
+        info = {
+            "source": "torch_export_artifact",
+            "artifact": path,
+            "batch_size": batch_size,
+            "latent_dim": art_latent,
+            "device": str(gen.device),
+        }
+        return cls(run_slots, batch_size, info, data_mean, data_stddev,
+                   max_samples=max_samples)
+
     def generate(self, num_samples: int, seed: int = 0,
                  unnormalize: Optional[bool] = None) -> np.ndarray:
         if num_samples < 1:
@@ -407,7 +453,8 @@ def main(argv: Optional[list] = None):
     p = argparse.ArgumentParser(description="Serve a trained generator over HTTP")
     p.add_argument("architecture", nargs="?", default=None)
     p.add_argument("--model_path", default=None, help="checkpoint .npz (model_{phase})")
-    p.add_argument("--artifact", default=None, help="StableHLO artifact (not ported yet)")
+    p.add_argument("--artifact", default=None,
+                   help="params-baked .pt2 artifact of tools.export_model")
     add_model_args(p)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--batch_sizes", default=None,
@@ -427,15 +474,22 @@ def main(argv: Optional[list] = None):
     args = p.parse_args(argv)
 
     if args.artifact:
-        p.error("--artifact (StableHLO) serving is not ported yet; use --model_path")
-    if not (args.architecture and args.model_path and args.phase):
-        p.error("<architecture> --model_path --phase are required")
-    sizes = [int(s) for s in args.batch_sizes.split(",")] if args.batch_sizes else None
-    service = GeneratorService.from_checkpoint(
-        args.architecture, args.model_path, cfg=config_from_args(args), phase=args.phase,
-        batch_size=args.batch_size, batch_sizes=sizes, alpha=args.alpha,
-        use_ema=not args.no_ema, max_samples=args.max_samples, fetch_dtype=args.fetch_dtype,
-        n_devices=args.serve_devices, device=args.device, conv_engine=args.conv_engine)
+        if args.serve_devices != 1:
+            raise NotImplementedError("data-parallel serving (--serve_devices > 1) is not "
+                                      "ported yet")
+        service = GeneratorService.from_artifact(
+            args.artifact, data_mean=args.data_mean, data_stddev=args.data_stddev,
+            max_samples=args.max_samples, device=args.device)
+    else:
+        if not (args.architecture and args.model_path and args.phase):
+            p.error("either --artifact, or <architecture> --model_path --phase")
+        sizes = [int(s) for s in args.batch_sizes.split(",")] if args.batch_sizes else None
+        service = GeneratorService.from_checkpoint(
+            args.architecture, args.model_path, cfg=config_from_args(args), phase=args.phase,
+            batch_size=args.batch_size, batch_sizes=sizes, alpha=args.alpha,
+            use_ema=not args.no_ema, max_samples=args.max_samples,
+            fetch_dtype=args.fetch_dtype, n_devices=args.serve_devices, device=args.device,
+            conv_engine=args.conv_engine)
     # compile every bucket before accepting traffic and seed its latency EMA
     service.warmup()
     srv = make_server(service, port=args.port, host=args.host)

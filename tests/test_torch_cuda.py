@@ -6,8 +6,10 @@ a sample alone against its slot in a batch, misaligned views and one launch per 
 the standalone #3, through both routes, and #5 too), the conv's derivative algebra
 against cuDNN's double backward in f32 and bf16, one train step under ``flat``, each
 other family's f32 gradients under ``flat`` against ``direct``, a two-step CLI
-trainer run, every optimizer's update against the CPU's, and a two-trial HPO study of the
-flagship configuration on the kernels.
+trainer run, every optimizer's update against the CPU's, a two-trial HPO study of the
+flagship configuration on the kernels, and the tools: an artifact exported and served on
+the card against the live generator, the data-preparation pyramid against the CPU and
+the network smoke test on the kernels.
 
 Needs an NVIDIA GPU and nvcc; skipped without them.  This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -920,3 +922,75 @@ def test_two_trial_study_of_the_flagship_config_runs_the_kernels(cuda, tmp_path)
     assert (cf.conv3d_flat_plain.calls, cf.conv3d_flat_wgrad_plain.calls,
             fba.bias_act_pixelnorm_plain.calls, fba.bias_act_pixelnorm_grad_plain.calls) == plain
     assert levels[2] == levels[1], levels
+
+
+@pytest.mark.parametrize("name", ["pgan", "surfgan"])
+def test_artifact_exported_on_the_card_equals_the_live_generator(cuda, tmp_path, name):
+    """A phase-3 generator exported on the card (the artifact holds no hand-written
+    kernel) equals the live generator under ``direct`` bit for bit, runs no kernel of the
+    port, and moved to the CPU (``load_exported(device="cpu")``) agrees with the card
+    within 1e-4 * max|card|."""
+    import dataclasses
+
+    import numpy as np
+
+    from saragan_tpu_torch.core import filter_params
+    from saragan_tpu_torch.ops.core import LayerNoise
+    from saragan_tpu_torch.tools import export_model
+
+    cfg = Config(architecture=name, start_shape="(1, 4, 4, 4)", final_shape="(1, 32, 32, 32)",
+                 starting_phase=3, ending_phase=3, latent_dim=32, network_size="xs").finalize()
+    arch = get_architecture(name)
+    g = filter_params(arch.init(torch.Generator().manual_seed(0), phase=3, cfg=cfg,
+                                device=cuda), "generator")
+    g = {k: (torch.full_like(v, 0.3) if "noise_strength" in k else v) for k, v in g.items()}
+    path = export_model.save_exported(str(tmp_path / "g.pt2"), export_model.export_generator(
+        cfg, 3, g, batch_size=4, seed=5))
+    gen = export_model.load_exported(path)
+    z = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 32)).astype(np.float32))
+    launches = (cf.conv3d_flat_cuda.launches, fba.fused_bias_act_pixelnorm.launches)
+    out = gen(z)
+    assert (cf.conv3d_flat_cuda.launches, fba.fused_bias_act_pixelnorm.launches) == launches
+    live_cfg = dataclasses.replace(cfg, fused_transitions=True, use_pallas_fusion=False)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                     deterministic=True, allow_tf32=False):
+        live = arch.generator(g, z.to(cuda), 0.0, phase=3, cfg=live_cfg, train=False,
+                              noise=LayerNoise(5))
+    assert out.device.type == "cuda" and torch.equal(out, live)
+    on_cpu = export_model.load_exported(path, device="cpu")(z)
+    assert on_cpu.device.type == "cpu"
+    assert (on_cpu - out.cpu()).abs().max().item() <= 1e-4 * out.abs().max().item()
+
+
+def test_pyramid_on_the_card_matches_the_cpu(cuda):
+    """resample -> clip/pad/normalize -> the Lanczos pyramid of a (40, 300, 280) HU volume
+    on the card against the CPU: every level within 2^-21 in HU/1024 units (two float32
+    ulps at the top of the normalized range; chip_smoke.py's limit), absmax levels equal."""
+    import numpy as np
+
+    from saragan_tpu_torch.tools import prepare_data
+
+    x = np.random.default_rng(0).normal(0, 600, size=(40, 300, 280)).astype(np.float32)
+    for method in ("lanczos", "absmax"):
+        card = prepare_data.process_volume(x, (2.5, 0.7, 0.7), method=method, device=cuda)
+        host = prepare_data.process_volume(x, (2.5, 0.7, 0.7), method=method, device="cpu")
+        assert [tuple(c.shape) for c in card] == [tuple(h.shape) for h in host]
+        for c, h in zip(card, host):
+            diff = (c.cpu().float() - h.float()).abs().max().item()
+            assert diff <= 2.0 ** -21, (method, tuple(c.shape), diff)
+
+
+def test_smoke_test_on_the_card_runs_the_kernels(cuda, capsys):
+    """``tools.test_network`` at phase 3 on the card: the engine resolves to ``flat``, the
+    forward, dgrad and wgrad kernels launch and no plain version runs."""
+    from saragan_tpu_torch.tools import test_network
+
+    before = (cf.conv3d_flat_cuda.launches, cf.conv3d_flat_wgrad_cuda.launches)
+    plain = (cf.conv3d_flat_plain.calls, cf.conv3d_flat_wgrad_plain.calls)
+    report = test_network.main(["surfgan", "--phase", "3", "--latent_dim", "32"])
+    assert report["conv_engine"] == "flat" and report["device"].startswith("cuda")
+    assert math.isfinite(report["gen_loss"]) and report["device_bytes_in_use"] > 0
+    assert cf.conv3d_flat_cuda.launches > before[0]
+    assert cf.conv3d_flat_wgrad_cuda.launches > before[1]
+    assert (cf.conv3d_flat_plain.calls, cf.conv3d_flat_wgrad_plain.calls) == plain
+    assert "Total generator variables" in capsys.readouterr().out
