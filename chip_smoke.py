@@ -75,9 +75,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    histogram event, and finite fid, fid_EMA, PSNR, ssim, swd_mean and their end-of-phase
    _validation / _test tags in both phases; kernels #1 (forward and dgrad), #2 and #4 (and
    its backward) must have run, the convs through the tensor-core route only, and no plain
-   version.  Prints ms/step per phase and half (CUDA events, median after the first),
-   img/s, the phase's peak memory, and the ms per step without the metric passes and
-   with their host time spread over the steps;
+   version.  The input pipeline is the native C++ prefetcher, the default: the log and
+   events.jsonl must say so.  Prints ms/step per phase and half (CUDA events, median
+   after the first), img/s, the phase's peak memory, the ms per step without the metric
+   passes and with their host time spread over the steps, and the host's wait for each
+   step's batch (``Timing/input_wait_ms``).  Then phase 5 alone again with
+   --no_native_prefetch (the Python prefetch thread, no metric passes): its model_5.npz
+   must equal the native run's bit for bit; its input wait is printed beside the native
+   run's;
 9. bitwise resume: the same command in a subprocess with --full_state_checkpoints gets
    a SIGTERM once phase 6 printed its second step line and must exit 75; rerun with
    --auto_resume it must exit 0 with a model_6.npz equal to the uninterrupted run's,
@@ -186,12 +191,40 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    1x4x4, each within 2^-21 (HU/1024 units) of the same stages on the CPU; the device
    stages' seconds per volume, card and CPU; the 128x128 level read by
    ``get_numpy_dataset`` at phase 6;
-16. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+16. the 2-D path (``--only two_d``): pgan at ProGAN's published widths (the repo's 2-D
+   'm' table over nine phases, 4^2 -> 1024^2: 512 filters to 32^2, then 256, 128, 64, 32,
+   16; latent 512, 3x3 kernels: Karras et al. 2018, Table 2), G on Adam and D on LAMB
+   (weight decay 0.004) under WGAN-GP, bf16, the fused op on, no --conv_engine:
+   (a) the JPEG decoder this machine has, printed: libjpeg (the host library built with
+   jpeglib.h) held within 1.5/127.5 of PIL and bit-equal to the plain PyTorch triangle
+   resize, or PIL held within 1.5/127.5 of that plain resize, on a seeded class folder
+   (64 train and 16 test images of 256^2, written with PIL);
+   (b) the native prefetcher: 3 batches of 8 flagship phase-6 volumes, f32 and bf16,
+   bit-equal to the Python path's on the same paths, pinned;
+   (c) the CLI (in process, counts set to 0 just before and read just after) from phase
+   6 (128^2, batch 16) into phase 7 (256^2, batch 8), 32 + 32 images per phase, on that
+   folder: model_6.npz and model_7.npz with 2-D weights (3x3 convs, 1x1 RGB heads),
+   finite; phase 7 holding model_6's names bit for bit through its frozen mixing half;
+   finite Loss/d_loss, Loss/g_loss and Loss/gp in both phases; #4's forward and backward
+   launched, no conv kernel (rank 2 is `direct`) and no plain version; the decoder and
+   the input pipeline (the Python thread: JPEG folders are not path-based npy files)
+   in the log.  Prints ms/step per phase and half (CUDA events, median after the first),
+   img/s, peak MiB and the input wait;
+   (d) the phase-7 EMA generator served at batch 8 in f32 over HTTP, 4 concurrent
+   requests (1, 3, 8, 8 RGB images of 256^2): finite, coalesced, each alone bit-equal to
+   its coalesced response, #4 launched 13 times (one per G conv) per dispatch, no conv
+   kernel, no plain version, a png mosaic; the ms per batch-8 forward (CUDA events);
+   (e) #4 against its plain version at every 2-D shape the run and the server gave it:
+   the serving shapes (f32, pixel norm on and off) as phase 3, the step's shapes of both
+   phases (bf16 forward, f32 and bf16 backward) as phase 6, with the same limits, a
+   sample alone bit-equal to its slot, bit-identical reruns, each shape's three times
+   and bound;
+17. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone, ``--only
-families`` phase 13, ``--only hpo`` phase 14, ``--only tools`` phase 15 (each without the
-result lines), for working on it.
+families`` phase 13, ``--only hpo`` phase 14, ``--only tools`` phase 15, ``--only two_d``
+phase 16 (each without the result lines), for working on it.
 """
 
 from __future__ import annotations
@@ -226,7 +259,9 @@ from saragan_tpu_torch.ops import _build
 from saragan_tpu_torch.ops import conv3d_flat as cf
 from saragan_tpu_torch.ops import fused_bias_act as fba
 from saragan_tpu_torch.ops import minibatch_stddev as mb
-from saragan_tpu_torch.data import get_numpy_dataset, stdnormal_to_8bit_numpy
+from saragan_tpu_torch.data import (NumpyPathDataset, get_numpy_dataset, imagenet, native,
+                                    normalize_numpy, stdnormal_to_8bit_numpy)
+from saragan_tpu_torch.data.imagenet import decoder_name, jpeg_decoder
 from saragan_tpu_torch.metrics import fid as mfid
 from saragan_tpu_torch.metrics import inception as minc
 from saragan_tpu_torch.metrics import skim, swd
@@ -308,6 +343,27 @@ FAMILY_TRAINER_ARGS = [
     "--adam_beta2", "0.9", "--compute_dtype", "bfloat16", "--summary_small_every_nsteps", "16",
     "--summary_large_every_nsteps", "32", "--checkpoint_every_nsteps", "32",
     "--disable_grad_histograms"]
+# the 2-D phase: pgan at ProGAN's published widths (the 2-D 'm' table over nine phases,
+# 4^2 -> 1024^2, latent 512) through the CLI from phase 6 (128^2, 128 filters, batch 16)
+# into phase 7 (256^2, 64 filters, batch 8), 32 + 32 images per phase, G on Adam and D on
+# LAMB as the 2-D reference hard-wires them.  A run has log2(final / start) phases, the
+# last at half the final shape (as bench.py's phase-8 step takes final 256x1024x1024), so
+# nine phases ending at 1024^2 take final (3, 2048, 2048)
+TWO_D_ARGS = [
+    "pgan", "<data>", "--start_shape", "(3, 4, 4)", "--final_shape", "(3, 2048, 2048)",
+    "--starting_phase", "6", "--ending_phase", "7", "--latent_dim", "512",
+    "--network_size", "m", "--conv_kernel_size", "3", "3", "--base_batch_size", "512",
+    "--mixing_nimg", "32", "--stabilizing_nimg", "32", "--loss_fn", "wgan", "--gp_weight",
+    "10", "--noise_stddev", "0", "--g_lr", "1e-3", "--d_lr", "2.5e-3", "--optimizer", "Adam",
+    "--d_use_different_optimizer", "--d_optimizer", "LAMB", "--weight_decay", "0.004",
+    "--compute_dtype", "bfloat16", "--use_pallas_fusion", "--summary_small_every_nsteps",
+    "16", "--summary_large_every_nsteps", "32", "--checkpoint_every_nsteps", "32",
+    "--disable_grad_histograms"]
+TWO_D_PHASES = (6, 7)
+TWO_D_BATCH = {6: 16, 7: 8}
+TWO_D_NIMG = 32  # images per half
+TWO_D_LAST_START = 2 * TWO_D_NIMG  # global image count at which phase 7 begins
+TWO_D_REQUESTS = [(1, 301), (3, 302), (8, 303), (8, 304)]  # (num_samples, seed)
 FUSED_SOURCE = "saragan_tpu_torch/csrc/fused_bias_act.cu"
 MBSTD_SOURCE = "saragan_tpu_torch/csrc/minibatch_stddev.cu"
 STANDALONE_3 = "standalone: no path of the JAX package runs it (saragan_tpu/ops/core.py:553)"
@@ -1026,12 +1082,17 @@ def run_trainer(data: Path, logdir: Path):
     (``METRIC_ARGS``), counts set to 0 just before and read just after.  Returns (report,
     launches)."""
     zero_counts()
+    tee = _Tee(sys.stdout, re.compile(r"Input pipeline"))
     t0 = time.perf_counter()
-    cli.main(trainer_args(data, logdir, *METRIC_ARGS))
+    with contextlib.redirect_stdout(tee):
+        cli.main(trainer_args(data, logdir, *METRIC_ARGS))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = read_counts()
     check(counts["plain"] == 0, f"trainer: {counts['plain']} plain-version calls on the card")
+    pipeline_log = [line for _, line in tee.hits]
+    check(len(pipeline_log) == 2 and all("native C++ prefetcher" in line for line in pipeline_log),
+          f"trainer: the log does not name the native prefetcher: {pipeline_log}")
     for k in ("forward", "dgrad", "wgrad", "fused", "fused_grad"):
         check(counts[k] > 0, f"trainer: kernel {k} not launched ({counts})")
     check(counts["conv_simt"] == counts["wgrad_simt"] == 0
@@ -1053,7 +1114,10 @@ def run_trainer(data: Path, logdir: Path):
     events = _events(logdir)
     engines = [e["text"] for e in events if e["tag"] == "config/conv_engine"]
     check(engines == ["flat"], f"trainer without --conv_engine on the card: engine {engines}")
-    report = dict(wall_s=wall_s, launches=counts, conv_engine=engines[0], phases={})
+    pipelines = [e["text"] for e in events if e["tag"] == "config/input_pipeline"]
+    check(pipelines == ["native", "native"], f"trainer: input pipelines {pipelines}")
+    report = dict(wall_s=wall_s, launches=counts, conv_engine=engines[0], phases={},
+                  input_pipeline=pipelines[0])
     for phase, lo, hi in ((5, 0, PHASE6_START), (6, PHASE6_START, 10 ** 9)):
         ev = [e for e in events if lo <= e["step"] < hi]
         for tag in ("Loss/d_loss", "Loss/g_loss", "Loss/gp"):
@@ -1094,6 +1158,8 @@ def run_trainer(data: Path, logdir: Path):
         row["metric_passes_s"] = metric_s
         row["ms_per_step_without_metrics"] = statistics.median(steps)
         row["ms_per_step_with_metrics"] = (sum(steps) + 1e3 * sum(metric_s)) / len(steps)
+        row["input_wait_ms"] = [e["value"] for e in after
+                                if e["tag"] == "Timing/input_wait_ms"][0]
         report["phases"][phase] = row
         print(f"trainer phase {phase}: mixing {row['mixing_ms_per_step']:.2f} ms/step, "
               f"stabilizing {row['stabilizing_ms_per_step']:.2f} ms/step (median after the "
@@ -1104,9 +1170,32 @@ def run_trainer(data: Path, logdir: Path):
               f"peak {row['peak_mib']:.0f} MiB; ms/step {row['ms_per_step_without_metrics']:.2f} "
               f"without the metric passes (median), {row['ms_per_step_with_metrics']:.2f} with "
               f"their host time ({[round(v, 2) for v in metric_s]} s) spread over the "
-              f"{len(steps)} steps; metrics {row['metrics']}", flush=True)
+              f"{len(steps)} steps; metrics {row['metrics']}; input wait "
+              f"{row['input_wait_ms']:.3f} ms/step (native prefetcher)", flush=True)
     print(f"trainer: {wall_s:.1f} s wall for phases 5 and 6, launches {counts}", flush=True)
     return report
+
+
+def run_trainer_thread(data: Path, logdir: Path, native_run: Path):
+    """Phase 5 of the same command alone with --no_native_prefetch (the Python prefetch
+    thread) and no metric passes: its model_5.npz must equal the native run's bit for
+    bit.  Returns its input wait."""
+    args = trainer_args(data, logdir, "--no_native_prefetch")
+    args[args.index("--ending_phase") + 1] = "5"
+    t0 = time.perf_counter()
+    cli.main(args)
+    wall_s = time.perf_counter() - t0
+    events = _events(logdir)
+    pipelines = [e["text"] for e in events if e["tag"] == "config/input_pipeline"]
+    check(pipelines == ["python_thread"], f"--no_native_prefetch: pipelines {pipelines}")
+    with (np.load(native_run / "model_5.npz") as a, np.load(logdir / "model_5.npz") as b):
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        check(sorted(a.files) == sorted(b.files) and not differ,
+              f"the Python thread's model_5.npz differs from the native run's in {differ}")
+    wait = [e["value"] for e in events if e["tag"] == "Timing/input_wait_ms"][0]
+    print(f"trainer phase 5 with the Python prefetch thread: input wait {wait:.3f} ms/step, "
+          f"model_5.npz bit-equal to the native run's, {wall_s:.1f} s", flush=True)
+    return dict(input_wait_ms=wait, wall_s=wall_s)
 
 
 def check_bitwise_resume(data: Path, logdir: Path, uninterrupted: Path):
@@ -2440,6 +2529,297 @@ def tools(detail, checked, model_path: Path, cfg):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the 2-D path
+# ---------------------------------------------------------------------------
+
+
+def write_jpegs(root: Path):
+    """A seeded JPEG class folder: one class, 64 train and 16 test images of 256^2 RGB
+    (smooth fields plus noise, quality 90), written with PIL."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.meshgrid(np.linspace(-1, 1, 256), np.linspace(-1, 1, 256), indexing="ij")
+    for split, n in (("train", 64), ("test", 16)):
+        d = root / split / "n00000001"
+        d.mkdir(parents=True)
+        for i in range(n):
+            f = rng.uniform(1, 6, size=(3, 2))
+            base = np.stack([np.sin(f[c, 0] * yy) * np.cos(f[c, 1] * xx) for c in range(3)], -1)
+            img = np.clip(127.5 * (1 + base) + rng.normal(0, 12, size=base.shape), 0, 255)
+            Image.fromarray(img.astype(np.uint8)).save(d / f"img_{i:03d}.JPEG", quality=90)
+
+
+def check_decoder(root: Path):
+    """The JPEG decoder this machine has, printed, and held: libjpeg's batch decode within
+    1.5/127.5 of PIL and its resize bit-equal to the plain PyTorch resize; PIL's
+    antialiased resize within 1.5/127.5 of the plain resize of PIL's own pixels.  The
+    first 16 train images at 128^2 (phase 6)."""
+    from PIL import Image
+
+    decoder = jpeg_decoder()
+    name = decoder_name(decoder)
+    print(f"JPEG decoder: {name} (jpeglib.h {'found' if _build.JPEG_HEADER.is_file() else 'absent'})",
+          flush=True)
+    check(native.have_jpeg() == _build.JPEG_HEADER.is_file(),
+          "the host library's libjpeg decoder does not follow jpeglib.h")
+    files = sorted(str(p) for p in (root / "train").rglob("*.JPEG"))[:16]
+    size = 128
+    t0 = time.perf_counter()
+    if decoder == "libjpeg":
+        imgs = native.decode_jpeg_batch(files, size, 3)
+    else:
+        imgs = np.stack([imagenet._decode_resize(f, size, 3) for f in files])
+    decode_s = time.perf_counter() - t0
+    plain_err = 0.0
+    for f, img in zip(files, imgs):
+        with Image.open(f) as im:
+            pixels = torch.from_numpy(np.array(im.convert("RGB")))
+        plain = native.resize_triangle_plain(pixels, size).numpy()
+        plain_err = max(plain_err, float(np.abs(plain - img).max()))
+    if decoder == "libjpeg":
+        pil = np.stack([imagenet._decode_resize(f, size, 3) for f in files])
+        check(plain_err == 0.0, f"libjpeg resize differs from the plain resize by {plain_err}")
+        pil_err = float(np.abs(pil - imgs).max())
+        check(pil_err < 1.5 / 127.5, f"libjpeg decode differs from PIL by {pil_err}")
+    else:
+        pil_err = 0.0
+        check(plain_err < 1.5 / 127.5, f"PIL's resize differs from the plain one by {plain_err}")
+    report = dict(decoder=decoder, name=name, images=len(files), size=size,
+                  ms_per_image=1e3 * decode_s / len(files), plain_max_abs_diff=plain_err,
+                  pil_max_abs_diff=pil_err)
+    print(f"decoder: {report}", flush=True)
+    return report
+
+
+def check_native_prefetch(tmp: Path):
+    """The native prefetcher against the Python path on the same paths: 3 batches of 8
+    flagship phase-6 volumes (32x128x128, normalized by mean 0.5 / stddev 2), f32 and bf16,
+    bit for bit, each landing pinned; the wall time of the 3 batches each way, after a
+    first pass of each that warms the page cache and the pinned-memory pool."""
+    d = tmp / "128x128"
+    d.mkdir(parents=True)
+    rng = np.random.default_rng(1)
+    for i in range(12):
+        np.save(d / f"{i:03d}.npy", rng.standard_normal((32, 128, 128), dtype=np.float32))
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float32, torch.bfloat16):
+        stream = NumpyPathDataset(str(d), seed=3)
+        python = NumpyPathDataset(str(d), seed=3)
+        t0 = time.perf_counter()
+        pf = native.NativeBatchPrefetcher(lambda: stream.batch_paths(8), stream.shape, 0.5, 2.0,
+                                          out_dtype=dtype, pin_memory=True)
+        try:
+            got = [next(pf) for _ in range(3)]
+        finally:
+            pf.stop()
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [torch.from_numpy(np.ascontiguousarray(normalize_numpy(
+            python.batch(8), 0.5, 2.0), np.float32)).to(dtype) for _ in range(3)]
+        python_s = time.perf_counter() - t0
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        check(all(g.is_pinned() and g.dtype == dtype and torch.equal(g.view(bits), w.view(bits))
+                  for g, w in zip(got, want)),
+              f"native prefetcher ({dtype}): batches differ from the Python path's")
+        report[str(dtype)[6:]] = dict(native_s=native_s, python_s=python_s)  # the second
+    print(f"native prefetcher: f32 and bf16 batches bit-equal to the Python path's, pinned; "
+          f"3 batches of 8 volumes {report}", flush=True)
+    return report
+
+
+def two_d_args(data: Path, logdir: Path):
+    return [str(data) if a == "<data>" else a for a in TWO_D_ARGS] + ["--logdir", str(logdir)]
+
+
+def two_d_config():
+    return cli.config_from_args(cli.build_parser().parse_args(
+        two_d_args(Path("unused"), Path("unused")))).finalize()
+
+
+def run_two_d_trainer(data: Path, logdir: Path):
+    """The 2-D pgan through ``cli.main`` from phase 6 into phase 7, counts set to 0 just
+    before and read just after."""
+    zero_counts()
+    tee = _Tee(sys.stdout, re.compile(r"JPEG decoder|Input pipeline"))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        cli.main(two_d_args(data, logdir))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["plain"] == 0, f"2-D trainer: {counts['plain']} plain-version calls")
+    check(counts["fused"] > 0 and counts["fused_grad"] > 0,
+          f"2-D trainer: #4 forward / backward not launched ({counts})")
+    check(counts["forward"] == counts["dgrad"] == counts["wgrad"] == 0,
+          f"2-D trainer: a conv kernel launched at rank 2 ({counts})")
+    log = [line for _, line in tee.hits]
+    check(any(line.startswith("JPEG decoder: ") for line in log), f"2-D trainer log: {log}")
+    first, last = TWO_D_PHASES
+    params = {}
+    for p in (first, last):
+        check((logdir / f"model_{p}.npz").is_file(), f"2-D trainer: model_{p}.npz not written")
+        params[p], _, _ = ckpt.load_params(str(logdir / f"model_{p}.npz"), "cpu")
+        convs = {k: tuple(v.shape) for k, v in params[p].items() if k.endswith("/weight")
+                 and v.ndim == 4}
+        check(convs and all(s[:2] in ((3, 3), (1, 1)) for s in convs.values())
+              and all(v.ndim <= 4 for v in params[p].values())
+              and all(torch.isfinite(v).all() for v in params[p].values()),
+              f"2-D trainer: model_{p}.npz weights {convs}")
+    # the cadence checkpoint after phase 7's mixing half
+    c7, _, _ = ckpt.load_params(
+        str(logdir / f"model_{last}_ckpt_{TWO_D_LAST_START + TWO_D_NIMG}.npz"), "cpu")
+    shared = [k for k in params[first] if k in c7]
+    check(all(f"_rgb_{first - 1}/" in k for k in params[first] if k not in c7)
+          and all(torch.equal(c7[k], params[first][k]) for k in shared) and shared,
+          "2-D trainer: phase 7 did not keep model_6's weights through its frozen mixing half")
+    events = _events(logdir)
+    pipelines = [e["text"] for e in events if e["tag"] == "config/input_pipeline"]
+    check(pipelines == ["python_thread"] * 2, f"2-D trainer pipelines {pipelines}")
+    report = dict(wall_s=wall_s, launches=counts, log=log, phases={})
+    for p, lo, hi in ((first, 0, TWO_D_LAST_START), (last, TWO_D_LAST_START, 10 ** 9)):
+        ev = [e for e in events if lo <= e["step"] < hi]
+        after = [e for e in events if lo < e["step"] <= hi]
+        for tag in ("Loss/d_loss", "Loss/g_loss", "Loss/gp"):
+            vals = [e["value"] for e in ev if e["tag"] == tag]
+            check(vals and all(math.isfinite(v) for v in vals), f"2-D phase {p}: {tag} {vals}")
+        row = {}
+        for half in ("mixing", "stabilizing"):
+            ms = [e["value"] for e in ev if e["tag"] == f"Timing/step_ms_{half}"]
+            check(len(ms) >= 2, f"2-D phase {p} {half}: {len(ms)} timed steps")
+            row[f"{half}_ms_per_step"] = statistics.median(ms[1:])
+            row[f"{half}_ms_all"] = ms
+        img_s = [e["value"] for e in after if e["tag"] == "img_s" and e["value"] > 0]
+        row["img_s"] = img_s[-1] if img_s else None
+        row["peak_mib"] = [e["value"] for e in after
+                           if e["tag"] == "memory/phase_peak_bytes"][0] / 2 ** 20
+        row["input_wait_ms"] = [e["value"] for e in after
+                                if e["tag"] == "Timing/input_wait_ms"][0]
+        report["phases"][p] = row
+        print(f"2-D phase {p} (batch {TWO_D_BATCH[p]}): mixing {row['mixing_ms_per_step']:.2f} "
+              f"ms/step, stabilizing {row['stabilizing_ms_per_step']:.2f} ms/step (median after "
+              f"the first, CUDA events; all {[round(v, 2) for v in row['mixing_ms_all']]} / "
+              f"{[round(v, 2) for v in row['stabilizing_ms_all']]}), img/s {row['img_s']}, "
+              f"peak {row['peak_mib']:.0f} MiB, input wait {row['input_wait_ms']:.3f} ms/step",
+              flush=True)
+    print(f"2-D trainer: {wall_s:.1f} s wall for phases {first} and {last}, launches {counts}",
+          flush=True)
+    return report
+
+
+def serve_two_d(model_path: Path, cfg):
+    """The phase-7 EMA generator served at batch 8 in f32: 4 concurrent requests of RGB
+    256^2 images, counts set to 0 just before and read just after."""
+    phase = TWO_D_PHASES[1]
+    image = list(cfg.current_shape(phase, 1)[1:])
+    service = GeneratorService.from_checkpoint("pgan", str(model_path), cfg=cfg, phase=phase,
+                                               batch_size=8, device="cuda")
+    srv = make_server(service, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        service.warmup()
+        check(_get(url + "/info")["volume_shape"] == image, "2-D info shape")
+        batches0 = service.stats["batches"]
+        zero_counts()
+        results, errors = {}, []
+
+        def client(num, seed):
+            try:
+                results[seed] = _post(url + "/generate", {"num_samples": num, "seed": seed})
+            except Exception as e:  # noqa: BLE001 (reported by the check below)
+                errors.append(f"seed {seed}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=r) for r in TWO_D_REQUESTS]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in threads), f"2-D requests: {errors}")
+        counts = read_counts()
+        stats = _get(url + "/stats")
+        dispatches = stats["batches"] - batches0
+        convs_per_forward = 1 + 2 * (phase - 1)
+        check(stats["max_requests_coalesced"] >= 2, f"2-D serve: no coalescing: {stats}")
+        check(counts["fused"] == convs_per_forward * dispatches and counts["plain"] == 0
+              and counts["forward"] == 0,
+              f"2-D serve: {counts} over {dispatches} dispatches")
+        for num, seed in TWO_D_REQUESTS:
+            v = np.load(io.BytesIO(results[seed]))
+            check(v.shape == (num, *image) and v.dtype == np.float32 and np.isfinite(v).all(),
+                  f"2-D serve seed {seed}: shape {v.shape}, finite {np.isfinite(v).all()}")
+            alone = np.load(io.BytesIO(_post(url + "/generate",
+                                             {"num_samples": num, "seed": seed})))
+            check(np.array_equal(alone, v), f"2-D serve seed {seed}: alone differs from "
+                                            f"coalesced by {np.abs(alone - v).max()}")
+        png = _post(url + "/generate", {"num_samples": 4, "format": "png"})
+        check(png[:8] == b"\x89PNG\r\n\x1a\n", "2-D serve: png")
+        g_params, _ = _load_generator_params(str(model_path), True, "cuda")
+        sampler = make_keyed_sampler(cfg, phase, 8, device="cuda")
+        seeds = np.arange(8, dtype=np.int32)
+        forward_ms = time_ms(lambda: sampler(g_params, seeds, seeds))
+        report = dict(dispatches=dispatches, launches=counts, burst_s=burst_s,
+                      forward_ms=forward_ms, max_requests_coalesced=stats["max_requests_coalesced"])
+        print(f"2-D serve: {dispatches} dispatches for {len(TWO_D_REQUESTS)} concurrent "
+              f"requests, #4 {counts['fused']} launches ({convs_per_forward} per dispatch), "
+              f"forward {forward_ms:.3f} ms/batch-8 (CUDA events), burst {burst_s:.3f} s",
+              flush=True)
+        return report
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.close()
+        thread.join(timeout=30)
+
+
+def two_d(detail):
+    """Phase 16: the decoder, the native prefetcher, the 2-D CLI run 6 -> 7, serving its
+    phase-7 generator, and #4 at every 2-D shape of the run and the server.  Returns
+    (report, kernel entries: serving f32, step bf16 forward and backward)."""
+    cfg = two_d_config()
+    first, last = TWO_D_PHASES
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_jpegs(tmp / "jpegs")
+        report["decoder"] = check_decoder(tmp / "jpegs")
+        report["native_prefetch"] = check_native_prefetch(tmp / "npy")
+        report["trainer"] = run_two_d_trainer(tmp / "jpegs", tmp / "run")
+        report["serve"] = serve_two_d(tmp / "run" / f"model_{last}.npz", cfg)
+    serve_shapes = serving_shapes(cfg, last, 8)[0]
+    shapes = {p: serving_shapes(cfg, p, TWO_D_BATCH[p])[0] for p in TWO_D_PHASES}
+    check(len(serve_shapes) == 1 + 2 * (last - 1), f"2-D serving shapes {serve_shapes}")
+    serve_entry = check_fused(serve_shapes, detail)
+    check_train_fused(shapes[first], detail)  # held, and timed in the detail
+    train_fwd, train_bwd = check_train_fused(shapes[last], detail)
+    return report, (serve_entry, train_fwd, train_bwd)
+
+
+def two_d_entries(report, entries):
+    serve_entry, train_fwd, train_bwd = entries
+    launches = report["trainer"]["launches"]
+    last = TWO_D_PHASES[1]
+    per_serve = (f"one 2-D phase-{last} batch-8 f32 serving forward (sum over its launches); "
+                 f"launches counted over {report['serve']['dispatches']} dispatches")
+    per_step = (f"one 2-D phase-{last} batch-8 bf16 train step's G forward / backward (sum over "
+                f"its shapes); launches counted over the CLI run of phases 6 and 7, summaries "
+                f"included")
+    return [("fused_bias_act_pixelnorm[serve,2d,f32]", "cuda", FUSED_SOURCE,
+             "saragan_tpu/ops/pallas_kernels.py:112", serve_entry,
+             report["serve"]["launches"]["fused"], None, per_serve,
+             report["serve"]["dispatches"]),
+            ("fused_bias_act_pixelnorm[train,2d,bf16]", "cuda", FUSED_SOURCE,
+             "saragan_tpu/ops/pallas_kernels.py:112", train_fwd, launches["fused"], None,
+             per_step, None),
+            ("fused_bias_act_pixelnorm_grad[train,2d,bf16]", "cuda", FUSED_SOURCE,
+             "saragan_tpu/ops/pallas_kernels.py:123", train_bwd, launches["fused_grad"], None,
+             per_step, None)]
+
+
 def kernel_row(name, route, source, replaces, e, launches, library, per_what, unit):
     """One entry of the kernels line."""
     check(launches > 0, f"{name}: not launched")
@@ -2535,6 +2915,18 @@ def main(argv=None) -> int:
             default=str))
         return 0
 
+    if args.only == "two_d":  # this phase alone, for working on it: no result line
+        detail = []
+        report, entries = two_d(detail)
+        phase_done("two_d")
+        rows = [kernel_row(*r) for r in two_d_entries(report, entries)]
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_two_d.json").write_text(json.dumps(dict(
+            card=card, two_d=report, kernels=rows, shapes=detail, seconds=seconds),
+            indent=1, default=str))
+        print("2-D kernels: " + json.dumps(rows), flush=True)
+        return 0
+
     if args.only == "families":  # this phase alone, for working on it: no result line
         detail = []
         fam, fam_launches, fam_convs = families(detail, (set(), set()))
@@ -2597,6 +2989,7 @@ def main(argv=None) -> int:
         trainer = run_trainer(tmp / "data", tmp / "run")
         trained_model = Path(keep.name) / f"model_{PHASE}.npz"
         shutil.copy(tmp / "run" / f"model_{PHASE}.npz", trained_model)
+        trainer["python_thread"] = run_trainer_thread(tmp / "data", tmp / "thread", tmp / "run")
         phase_done("trainer")
         resume = check_bitwise_resume(tmp / "data", tmp / "resumed", tmp / "run")
         phase_done("bitwise resume")
@@ -2640,6 +3033,11 @@ def main(argv=None) -> int:
     tools_report = tools(detail, checked, trained_model, cfg)
     keep.cleanup()
     phase_done("tools")
+
+    # the 2-D path: the decoder, the native prefetcher, the ProGAN-width CLI run 6 -> 7,
+    # serving its phase-7 generator, #4 at every 2-D shape
+    two_d_report, two_d_kernels = two_d(detail)
+    phase_done("two_d")
 
     main_launches = served["flat"][2]
     dispatches = served["flat"][1]["dispatches"]
@@ -2706,6 +3104,7 @@ def main(argv=None) -> int:
              None))]
     kernels += [kernel_row(*r) for r in big_volume_entries(big_kernels, big_launches)]
     kernels += [kernel_row(*r) for r in family_entries(fam_convs, fam_launches)]
+    kernels += [kernel_row(*r) for r in two_d_entries(two_d_report, two_d_kernels)]
     f32_train = {f"{kind}[f32]": {x: e[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "max_abs_err", "launches_per_step")}
                  for (kind, dt), e in train_convs.items() if dt == "float32"}
@@ -2715,7 +3114,8 @@ def main(argv=None) -> int:
         card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train, ptxas=ptxas,
         serving={e: served[e][1] for e in served}, training=training,
         engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume, metrics=metrics,
-        big_volume=big, families=fam, hpo=hpo_report, tools=tools_report, seconds=seconds),
+        big_volume=big, families=fam, hpo=hpo_report, tools=tools_report, two_d=two_d_report,
+        seconds=seconds),
         indent=1, default=str))
     print(f"serving: " + json.dumps({e: served[e][1] for e in served}), flush=True)
     print("training: " + json.dumps({e: {h: dict(step_ms=r["step_ms"], peak_mib=r["peak_mib"])
@@ -2726,7 +3126,9 @@ def main(argv=None) -> int:
     print("trainer: " + json.dumps(dict(
         launches=trainer["launches"], wall_s=trainer["wall_s"],
         phases={p: {k: v for k, v in r.items() if not k.endswith("_all")}
-                for p, r in trainer["phases"].items()})), flush=True)
+                for p, r in trainer["phases"].items()},
+        python_thread_phase5_input_wait_ms=trainer["python_thread"]["input_wait_ms"])),
+        flush=True)
     print("metrics: " + json.dumps({k: v for k, v in metrics.items()}), flush=True)
     print("big volume: " + json.dumps({k: big[k] for k in ("step_ms", "vol_s", "peak_mib",
                                                            "host_mib", "first_step")}),
@@ -2747,6 +3149,11 @@ def main(argv=None) -> int:
         tf_checkpoint_s=tools_report["tf_checkpoint"]["seconds"],
         crc32c_mb_s=tools_report["tf_checkpoint"]["crc32c_mb_s"],
         pyramid_s=tools_report["prepare_data"]["stages_s"])), flush=True)
+    print("2-D: " + json.dumps(dict(
+        decoder=two_d_report["decoder"]["name"],
+        phases={p: {k: v for k, v in r.items() if not k.endswith("_all")}
+                for p, r in two_d_report["trainer"]["phases"].items()},
+        serve_forward_ms=two_d_report["serve"]["forward_ms"])), flush=True)
     print("seconds: " + json.dumps(seconds), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2760,7 +3167,8 @@ def _parse(argv):
     import argparse
 
     p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
-    p.add_argument("--only", choices=["big_volume", "families", "hpo", "tools"], default=None,
+    p.add_argument("--only", choices=["big_volume", "families", "hpo", "tools", "two_d"],
+                   default=None,
                    help="build, then run this phase alone (no result line)")
     return p.parse_args(argv)
 

@@ -13,9 +13,11 @@ unless named; ``--device cpu`` trains on the CPU).  ``main`` goes through
 (``--optuna_use_best_trial``) or an inter-trial worker (``--optuna_distributed``); on a
 SIGTERM or SIGINT it prints the resume hint and exits 75.  ``--single_chip_big_volume``
 is the reference's preset for phases 7 and 8 on one device (``config.py``: host-offloaded
-block taps, the unstacked critic, unfused transitions, the ``flat`` engine).  Flags of
-options the port does not run yet (``--horovod``, ``--dataset imagenet``) are accepted and
-raise ``NotImplementedError`` naming ROADMAP.md.
+block taps, the unstacked critic, unfused transitions, the ``flat`` engine).
+``--dataset imagenet`` (or a 2-D shape and a ``train/`` folder under the dataset path)
+reads JPEG class folders; ``--native_prefetch`` (the default) / ``--no_native_prefetch``
+pick the C++ prefetch executor or the Python thread for the npy pyramid.  ``--horovod``
+is accepted and raises ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("architecture", type=str)
     p.add_argument("dataset_path", type=str)
     p.add_argument("--dataset", type=none_or_str, default=None,
-                   help="dataset kind; 'imagenet' is not ported")
+                   help="dataset kind: None (the npy pyramid, or JPEG class folders for a "
+                        "2-D shape whose dataset_path has a train/ folder) or 'imagenet'")
     p.add_argument("--start_shape", type=str, required=True,
                    help="shape of the data at phase 1, '(c, z, y, x)'")
     p.add_argument("--final_shape", type=str, required=True)
@@ -220,6 +223,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_stddev", default=None, type=none_or_float)
     # numerics, device
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--native_prefetch", dest="native_prefetch", default=True,
+                   action="store_true",
+                   help="C++ prefetch executor for the npy pyramid (default on; built with "
+                        "g++ at first use)")
+    p.add_argument("--no_native_prefetch", dest="native_prefetch", action="store_false",
+                   help="the Python prefetch thread instead")
     p.add_argument("--transfer_dtype", default="auto",
                    choices=["auto", "float32", "float16", "bfloat16"],
                    help="host->device batch dtype; auto = bfloat16 under bfloat16 compute")

@@ -8,8 +8,8 @@ cuDNN, the reference's choice off the TPU; or "flat", the hand-written kernels),
 down to every conv, never a process-wide gate.  Left "unset", the trainer resolves it
 for its device (``resolve_conv_engine``), as the reference's ``apply_runtime_opts`` picks
 an engine by backend.  Fields of options the port does not run
-yet (``horovod``, the ImageNet dataset) are kept so a configuration reads the same in both
-packages; the code that meets them raises and names ROADMAP.md.  ``g_annealing`` and
+yet (``horovod``) are kept so a configuration reads the same in both packages; the code
+that meets them raises and names ROADMAP.md.  ``g_annealing`` and
 ``d_annealing`` are fields only, in the reference too.
 
 ``single_chip_big_volume`` is the reference's preset for phases 7 and 8 (64x256x256 and
@@ -83,7 +83,8 @@ def default_filter_spec(num_phases: int, base_shape, size: str = "xs", ndim: int
 class Config:
     architecture: str = "pgan"
     dataset_path: str = ""
-    # dataset kind: None = the npy pyramid; "imagenet" (the 2-D path) is not ported
+    # dataset kind: None = the npy pyramid, or for a 2-D config whose dataset_path holds
+    # a train/ folder the JPEG class folders; "imagenet" = the JPEG class folders
     dataset: Optional[str] = None
     start_shape: str = "(1, 4, 4, 4)"
     final_shape: str = "(1, 32, 32, 32)"
@@ -213,6 +214,9 @@ class Config:
     optuna_square_kernels: bool = False
     # host->device batch dtype; "auto" = bfloat16 under bfloat16 compute, else float32
     transfer_dtype: str = "auto"
+    # the C++ prefetch executor for path-based datasets (data/native.py); off: the
+    # Python prefetch thread
+    native_prefetch: bool = True
     profile_dir: Optional[str] = None  # torch.profiler trace of steps 5-10 of the first phase
     full_state_checkpoints: bool = False  # cadence checkpoints also save the full state
     graceful_shutdown: bool = True  # SIGTERM/SIGINT: finish the step, checkpoint, exit 75

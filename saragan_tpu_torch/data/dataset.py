@@ -9,10 +9,11 @@
   epoch e of a dataset with seed s is shuffled by ``random.Random(f"{s}/{e}")``, so the
   same seed gives the same file order as the reference, and ``fast_forward`` can skip
   whole epochs arithmetically when a run resumes mid-phase;
-* a background-thread ``Prefetcher``.
-
-The reference's native C++ loader (``saragan_tpu/data/native.py``) is not ported: files
-are read with ``np.load``, as the reference does when that library is not built.
+* a background-thread ``Prefetcher``;
+* the port's native C++ reader (``data/native.py``) for a batch of same-shape files, as
+  the reference reads them when its library is built: one thread pool decodes every file
+  straight into the float32 batch.  A batch it cannot read (shapes differ) falls back to
+  one file at a time, each also read natively.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from saragan_tpu_torch.config import parse_tuple
+from saragan_tpu_torch.data import native
 
 
 class NumpyPathDataset:
@@ -124,9 +126,13 @@ class NumpyPathDataset:
 
     # -- batching -------------------------------------------------------------------
 
-    @staticmethod
-    def _load_batch_from_filelist(batch_paths: Sequence[str]) -> np.ndarray:
-        batch = [np.load(p).astype("float32") for p in batch_paths]
+    def _load_batch_from_filelist(self, batch_paths: Sequence[str]) -> np.ndarray:
+        n = len(batch_paths)
+        if n > 0 and hasattr(self, "shape"):
+            out = np.empty((n, *self.shape[1:]), np.float32)
+            if native.load_npy_batch(list(batch_paths), out, num_threads=min(8, n)):
+                return out[:, np.newaxis, ...]
+        batch = [native.load_npy(p).astype("float32") for p in batch_paths]
         if batch:
             batch = np.stack(batch)[:, np.newaxis, ...]
         return batch

@@ -1,10 +1,13 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its own into
-``build/lib<name>_<digest>.so`` (nvcc's output beside it, ``.log``), where the digest
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its own by nvcc
+into ``build/lib<name>_<digest>.so`` (nvcc's output beside it, ``.log``), where the digest
 covers the source, the shared headers (``csrc/*.cuh``) and the flags, so a changed source
-never loads a stale library.  The build happens at first use, on the machine with the
-card; nothing here runs at import time.
+never loads a stale library.  The host library (``csrc/host/*.cc``: the npy reader, the
+prefetch executor and the JPEG decoder) is compiled by g++ the same way into
+``build/libsaragan_io_<digest>.so``, with ``-DSARAGAN_HAVE_JPEG -ljpeg`` where
+``jpeglib.h`` exists.  A build happens at first use, never at import time, and a failed
+one raises with the compiler's log.
 """
 
 from __future__ import annotations
@@ -122,3 +125,59 @@ def load_library(name: str) -> ctypes.CDLL:
     if not library_path(name).exists():
         build_all()
     return ctypes.CDLL(str(library_path(name)))
+
+
+HOST_DIR = CSRC_DIR / "host"
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
+JPEG_HEADER = Path("/usr/include/jpeglib.h")
+
+
+def host_sources() -> list:
+    return sorted(HOST_DIR.glob("*.cc"))
+
+
+def host_flags() -> tuple:
+    """(compile flags, link flags): libjpeg's where its header exists, as the JAX
+    package's ``runtime/Makefile`` probes."""
+    if JPEG_HEADER.is_file():
+        return HOST_FLAGS + ("-DSARAGAN_HAVE_JPEG",), ("-ljpeg",)
+    return HOST_FLAGS, ()
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256()
+    for src in host_sources():
+        h.update(src.read_bytes())
+    h.update(" ".join(sum(host_flags(), ())).encode())
+    return BUILD_DIR / f"libsaragan_io_{h.hexdigest()[:16]}.so"
+
+
+def build_host(out: Path = None, srcs=None) -> Path:
+    """Compile the host sources with g++ into `out` (default ``host_library_path()``);
+    raises with the compiler's output on a failure."""
+    out = Path(out or host_library_path())
+    srcs = [str(p) for p in (srcs or host_sources())]
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the host library needs a C++17 compiler "
+                           "(set CXX or put g++ on PATH)")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cflags, libs = host_flags()
+    proc = subprocess.run([cxx, *cflags, "-o", str(tmp), *srcs, *libs],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host library build failed ({cxx} exited {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_library() -> ctypes.CDLL:
+    """The ctypes handle of the host library, built first if needed."""
+    path = host_library_path()
+    if not path.exists():
+        build_host(path)
+    return ctypes.CDLL(str(path))

@@ -50,10 +50,18 @@ HPO: a ``trial`` (the engine's or Optuna's, with ``report(value, step)`` and
 weights; when it asks to prune past ``optuna_warmup_steps`` images into the phase the run
 raises ``TrialPruned``.  An uncalibrated (random-feature) FID is never reported.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP.md): a mesh or ``horovod``
-(item 12), the ImageNet / 2-D dataset (item 9).
-The reference's native C++ prefetcher is not ported either: the loop runs the Python
-prefetch thread, as the reference does without that library, and says so in its log.
+Data: the npy pyramid, or for ``dataset="imagenet"`` (or a 2-D config whose
+``dataset_path`` holds a ``train/`` folder) the JPEG class folders of
+``data/imagenet.py`` with ``max(1, num_labels)`` classes, by the reference's rule.  Input
+pipeline, by the reference's rule too: the C++ prefetch executor (``data/native.py``)
+when ``native_prefetch`` is on, ``data_mean`` / ``data_stddev`` are both set or both
+unset and the dataset is path-based (the npy pyramid); else the Python prefetch thread.
+The log and ``events.jsonl`` (``config/input_pipeline``) say which ran, and each phase
+writes the host's mean wait for its next batch (``Timing/input_wait_ms``, the first step
+left out).
+
+Not ported (raises ``NotImplementedError`` naming ROADMAP.md): a mesh or ``horovod``
+(item 12).
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ from saragan_tpu_torch import losses
 from saragan_tpu_torch._device import resolve_device
 from saragan_tpu_torch.config import Config, resolve_conv_engine
 from saragan_tpu_torch.data import NumpyPathDataset, Prefetcher, get_numpy_dataset, normalize_numpy
+from saragan_tpu_torch.data.native import NativeBatchPrefetcher
 from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.ops.core import LayerNoise, generator_seed
 from saragan_tpu_torch.optim.ema import fold_ema
@@ -159,6 +168,21 @@ def _sampler(sample, g_params, alpha: float):
     return lambda generator, n: sample(g_params, generator, n, alpha)
 
 
+class _OnDevice:
+    """A host-batch prefetcher whose batches go to `device` as they are taken (from
+    pinned memory without blocking the host on a CUDA device)."""
+
+    def __init__(self, host, device: torch.device):
+        self._host = host
+        self._device = device
+
+    def __next__(self) -> torch.Tensor:
+        return next(self._host).to(self._device, non_blocking=self._device.type == "cuda")
+
+    def stop(self):
+        self._host.stop()
+
+
 class Trainer:
     def __init__(self, cfg: Config, *, mesh=None,
                  dataset_factory: Optional[Callable[[int], NumpyPathDataset]] = None,
@@ -172,8 +196,6 @@ class Trainer:
         `device` is CUDA unless named."""
         if mesh is not None or cfg.horovod:
             _not_ported("training over a mesh or more than one process (queue 1 item 12)")
-        if cfg.dataset == "imagenet" or (cfg.dataset is None and cfg.ndim == 2):
-            _not_ported("the ImageNet / 2-D dataset (queue 1 item 9)")
         self.cfg = cfg
         self.device = resolve_device(device)
         # the run's engine, resolved for the device where unset: what the steps, the
@@ -233,6 +255,18 @@ class Trainer:
         if self.dataset_factory is not None:
             return self.dataset_factory(phase)
         cfg = self.cfg
+        if cfg.dataset == "imagenet" or (
+                cfg.dataset is None and cfg.ndim == 2
+                and os.path.isdir(os.path.join(cfg.dataset_path or "", "train"))):
+            # the 2-D JPEG class folders, resized per phase; the factory is kept so the
+            # listing and the scratch copy happen once across phases
+            from saragan_tpu_torch.data.imagenet import decoder_name, imagenet_dataset_factory
+
+            self.dataset_factory = imagenet_dataset_factory(
+                cfg, cfg.dataset_path, num_classes=max(1, cfg.num_labels or 1))
+            ds = self.dataset_factory(phase)
+            self._log(f"JPEG decoder: {decoder_name(ds.decoder)}")
+            return ds
         return get_numpy_dataset(phase, cfg.starting_phase, cfg.start_shape, cfg.dataset_path,
                                  cfg.scratch_path, verbose=self.verbose,
                                  copy_files=cfg.scratch_path is not None, seed=cfg.seed)
@@ -531,7 +565,7 @@ class Trainer:
             mixing_bool = bool(resume.get("mixing", mixing_bool)) and cfg.mixing_nimg > 0
             # replay the uninterrupted run's batch sequence: completed steps consumed
             # (local_step / batch_size) * global_batch paths of the shuffle stream
-            if local_step:
+            if local_step and hasattr(npy_train, "fast_forward"):
                 npy_train.fast_forward((local_step // batch_size) * global_batch)
             self._log(f"Resumed counters: step {global_step}, alpha {alpha}, "
                       f"mixing {mixing_bool}")
@@ -549,11 +583,27 @@ class Trainer:
             b = normalize_numpy(npy_train.batch(global_batch), cfg.data_mean, cfg.data_stddev)
             return self._to_device(b, transfer_dtype)
 
-        prefetcher = None
+        prefetcher, pipeline = None, "none"
         if self.prefetch:
-            prefetcher = Prefetcher(make_batch)
-            self._log("Input pipeline: Python prefetch thread (the native C++ prefetcher "
-                      "is not ported)")
+            both = (cfg.data_mean is None) == (cfg.data_stddev is None)
+            if (cfg.native_prefetch and both and hasattr(npy_train, "batch_paths")
+                    and getattr(npy_train, "shape", None) is not None):
+                # paths in Python (the deterministic stream; [pidx::nproc] with one
+                # process), read, normalize and round on the C++ pool into pinned memory
+                nproc, pidx = global_size, 0
+
+                def paths_fn():
+                    return npy_train.batch_paths(global_batch)[pidx::nproc]
+
+                host = NativeBatchPrefetcher(paths_fn, npy_train.shape, cfg.data_mean,
+                                             cfg.data_stddev, out_dtype=transfer_dtype,
+                                             pin_memory=dev.type == "cuda")
+                prefetcher, pipeline = _OnDevice(host, dev), "native"
+                self._log("Input pipeline: native C++ prefetcher (csrc/host/saragan_io.cc)")
+            else:
+                prefetcher, pipeline = Prefetcher(make_batch), "python_thread"
+                self._log("Input pipeline: Python prefetch thread")
+        self.writer.text("config/input_pipeline", pipeline, global_step)
         self._log(f"Begin mixing epochs in phase {phase}" if mixing_bool
                   else f"Begin stabilizing epochs in phase {phase}")
 
@@ -567,6 +617,7 @@ class Trainer:
         window_t0 = time.time()
         window_imgs = 0
         metrics = None
+        input_wait = []  # host seconds spent waiting for each step's batch
         try:
             while True:
                 d_lr_val = lr_schedule(in_phase_step, steps_per_phase, d_lr_max,
@@ -586,7 +637,9 @@ class Trainer:
                             + "_full", state, full_state_counters())
                         self._supersede_consumed_interrupt()
 
+                t_input = time.perf_counter()
                 batch = next(prefetcher) if prefetcher else make_batch()
+                input_wait.append(time.perf_counter() - t_input)
 
                 small_summary_bool = local_step % cfg.summary_small_every_nsteps < batch_size
                 large_summary_bool = local_step % cfg.summary_large_every_nsteps < batch_size
@@ -702,6 +755,9 @@ class Trainer:
                 self._stop_profiler(profiler, phase, profile_steps)
 
         self._log("\n\n\n End of phase.")
+        if len(input_wait) > 1:
+            self.writer.scalar("Timing/input_wait_ms",
+                               1e3 * float(np.mean(input_wait[1:])), global_step)
         if window_imgs > 0 and time.time() > window_t0:
             _ = float(metrics.gen_loss)  # device sync
             img_s = window_imgs / (time.time() - window_t0)

@@ -9,7 +9,9 @@ other family's f32 gradients under ``flat`` against ``direct``, a two-step CLI
 trainer run, every optimizer's update against the CPU's, a two-trial HPO study of the
 flagship configuration on the kernels, and the tools: an artifact exported and served on
 the card against the live generator, the data-preparation pyramid against the CPU and
-the network smoke test on the kernels.
+the network smoke test on the kernels; the fused op at the 2-D run's shapes (C = 512 on
+4^2 to 32^2, C = 64 on 256^2), a 2-D step on it with no conv kernel, and the native
+prefetcher's pinned batches.
 
 Needs an NVIDIA GPU and nvcc; skipped without them.  This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -994,3 +996,91 @@ def test_smoke_test_on_the_card_runs_the_kernels(cuda, capsys):
     assert cf.conv3d_flat_wgrad_cuda.launches > before[1]
     assert (cf.conv3d_flat_plain.calls, cf.conv3d_flat_wgrad_plain.calls) == plain
     assert "Total generator variables" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The 2-D path: #4 at ProGAN's widths, the 2-D step, the native prefetcher
+# ---------------------------------------------------------------------------
+
+# the G activations of the 2-D 'm' run: C = 512 at 4^2 .. 32^2 (batch 16, phase 6) and
+# the last block's C = 64 at 256^2 (batch 8, phase 7)
+TWO_D_FUSED = [(16, 512, 4, 4), (16, 512, 8, 8), (16, 512, 16, 16), (16, 512, 32, 32),
+               (8, 64, 256, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TWO_D_FUSED, ids=lambda s: "x".join(map(str, s)))
+def test_fused_kernels_at_the_2d_shapes(cuda, shape, dtype):
+    """Forward and backward at the 2-D shapes (C = 512 plans a backward item of 8 voxels
+    in f32): against the plain versions at the limits of the shapes above, bit-identical
+    on a rerun."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    b = torch.randn(shape[1], generator=g, device=cuda)
+    gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    launches = (fba.fused_bias_act_pixelnorm.launches, fba.fused_bias_act_pixelnorm_grad.launches)
+    y, y2 = (fba.fused_bias_act_pixelnorm(x, b, 0.2, True) for _ in range(2))
+    (gx, gb), (gx2, gb2) = (fba.fused_bias_act_pixelnorm_grad(x, b, gy, 0.2, True)
+                            for _ in range(2))
+    torch.cuda.synchronize()
+    assert (fba.fused_bias_act_pixelnorm.launches, fba.fused_bias_act_pixelnorm_grad.launches) \
+        == (launches[0] + 2, launches[1] + 2)
+    assert torch.equal(y, y2) and torch.equal(gx, gx2) and torch.equal(gb, gb2)
+    ry = fba.bias_act_pixelnorm_plain(x, b, 0.2, True)
+    rgx, rgb = fba.bias_act_pixelnorm_grad_plain(x, b, gy, 0.2, True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(gx, rgx, rtol=1e-5, atol=1e-6)
+        assert ((gb - rgb).abs().double() <= 1e-5 * rgb.abs() + _gb_tol(gx)).all()
+    else:
+        assert _rel_err(y, ry) <= 1e-2 and _rel_err(gx, rgx) <= 1e-2
+        assert _rel_err(gb, rgb) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_2d_train_step_runs_the_fused_kernels_and_no_conv_kernel(cuda, dtype):
+    """A 2-D pgan step (RGB, phase 3) with the fused op under the card's engine: #4's
+    forward and backward launch once per G conv, rank-2 convs go to cuDNN (no conv
+    kernel), no plain version runs, and the losses are finite."""
+    cfg = Config(architecture="pgan", start_shape="(3, 4, 4)", final_shape="(3, 32, 32)",
+                 latent_dim=32, network_size="xs", conv_kernel_size=(3, 3), loss_fn="wgan",
+                 gp_weight=10.0, use_pallas_fusion=True, compute_dtype=dtype).finalize()
+    arch = get_architecture("pgan")
+    state, (go, do) = init_train_state(arch, torch.Generator().manual_seed(0), phase=3,
+                                       cfg=cfg, device=cuda)
+    step = make_train_step(arch, cfg, 3, go, do, conv_engine="flat")
+    real = torch.randn(4, 3, 16, 16, generator=torch.Generator(device=cuda).manual_seed(6),
+                       device=cuda)
+    counts = (cf.conv3d_flat_cuda.launches, cf.conv3d_flat_wgrad_cuda.launches,
+              fba.fused_bias_act_pixelnorm.launches, fba.fused_bias_act_pixelnorm_grad.launches,
+              fba.bias_act_pixelnorm_plain.calls, fba.bias_act_pixelnorm_grad_plain.calls)
+    new, m = step(state, real, torch.Generator(device=cuda).manual_seed(7), 0.5, 1e-3, 1e-3)
+    torch.cuda.synchronize()
+    after = (cf.conv3d_flat_cuda.launches, cf.conv3d_flat_wgrad_cuda.launches,
+             fba.fused_bias_act_pixelnorm.launches, fba.fused_bias_act_pixelnorm_grad.launches,
+             fba.bias_act_pixelnorm_plain.calls, fba.bias_act_pixelnorm_grad_plain.calls)
+    assert [a - c for a, c in zip(after, counts)] == [0, 0, 5, 5, 0, 0]
+    assert all(torch.isfinite(v).item() for v in (m.gen_loss, m.disc_loss, m.gp_loss))
+    assert any(not torch.equal(new.g_params[k], state.g_params[k]) for k in state.g_params)
+
+
+def test_native_prefetcher_lands_batches_pinned(cuda, tmp_path):
+    import numpy as np
+
+    from saragan_tpu_torch.data import native
+
+    paths = []
+    for i in range(4):
+        paths.append(str(tmp_path / f"{i}.npy"))
+        np.save(paths[-1], np.random.default_rng(i).normal(size=(8, 16, 16)).astype(np.float32))
+    pf = native.NativeBatchPrefetcher(lambda: paths, (1, 8, 16, 16), 0.5, 2.0,
+                                      out_dtype=torch.bfloat16, pin_memory=True)
+    try:
+        host = next(pf)
+    finally:
+        pf.stop()
+    assert host.is_pinned() and host.dtype == torch.bfloat16
+    want = torch.from_numpy((np.stack([np.load(p) for p in paths])[:, None] - 0.5) / 2.0)
+    on_card = host.to(cuda, non_blocking=True)
+    torch.cuda.synchronize()
+    assert torch.equal(on_card.cpu(), want.float().to(torch.bfloat16))

@@ -36,8 +36,8 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the trainer slice's, the metrics slice's, the model families' and the HPO slice's
-# modules, which the hook must reach
+# the trainer slice's, the metrics slice's, the model families', the HPO slice's and the
+# input layer's modules, which the hook must reach
 REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             "saragan_tpu_torch.optim.factory", "saragan_tpu_torch.hpo",
             *(f"saragan_tpu_torch.hpo.{m}" for m in ("engine", "harness", "suggestions")),
@@ -47,7 +47,9 @@ REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             *(f"saragan_tpu_torch.metrics.{m}"
               for m in ("fid", "inception", "kms", "save_metrics", "skim", "swd")),
             *(f"saragan_tpu_torch.models.{m}"
-              for m in ("pgan2", "pgandeep", "style_ops", "stylegan", "stylegan2", "surfgan"))}
+              for m in ("pgan2", "pgandeep", "style_ops", "stylegan", "stylegan2", "surfgan")),
+            "saragan_tpu_torch.data.native", "saragan_tpu_torch.data.imagenet",
+            "saragan_tpu_torch.ops._build"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():

@@ -253,11 +253,25 @@ class FakeTrial:
 
 @pytest.mark.parametrize("change,match", [  # ids as before calc_metrics and profile_dir
     pytest.param(dict(horovod=True), "mesh", id="change1-mesh"),
-    pytest.param(dict(dataset="imagenet"), "ImageNet", id="change3-ImageNet")])
+    pytest.param(dict(dataset="imagenet"), None, id="change3-ImageNet")])
 def test_unported_options_raise(tmp_path, change, match):
+    """The mesh raises; the ImageNet dataset, ported since, takes the JPEG class folders
+    under the dataset path (tests/test_torch_2d.py holds it to the reference)."""
     cfg = Config(**base_cfg(tmp_path, **change)).finalize()
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(cfg, device="cpu")
+    if match is None:
+        from PIL import Image
+
+        from saragan_tpu_torch.data.imagenet import ImageDatasetAdapter
+
+        for split in ("train", "test"):
+            (tmp_path / "data" / split / "n001").mkdir(parents=True)
+            Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(
+                tmp_path / "data" / split / "n001" / "a.JPEG")
+        ds = Trainer(cfg, device="cpu", verbose=False)._get_dataset(1)
+        assert isinstance(ds, ImageDatasetAdapter) and ds.batch(2).shape == (2, 1, 4, 4)
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            Trainer(cfg, device="cpu")
     # an HPO trial runs (HPO is ported): without metrics nothing is reported or pruned
     make_data(tmp_path / "data")
     trial = FakeTrial()
