@@ -219,18 +219,45 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    phases (bf16 forward, f32 and bf16 backward) as phase 6, with the same limits, a
    sample alone bit-equal to its slot, bit-identical reruns, each shape's three times
    and bound;
-17. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+17. data parallelism (``--only parallel``) on the one card, which gives no scaling number
+   (NCCL refuses two ranks on one device, so two ranks run over gloo, their collectives
+   through host memory):
+   (a) NCCL at world size 1: the flagship step (phase 6, batch 8, bf16, flat; the mixing
+   half) through the data-parallel step, bit-equal to the plain step from the same state
+   and draws, with #1, #1', #2 and #4 launched as often as the plain step and phase 5
+   (counts set to 0 just before, read just after), NCCL's all-reduce kernel in a profiled
+   step; the ms of both steps (6 each, in turns) and of the all-reduce alone;
+   (b) two gloo ranks: ``tools.profile_parallel`` through ``torch.distributed.run``: the
+   DP step (8 rows a rank, 16 global) against the one-process step on the rank-major 16,
+   f32 (parameters rtol 1e-4 / atol 1e-6 but for gradients under Adam's eps, gradients
+   within 1e-4 of max) and bf16 (gradients no farther from the f32 step's than 1.5 times
+   the one-process bf16 step's; parameters within lr / 2 of the one-process step's but
+   where the f32 gradient's sign is within those errors of zero), the ranks bit-equal after
+   one and after 3 more steps, ms per step per rank and of the all-reduce; the halo conv at
+   the phase-6 last G conv (depth 32 split 16 + 16) through #1 against #1 on the whole
+   volume within 1e-5 of max (bit-equality reported), its ms against the whole volume's;
+   then the CLI with ``--horovod`` from phase 5 to 6 (32 + 32 images a phase) on two
+   ranks launched as torchrun launches them: both exit 0, model_6.npz's arrays equal,
+   rank 0 alone writes events, finite losses, the transport line in the log;
+   (c) ``--serve_devices 2`` raises ValueError on this one-card machine; the keyed
+   sampler's rows split over [cuda:0, cuda:0] bit-equal to one device's, #1 and #4
+   launched;
+18. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone, ``--only
 families`` phase 13, ``--only hpo`` phase 14, ``--only tools`` phase 15, ``--only two_d``
-phase 16 (each without the result lines), for working on it.
+phase 16, ``--only parallel`` phase 17 (each without the result lines), for working on
+it.  ``--only parallel_cards``, on a machine with two or more cards, runs phase 17 (b) with
+one rank on each card over NCCL (its NVLink collectives and halo exchange) and
+``--serve_devices`` over every card against one device, and nothing else.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -2820,6 +2847,243 @@ def two_d_entries(report, entries):
              per_step, None)]
 
 
+# the parallel phase: data parallelism on the one card.  NCCL refuses two ranks on one
+# device, so the two-rank runs use gloo (its collectives through host memory); one card
+# gives no scaling number, only what the protocol costs
+PARALLEL_STEPS = 3
+PARALLEL_KINDS = ("forward", "dgrad", "wgrad", "fused", "fused_grad")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_nccl_world_one(phase5_per_step=None):
+    """(a) The flagship step (phase 6, batch 8, bf16, flat; the mixing half) through the
+    data-parallel step over an NCCL group of one: bit-equal to the plain step from the
+    same state and draws, #1/#1'/#2/#4 launched as often as the plain step (and as phase
+    5's, when given), the NCCL all-reduce kernel in a profiled step; the ms of both steps
+    and of the all-reduce alone."""
+    from saragan_tpu_torch.parallel import init_mesh
+    from saragan_tpu_torch.tools.profile_parallel import allreduce_ms, state_sha
+
+    mesh = init_mesh("cuda:0", verbose=False)
+    try:
+        if mesh.backend != "nccl" or mesh.world_size != 1:
+            raise RuntimeError(f"expected an NCCL group of one, got {mesh.describe()}")
+        cfg = bench_train_config(PHASE, BATCH)
+        arch = get_architecture("pgan")
+        state0, opts = init_train_state(arch, torch.Generator().manual_seed(0), phase=PHASE,
+                                        cfg=cfg, device="cuda")
+        real = real_batch(cfg, PHASE, BATCH, "cuda")
+        plain = make_train_step(arch, cfg, PHASE, *opts, conv_engine="flat")
+        dp = make_train_step(arch, cfg, PHASE, *opts, conv_engine="flat", mesh=mesh)
+        zero_counts()
+        p_state, p_m = plain(state0, real, torch.Generator("cuda").manual_seed(7), 0.5,
+                             1e-3, 1e-3)
+        torch.cuda.synchronize()
+        plain_counts = read_counts()
+        # the main path: counts set to 0 just before, read just after
+        zero_counts()
+        d_state, d_m = dp(state0, real, torch.Generator("cuda").manual_seed(7), 0.5, 1e-3,
+                          1e-3)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(state_sha(d_state) == state_sha(p_state),
+              "parallel (a): the DP step over NCCL at world size 1 differs from the plain step")
+        check(all(torch.equal(getattr(d_m, f), getattr(p_m, f))
+                  for f in ("gen_loss", "disc_loss", "gp_loss", "fake_min", "fake_max")),
+              "parallel (a): the DP step's metrics differ from the plain step's")
+        check(counts["plain"] == 0, f"parallel (a): {counts['plain']} plain-version calls")
+        for k in PARALLEL_KINDS:
+            check(counts[k] == plain_counts[k] > 0,
+                  f"parallel (a): {k} launches {counts[k]}, plain step {plain_counts[k]}")
+            if phase5_per_step is not None:
+                check(counts[k] == phase5_per_step[k],
+                      f"parallel (a): {k} launches {counts[k]}, phase 5's {phase5_per_step[k]}")
+        # in turns (plain, DP, DP, plain), each side's steps chained on its own state
+        rng = torch.Generator("cuda").manual_seed(8)
+        plain_ms, dp_ms = [], []
+        for fn, times in ((plain, plain_ms), (dp, dp_ms), (dp, dp_ms), (plain, plain_ms)):
+            start = p_state if fn is plain else d_state
+            end, ms, _ = run_steps(fn, start, real, rng, 0.5, PARALLEL_STEPS)
+            times.extend(ms)
+            if fn is plain:
+                p_state = end
+            else:
+                d_state = end
+        ar = allreduce_ms(mesh, {**state0.g_params, **state0.d_params})
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            dp(d_state, real, rng, 0.5, 1e-3, 1e-3)
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        nccl = [n for n in names if re.search(r"nccl|onerank", n, re.IGNORECASE)]
+        check(nccl, f"parallel (a): no NCCL kernel in a profiled DP step; kernels {names[:60]}")
+    finally:
+        mesh.close()
+    report = dict(plain_step_ms=plain_ms, dp_step_ms=dp_ms, allreduce=ar, nccl_kernels=nccl,
+                  launches_per_step={k: counts[k] for k in PARALLEL_KINDS}, bit_equal=True)
+    print(f"parallel (a) NCCL world 1: DP step {statistics.median(dp_ms):.2f} ms against the "
+          f"plain step's {statistics.median(plain_ms):.2f} (medians of {2 * PARALLEL_STEPS} in "
+          f"turns, CUDA events), bit-equal; all-reduce alone {ar['ms']:.3f} ms for {ar['mbytes']:.1f} MB; "
+          f"launches per step {report['launches_per_step']}; NCCL kernels {nccl}", flush=True)
+    return report
+
+
+def parallel_ranks(tmp: Path, world: int = 2, one_card: bool = True):
+    """(b) `world` ranks: on the one card over gloo (`one_card`), else one card each over
+    NCCL.  ``tools.profile_parallel`` through torchrun (the DP step against the one-process
+    step on the rank-major 8 x `world` rows, f32 and bf16, the ranks bit-equal, the halo
+    conv against #1 on the whole volume), then the CLI with ``--horovod`` from phase 5 to
+    6 on the ranks launched as torchrun launches them."""
+    out = OUT_DIR / "profile_parallel.json"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    device = ["--device", "cuda:0"] if one_card else []
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+           str(world), "--master_addr", "127.0.0.1", "--master_port", str(_free_port()), "-m",
+           "saragan_tpu_torch.tools.profile_parallel", *device]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
+    tool_s = time.perf_counter() - t0
+    check(run.returncode == 0 and out.is_file(),
+          f"parallel (b): profile_parallel exited {run.returncode}:\n{run.stdout[-3000:]}\n"
+          f"{run.stderr[-3000:]}")
+    ranks = json.loads(out.read_text())
+    for dt, r in ranks["steps"].items():
+        check(r["ranks_bit_equal_first"] and r["ranks_bit_equal_after"],
+              f"parallel (b) {dt}: the ranks differ")
+        check(r["against_one_process"]["ok"],
+              f"parallel (b) {dt}: the DP step against the one-process step: "
+              f"{r['against_one_process']}")
+    check(ranks["halo"]["ok"], f"parallel (b): halo conv {ranks['halo']}")
+
+    write_dataset(tmp / "data")
+    port = str(_free_port())
+    procs = {r: _cli_process(trainer_args(tmp / "data", tmp / f"rank{r}", "--horovod",
+                                          *device),
+                             env=dict(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                                      MASTER_PORT=port))
+             for r in range(world)}
+    t0 = time.perf_counter()
+    done = _finish(procs, timeout=400)
+    cli_s = time.perf_counter() - t0
+    for r, (rc, text) in done.items():
+        check(rc == 0, f"parallel (b): CLI rank {r} exited {rc}:\n{text[-3000:]}")
+    line = (f"Data parallel: {world} process(es); rank 0 of {world} on cuda:0, " +
+            ("gloo collectives over host memory" if one_card else
+             "nccl collectives over the device"))
+    check(line in done[0][1], f"parallel (b): the transport line: {done[0][1][:2000]}")
+    shas = []
+    for r in range(world):
+        for p in (5, 6):
+            check((tmp / f"rank{r}" / f"model_{p}.npz").is_file(),
+                  f"parallel (b): rank {r} wrote no model_{p}.npz")
+        h = hashlib.sha256()
+        with np.load(tmp / f"rank{r}" / f"model_{PHASE}.npz") as z:
+            for k in sorted(z.files):
+                h.update(k.encode())
+                h.update(z[k].tobytes())
+        shas.append(h.hexdigest())
+    check(len(set(shas)) == 1, "parallel (b): the ranks' model_6.npz differ")
+    check(not any((tmp / f"rank{r}" / "events.jsonl").exists() for r in range(1, world)),
+          "parallel (b): a rank other than 0 wrote events")
+    events = _events(tmp / "rank0")
+    losses_ = [e["value"] for e in events if e["tag"] in ("Loss/d_loss", "Loss/g_loss")]
+    check(losses_ and all(math.isfinite(v) for v in losses_), f"parallel (b): losses {losses_}")
+    steps = {h: [e["value"] for e in events if e["tag"] == f"Timing/step_ms_{h}"]
+             for h in ("mixing", "stabilizing")}
+    report = dict(tool=ranks, tool_s=tool_s, cli=dict(wall_s=cli_s, params_sha=shas[0],
+                                                      step_ms=steps))
+    for dt, r in ranks["steps"].items():
+        print(f"parallel (b) {ranks['backend']} x{world}, {dt}: DP step {statistics.median(r['step_ms']):.2f} ms per "
+              f"rank (rank 0, median of {PARALLEL_STEPS}); all-reduce alone "
+              f"{r['allreduce']['ms']:.2f} ms for {r['allreduce']['mbytes']:.1f} MB; against "
+              f"the one-process step on {8 * world}: {r['against_one_process']}", flush=True)
+    h = ranks["halo"]
+    print(f"parallel (b) halo conv x{h['x']} w{h['w']}, depth split over {world}: "
+          f"{h['halo_ms']:.3f} "
+          f"ms against #1 on the whole volume {h['whole_ms']:.3f} ms; max|err| "
+          f"{h['max_abs_err']:.3g} of {h['scale']:.3g}, bit-equal {h['bit_equal']}; #1 on the "
+          f"extended slab {h['kernel']['ms']:.3f} ms; CLI 5 -> 6 on {world} ranks {cli_s:.1f} s, "
+          f"model_6 equal", flush=True)
+    return report
+
+
+def parallel_serving(cards: int = 1):
+    """(c) On one card, ``--serve_devices 2`` raises ValueError and the keyed sampler's rows
+    split over [cuda:0, cuda:0]; on `cards` > 1, ``--serve_devices cards`` serves on
+    cuda:0 .. and the rows split over those cards.  Either way the split gives one device's
+    batch bit for bit, through #1 and #4 (counts set to 0 just before, read just after)."""
+    cfg = Config(**BENCH_CFG, starting_phase=PHASE, ending_phase=PHASE).finalize()
+    params = get_architecture("pgan").init(torch.Generator().manual_seed(0), phase=PHASE,
+                                           cfg=cfg, device="cuda")
+    g = {k: v for k, v in params.items() if k.startswith("generator/")}
+    n = max(cards, 2)
+    devices = [f"cuda:{i}" for i in range(cards)] if cards > 1 else ["cuda:0", "cuda:0"]
+    message = None
+    with tempfile.TemporaryDirectory() as tmp:
+        model = ckpt.save_params(str(Path(tmp) / f"model_{PHASE}"), params, ema=params)
+        try:
+            service = GeneratorService.from_checkpoint("pgan", model, cfg=cfg, phase=PHASE,
+                                                       n_devices=n, conv_engine="flat")
+        except ValueError as e:
+            message = str(e)
+    if cards > 1:
+        check(message is None and service.info["devices"] == devices,
+              f"parallel (c): --serve_devices {n} on {cards} cards: {message}")
+    else:
+        check(message is not None and "--serve_devices 2" in message,
+              f"parallel (c): --serve_devices 2 on one card: {message}")
+    seeds, idxs = np.array([101, 101, 102, 103, 104, 105, 106, 107]), np.arange(8)
+    one = make_keyed_sampler(cfg, PHASE, 8, device="cuda:0", conv_engine="flat")
+    split = make_keyed_sampler(cfg, PHASE, 8, device=devices, conv_engine="flat")
+    ref = one(g, seeds, idxs)
+    zero_counts()
+    got = split(g, seeds, idxs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(torch.equal(got, ref), f"parallel (c): the row split differs from one device by "
+                                 f"{(got - ref).abs().max().item()}")
+    check(counts["forward"] > 0 and counts["fused"] > 0 and counts["plain"] == 0,
+          f"parallel (c): launches {counts}")
+    one_ms = time_ms(lambda: one(g, seeds, idxs), reps=10)
+    split_ms = time_ms(lambda: split(g, seeds, idxs), reps=10)
+    print(f"parallel (c): --serve_devices {n} " + ("refused" if message else "served") +
+          f" ({message or devices}); rows split over {devices} bit-equal to one device, "
+          f"{split_ms:.2f} ms a batch of 8 against {one_ms:.2f}; launches "
+          f"{counts['forward']} #1, {counts['fused']} #4", flush=True)
+    return dict(refused=message, devices=devices, bit_equal=True, one_ms=one_ms,
+                split_ms=split_ms, launches=dict(forward=counts["forward"],
+                                                 fused=counts["fused"]))
+
+
+def parallel(phase5_per_step=None):
+    """Phase 17.  Returns (report, the halo conv's kernel entry and launches)."""
+    report = dict(nccl_world_one=parallel_nccl_world_one(phase5_per_step))
+    with tempfile.TemporaryDirectory() as tmp:
+        report["two_ranks"] = parallel_ranks(Path(tmp))
+    report["serving"] = parallel_serving()
+    halo = report["two_ranks"]["tool"]["halo"]
+    return report, (halo["kernel"], halo["launches"])
+
+
+def parallel_entries(entry, launches):
+    per = (f"the local conv of the depth-halo conv (parallel.halo_conv3d, engine flat) at the "
+           f"phase-{PHASE} batch-{BATCH} last generator conv, f32, depth split over two gloo "
+           f"ranks on one card: one rank's extended slab (ms and bound for its own output "
+           f"slices); launches of that halo call on rank 0")
+    return [("conv3d_flat[halo,f32]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
+             "saragan_tpu/ops/pallas_conv.py:124", entry, launches, "library_ms", per, None)]
+
+
 def kernel_row(name, route, source, replaces, e, launches, library, per_what, unit):
     """One entry of the kernels line."""
     check(launches > 0, f"{name}: not launched")
@@ -2925,6 +3189,28 @@ def main(argv=None) -> int:
             card=card, two_d=report, kernels=rows, shapes=detail, seconds=seconds),
             indent=1, default=str))
         print("2-D kernels: " + json.dumps(rows), flush=True)
+        return 0
+
+    if args.only == "parallel":  # this phase alone, for working on it: no result line
+        par, (halo_entry, halo_launches) = parallel()
+        phase_done("parallel")
+        rows = [kernel_row(*r) for r in parallel_entries(halo_entry, halo_launches)]
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_parallel.json").write_text(json.dumps(dict(
+            card=card, parallel=par, kernels=rows, seconds=seconds), indent=1, default=str))
+        print("parallel kernels: " + json.dumps(rows), flush=True)
+        return 0
+
+    if args.only == "parallel_cards":  # one rank a card over NCCL: no result line
+        cards = torch.cuda.device_count()
+        check(cards > 1, f"--only parallel_cards needs two or more cards, not {cards}")
+        with tempfile.TemporaryDirectory() as tmp:
+            par = dict(ranks=parallel_ranks(Path(tmp), cards, one_card=False),
+                       serving=parallel_serving(cards))
+        phase_done("parallel over the cards")
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_parallel_cards.json").write_text(json.dumps(dict(
+            card=card, cards=cards, parallel=par, seconds=seconds), indent=1, default=str))
         return 0
 
     if args.only == "families":  # this phase alone, for working on it: no result line
@@ -3039,6 +3325,11 @@ def main(argv=None) -> int:
     two_d_report, two_d_kernels = two_d(detail)
     phase_done("two_d")
 
+    # data parallelism on the one card: the DP step over NCCL at world size 1, two gloo
+    # ranks (the DP step, the halo conv, the CLI 5 -> 6), the row-split sampler
+    par_report, (halo_entry, halo_launches) = parallel(trained["flat"][1]["mixing"]["per_step"])
+    phase_done("parallel")
+
     main_launches = served["flat"][2]
     dispatches = served["flat"][1]["dispatches"]
     flat_runs = trained["flat"][1]
@@ -3105,6 +3396,7 @@ def main(argv=None) -> int:
     kernels += [kernel_row(*r) for r in big_volume_entries(big_kernels, big_launches)]
     kernels += [kernel_row(*r) for r in family_entries(fam_convs, fam_launches)]
     kernels += [kernel_row(*r) for r in two_d_entries(two_d_report, two_d_kernels)]
+    kernels += [kernel_row(*r) for r in parallel_entries(halo_entry, halo_launches)]
     f32_train = {f"{kind}[f32]": {x: e[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "max_abs_err", "launches_per_step")}
                  for (kind, dt), e in train_convs.items() if dt == "float32"}
@@ -3115,7 +3407,7 @@ def main(argv=None) -> int:
         serving={e: served[e][1] for e in served}, training=training,
         engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume, metrics=metrics,
         big_volume=big, families=fam, hpo=hpo_report, tools=tools_report, two_d=two_d_report,
-        seconds=seconds),
+        parallel=par_report, seconds=seconds),
         indent=1, default=str))
     print(f"serving: " + json.dumps({e: served[e][1] for e in served}), flush=True)
     print("training: " + json.dumps({e: {h: dict(step_ms=r["step_ms"], peak_mib=r["peak_mib"])
@@ -3154,6 +3446,17 @@ def main(argv=None) -> int:
         phases={p: {k: v for k, v in r.items() if not k.endswith("_all")}
                 for p, r in two_d_report["trainer"]["phases"].items()},
         serve_forward_ms=two_d_report["serve"]["forward_ms"])), flush=True)
+    tool = par_report["two_ranks"]["tool"]
+    print("parallel: " + json.dumps(dict(
+        nccl_world_one=dict(dp_step_ms=par_report["nccl_world_one"]["dp_step_ms"],
+                            plain_step_ms=par_report["nccl_world_one"]["plain_step_ms"],
+                            allreduce_ms=par_report["nccl_world_one"]["allreduce"]["ms"]),
+        gloo_two_ranks={dt: dict(step_ms=r["step_ms"], allreduce_ms=r["allreduce"]["ms"])
+                        for dt, r in tool["steps"].items()},
+        halo=dict(halo_ms=tool["halo"]["halo_ms"], whole_ms=tool["halo"]["whole_ms"],
+                  bit_equal=tool["halo"]["bit_equal"]),
+        cli_wall_s=par_report["two_ranks"]["cli"]["wall_s"],
+        serving_split_ms=par_report["serving"]["split_ms"])), flush=True)
     print("seconds: " + json.dumps(seconds), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3167,7 +3470,8 @@ def _parse(argv):
     import argparse
 
     p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
-    p.add_argument("--only", choices=["big_volume", "families", "hpo", "tools", "two_d"],
+    p.add_argument("--only", choices=["big_volume", "families", "hpo", "tools", "two_d",
+                                       "parallel", "parallel_cards"],
                    default=None,
                    help="build, then run this phase alone (no result line)")
     return p.parse_args(argv)

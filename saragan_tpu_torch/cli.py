@@ -16,8 +16,20 @@ is the reference's preset for phases 7 and 8 on one device (``config.py``: host-
 block taps, the unstacked critic, unfused transitions, the ``flat`` engine).
 ``--dataset imagenet`` (or a 2-D shape and a ``train/`` folder under the dataset path)
 reads JPEG class folders; ``--native_prefetch`` (the default) / ``--no_native_prefetch``
-pick the C++ prefetch executor or the Python thread for the npy pyramid.  ``--horovod``
-is accepted and raises ``NotImplementedError`` naming ROADMAP.md.
+pick the C++ prefetch executor or the Python thread for the npy pyramid.
+
+``--horovod`` is data-parallel training, one process per device (the reference's
+``mpirun ... --horovod``):
+
+    torchrun --nproc_per_node N -m saragan_tpu_torch <architecture> <data> --horovod ...
+
+``main`` joins the process group torchrun's environment describes (``nccl`` on the
+cards, ``gloo`` with ``--device cpu`` and where a host's ranks share the one card
+``--device`` names, which NCCL refuses) before the run, and with ``--optuna_*`` the study
+runs in lockstep over the ranks.  Each rank takes ``cuda:LOCAL_RANK`` unless ``--device`` names
+one.  ``--num_data_shards`` must be the world size or None; ``--num_space_shards`` /
+``--num_space2_shards`` above 1 raise (ROADMAP.md queue 1 item 16).  ``--use_adasum``,
+``--gpu`` and ``--num_inter_ops`` are accepted and do nothing, as in the reference.
 """
 
 from __future__ import annotations
@@ -71,7 +83,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stabilizing_nimg", type=int, default=2**19)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--horovod", default=False, action="store_true",
-                   help="data-parallel training: not ported")
+                   help="data-parallel training over torch.distributed, one process per "
+                        "device (launch with torchrun)")
+    p.add_argument("--gpu", default=False, action="store_true")  # parity no-op
+    p.add_argument("--num_inter_ops", default=4, type=int)  # parity no-op
     p.add_argument("--checkpoint_every_nsteps", default=20000, type=int)
     p.add_argument("--logdir", default=None, type=str)
     p.add_argument("--continue_path", default=None, type=str)
@@ -108,6 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--d_clipping", default=False, type=bool)
     p.add_argument("--optim_strategy", default="simultaneous",
                    choices=["simultaneous", "alternate"])
+    p.add_argument("--use_adasum", default=False, action="store_true")  # parity no-op
     p.add_argument("--ema_beta", type=float, default=0.99)
     p.add_argument("--noise_stddev", default=None, type=float, required=True)
     _optim_choices = [None, "Adam", "SGD", "Momentum", "Adadelta", "LAMB", "RAdam", "AdamW",
@@ -238,7 +254,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="every 3-D conv through cuDNN (direct) or the hand-written "
                         "kernels (flat); unset: flat on a CUDA device, direct on the CPU")
     p.add_argument("--device", default=None, type=str,
-                   help="torch device; CUDA unless named (e.g. 'cpu')")
+                   help="torch device; CUDA unless named (e.g. 'cpu'); under --horovod "
+                        "cuda:LOCAL_RANK unless named")
+    # data parallelism
+    p.add_argument("--num_data_shards", default=None, type=none_or_int,
+                   help="the data axis under --horovod: None or the world size")
+    p.add_argument("--num_space_shards", default=1, type=int,
+                   help="depth shards of a volume (not ported: > 1 raises)")
+    p.add_argument("--num_space2_shards", default=1, type=int,
+                   help="height shards of a volume (not ported: > 1 raises)")
     return p
 
 
@@ -253,13 +277,22 @@ def main(argv=None):
     from saragan_tpu_torch.hpo import harness
     from saragan_tpu_torch.train.trainer import TrainingInterrupted
 
+    mesh = None
+    if cfg.horovod:
+        from saragan_tpu_torch.parallel import init_mesh
+
+        mesh = init_mesh(args.device, num_data=cfg.num_data_shards,
+                         num_space=cfg.num_space_shards, num_space2=cfg.num_space2_shards)
     try:
         return harness.run(cfg, functools.partial(harness.default_objective,
-                                                  device=args.device))
+                                                  device=args.device, mesh=mesh), mesh=mesh)
     except TrainingInterrupted as e:
         # the exact-resume checkpoint is on disk; 75 (EX_TEMPFAIL) lets a wrapper requeue
         print(f"INTERRUPTED: {e}", flush=True)
         raise SystemExit(75)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

@@ -7,10 +7,10 @@ names, defaults and derived properties), trimmed to what the port runs.  There i
 cuDNN, the reference's choice off the TPU; or "flat", the hand-written kernels), handed
 down to every conv, never a process-wide gate.  Left "unset", the trainer resolves it
 for its device (``resolve_conv_engine``), as the reference's ``apply_runtime_opts`` picks
-an engine by backend.  Fields of options the port does not run
-yet (``horovod``) are kept so a configuration reads the same in both packages; the code
-that meets them raises and names ROADMAP.md.  ``g_annealing`` and
-``d_annealing`` are fields only, in the reference too.
+an engine by backend.  Fields of options the port does not run yet
+(``num_space_shards`` / ``num_space2_shards`` above 1) are kept so a configuration reads
+the same in both packages; the code that meets them raises and names ROADMAP.md.
+``g_annealing``, ``d_annealing`` and ``use_adasum`` are fields only, in the reference too.
 
 ``single_chip_big_volume`` is the reference's preset for phases 7 and 8 (64x256x256 and
 128x512x512 volumes) on one device (``saragan_tpu/config.py:448-456``): ``finalize``
@@ -95,7 +95,9 @@ class Config:
     mixing_nimg: int = 2**19
     stabilizing_nimg: int = 2**19
     seed: int = 42
-    horovod: bool = False  # data-parallel over a mesh: not ported (ROADMAP queue 1 item 12)
+    # data parallelism: one process per device over torch.distributed (parallel/); the
+    # CLI joins the process group (torchrun's environment) before the run
+    horovod: bool = False
     checkpoint_every_nsteps: int = 20000
     logdir: Optional[str] = None
     continue_path: Optional[str] = None
@@ -141,6 +143,7 @@ class Config:
     g_clipping: bool = False
     d_clipping: bool = False
     optim_strategy: str = "simultaneous"
+    use_adasum: bool = False  # a field only, in the reference too
     ema_beta: float = 0.99
     noise_stddev: float = 0.0
     optimizer: Optional[str] = "Adam"
@@ -165,6 +168,11 @@ class Config:
     d_annealing: float = 1.0
     gradient_accumulation: int = 1
     compute_dtype: str = "float32"  # "bfloat16": bf16 activations, f32 params and state
+    # the data axis: None or the world size (one process per device); the spatial axes
+    # (a volume's depth, height across devices) above 1 raise (ROADMAP queue 1 item 16)
+    num_data_shards: Optional[int] = None
+    num_space_shards: int = 1
+    num_space2_shards: int = 1
     remat: bool = False
     remat_offload: bool = False
     lazy_gp: int = 1  # GP every k-th step with k-scaled weight (1 = every step)

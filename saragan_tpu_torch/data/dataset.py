@@ -9,6 +9,8 @@
   epoch e of a dataset with seed s is shuffled by ``random.Random(f"{s}/{e}")``, so the
   same seed gives the same file order as the reference, and ``fast_forward`` can skip
   whole epochs arithmetically when a run resumes mid-phase;
+* ``batch_sharded``: a data-parallel rank's share of each global batch, every volume read
+  by one rank only;
 * a background-thread ``Prefetcher``;
 * the port's native C++ reader (``data/native.py``) for a batch of same-shape files, as
   the reference reads them when its library is built: one thread pool decodes every file
@@ -150,6 +152,16 @@ class NumpyPathDataset:
     def batch(self, batch_size: int, auto_repeat: bool = True) -> np.ndarray:
         """The next `batch_size` volumes of the stream, (N, 1, *spatial) f32."""
         return self._load_batch_from_filelist(self.batch_paths(batch_size, auto_repeat))
+
+    def batch_sharded(self, batch_size: int, num_shards: int, shard_index: int,
+                      auto_repeat: bool = True) -> np.ndarray:
+        """This shard's `batch_size` volumes of the next global batch (the reference's
+        ``batch_mpi`` without the rank-0 scatter): every shard draws the same
+        ``batch_size * num_shards`` paths from the shared deterministic stream and loads
+        only paths [shard_index::num_shards], so each volume is read exactly once per
+        global batch."""
+        paths = self.batch_paths(batch_size * num_shards, auto_repeat)
+        return self._load_batch_from_filelist(paths[shard_index::num_shards])
 
     def fast_forward(self, num_paths: int):
         """Advance the stream by `num_paths` draws without loading a file.  Whole epochs

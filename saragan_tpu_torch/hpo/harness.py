@@ -12,13 +12,13 @@
    ``SARAGAN_WORKER_ID``, the worker count from ``SARAGAN_NUM_WORKERS``
    (``optuna_ntrials`` is split between them), and each worker logs under
    ``<logdir>/<id>``;
-4. **intra-trial** (``optuna_ntrials``, ``optuna_walltime`` or ``optuna_storage``): one
-   process runs the study, each trial a whole training run.
-
-The reference also runs a trial across several processes in lockstep (process 0 holds
-the study and broadcasts each suggestion and prune decision).  The port has no
-``parallel/`` yet: with ``torch.distributed`` initialised at a world size above 1 the
-harness raises ``NotImplementedError`` (ROADMAP.md queue 1 item 12).
+4. **intra-trial** (``optuna_ntrials``, ``optuna_walltime`` or ``optuna_storage``): the
+   study's trials one after the other, each a whole training run, data-parallel over the
+   ranks of the `mesh` when one is given (``--horovod``).  Then only rank 0 binds the
+   shared storage; the others run as many trials against a local throwaway study, every
+   suggestion and prune decision coming from rank 0 (``parallel.synchronized_trial`` in
+   ``default_objective``), and whether another trial starts is rank 0's decision,
+   broadcast, so that no rank's clock or count can leave the others in a collective.
 
 Each trial is a ``Trainer`` run (``default_objective``), scored by the FID of
 ``make_metrics_callback``; with ``hpo_seeds`` k > 1 the same sampled configuration
@@ -42,22 +42,12 @@ from saragan_tpu_torch import hpo
 from saragan_tpu_torch.config import Config
 
 
-def _world_size() -> int:
-    import torch.distributed as dist
-
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
-def _refuse_processes():
-    if _world_size() > 1:
-        raise NotImplementedError(
-            "HPO across more than one process (trials in lockstep over torch.distributed) "
-            "is not ported yet (ROADMAP.md queue 1 item 12)")
-
-
-def worker_id() -> int:
+def worker_id(mesh=None) -> int:
+    """``SARAGAN_WORKER_ID``, else this process's rank (0 without a mesh)."""
     wid = os.environ.get("SARAGAN_WORKER_ID")
-    return int(wid) if wid is not None else 0
+    if wid is not None:
+        return int(wid)
+    return 0 if mesh is None else mesh.rank
 
 
 def make_sampler(cfg: Config, multi_objective: bool):
@@ -149,14 +139,25 @@ def _catchable() -> tuple:
     return (MemoryError, torch.cuda.OutOfMemoryError)
 
 
-def default_objective(trial, cfg: Config, device=None):
+def default_objective(trial, cfg: Config, device=None, mesh=None):
     """objective(trial, cfg) -> FID (or (FID, train_time)): one full multi-phase
-    training run on `device` (CUDA unless named)."""
+    training run on `device` (CUDA unless named), or data-parallel over `mesh` (a
+    ``parallel.Mesh``, on its device; rank 0's trial is the real one).  ``cfg.horovod``
+    needs the mesh (``cli.main`` joins the process group before ``run``)."""
     from saragan_tpu_torch.hpo.suggestions import optuna_override_undefined
     from saragan_tpu_torch.metrics.save_metrics import make_metrics_callback
+    from saragan_tpu_torch.parallel import synchronized_trial
     from saragan_tpu_torch.train.trainer import Trainer, TrialPruned as TrainerPruned
 
-    _refuse_processes()
+    if cfg.horovod and mesh is None:
+        raise ValueError("--horovod needs the process group's mesh: join it with "
+                         "parallel.init_mesh (cli.main does) and pass mesh=")
+    if trial is not None or mesh is not None:
+        # lockstep: suggestions and prune decisions come from rank 0, so the override
+        # below samples the same parameters on every rank
+        trial = synchronized_trial(trial, mesh)
+    if mesh is not None:
+        device = mesh.device
     if trial is not None:
         cfg = optuna_override_undefined(cfg, trial)
     cfg = cfg.finalize()
@@ -175,9 +176,10 @@ def default_objective(trial, cfg: Config, device=None):
         # (UncalibratedFIDError) unless allow_uncalibrated_fid
         metrics_cb = (make_metrics_callback(run_cfg, device=device) if run_cfg.calc_metrics
                       else None)
+        parallel = {} if mesh is None else {"mesh": mesh}
         trainer = Trainer(run_cfg, metrics_callback=metrics_cb, trial=run_trial,
-                          verbose=(worker_id() == 0 or run_cfg.optuna_distributed),
-                          device=device)
+                          verbose=(worker_id(mesh) == 0 or run_cfg.optuna_distributed),
+                          device=device, **parallel)
         try:
             return trainer.run()
         except TrainerPruned:
@@ -214,10 +216,10 @@ def default_objective(trial, cfg: Config, device=None):
     return fid
 
 
-def _announced(objective: Callable, cfg: Config) -> Callable:
-    """``study.optimize``'s function: `objective(trial, cfg)` after a line that names the
-    trial and, on a CUDA device, the device memory allocated and the peak since the
-    previous such line (the previous trial's)."""
+def _announced(objective: Callable, cfg: Config, mesh=None) -> Callable:
+    """``study.optimize``'s function: `objective(trial, cfg)` after a line (rank 0's only)
+    that names the trial and, on a CUDA device, the device memory allocated and the peak
+    since the previous such line (the previous trial's)."""
     import torch
 
     def func(trial):
@@ -226,24 +228,25 @@ def _announced(objective: Callable, cfg: Config) -> Callable:
             line += (f": device memory allocated {torch.cuda.memory_allocated()} B "
                      f"(previous trial's peak {torch.cuda.max_memory_allocated()} B)")
             torch.cuda.reset_peak_memory_stats()
-        print(line, flush=True)
+        if mesh is None or mesh.rank == 0:
+            print(line, flush=True)
         return objective(trial, cfg)
 
     return func
 
 
-def _study_done(study):
+def _study_done(study, mesh=None):
     import torch
 
-    if torch.cuda.is_initialized():
+    if torch.cuda.is_initialized() and (mesh is None or mesh.rank == 0):
         print(f"HPO study done: device memory allocated {torch.cuda.memory_allocated()} B "
               f"(last trial's peak {torch.cuda.max_memory_allocated()} B)", flush=True)
     return study
 
 
-def run(cfg: Config, objective: Callable = default_objective):
-    """Dispatch on run mode."""
-    _refuse_processes()
+def run(cfg: Config, objective: Callable = default_objective, mesh=None):
+    """Dispatch on run mode; `mesh` (a ``parallel.Mesh``): the intra-trial study runs in
+    lockstep over its ranks."""
     multi = is_multi_objective(cfg)
     sampler = make_sampler(cfg, multi)
     pruner = make_pruner(cfg)
@@ -292,12 +295,28 @@ def run(cfg: Config, objective: Callable = default_objective):
 
     if (cfg.optuna_ntrials is not None or cfg.optuna_storage is not None
             or cfg.optuna_walltime is not None):
+        coordinator = mesh is None or mesh.rank == 0
         study = hpo.create_study(study_name=cfg.optuna_study_name or "saragan",
-                                 storage=cfg.optuna_storage, sampler=sampler, pruner=pruner,
-                                 load_if_exists=True, **kwargs)
-        study.optimize(_announced(objective, cfg), n_trials=cfg.optuna_ntrials,
-                       timeout=cfg.optuna_walltime, **optimize)
-        return _study_done(study)
+                                 storage=cfg.optuna_storage if coordinator else None,
+                                 sampler=sampler, pruner=pruner, load_if_exists=True,
+                                 **kwargs)
+        if mesh is None or mesh.world_size == 1:
+            study.optimize(_announced(objective, cfg), n_trials=cfg.optuna_ntrials,
+                           timeout=cfg.optuna_walltime, **optimize)
+            return _study_done(study)
+        # lockstep: rank 0 decides whether another trial starts, every rank follows
+        from saragan_tpu_torch.parallel import broadcast_scalar
+
+        start, i = time.time(), 0
+        while True:
+            more = coordinator and (
+                (cfg.optuna_ntrials is None or i < cfg.optuna_ntrials)
+                and (cfg.optuna_walltime is None or time.time() - start < cfg.optuna_walltime))
+            if not broadcast_scalar(float(more), mesh):
+                break
+            study.optimize(_announced(objective, cfg, mesh), n_trials=1, **optimize)
+            i += 1
+        return _study_done(study, mesh)
 
     # normal run
     return objective(None, cfg)

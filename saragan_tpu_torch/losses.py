@@ -14,7 +14,8 @@ per-layer noise source) and the step's ``refresh_state`` latents; drawn by
 ``draw_inputs`` from a ``torch.Generator`` on the device, or handed in pre-drawn (the
 parity tests feed the reference's own draws, ``losses.py:237-241,287`` there).  The
 losses read z, gamma and the instance noise; the step binds the style draws into the
-generator (``train/step.py::model_fns``).
+generator (``train/step.py::model_fns``).  Under data parallelism a step's draws are the
+global batch's, and each rank takes its rows (``shard_draws``).
 
 Reference quirk kept: the simultaneous penalty reduces the gradient norm over axes
 (1, 2, 3), which for 3-D volumes leaves per-(sample, W-slice) slopes (reference
@@ -34,7 +35,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from saragan_tpu_torch.ops.core import LayerNoise, generator_seed, in_dtype
+from saragan_tpu_torch.ops.core import LayerNoise, RankRowsNoise, generator_seed, in_dtype
 
 Params = Dict[str, torch.Tensor]
 
@@ -95,6 +96,25 @@ def draw_inputs(generator: Optional[torch.Generator], n: int, latent_dim: int,
         refresh_z=torch.randn((REFRESH_BATCH, latent_dim), generator=generator,
                               device=device),
         noise=LayerNoise(generator_seed(generator)))
+
+
+ROW_DRAWS = ("z", "gamma", "noise_real", "noise_fake", "z_mix")
+
+
+def shard_draws(draws: Draws, mesh) -> Draws:
+    """This rank's rows of the global batch's draws under a data-parallel `mesh`
+    (``parallel.Mesh``): the per-sample draws' rows (``parallel.shard_rows``), the noise
+    source's rows of its global draw (``ops.core.RankRowsNoise``); the mixing coin and
+    cutoff and the refresh latents are shared.  `draws` itself without a mesh."""
+    if mesh is None or mesh.world_size == 1:
+        return draws
+    from saragan_tpu_torch.parallel.mesh import shard_rows
+
+    rows = {f: shard_rows(getattr(draws, f), mesh) for f in ROW_DRAWS
+            if getattr(draws, f) is not None}
+    noise = (None if draws.noise is None
+             else RankRowsNoise(draws.noise, mesh.rank, mesh.world_size))
+    return draws._replace(**rows, noise=noise)
 
 
 def _instance_noise(x: torch.Tensor, noise: Optional[torch.Tensor], noise_stddev: float):

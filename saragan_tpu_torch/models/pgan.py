@@ -225,9 +225,11 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine):
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
-                  conv_engine: str = "direct", passes: int = 1) -> torch.Tensor:
+                  conv_engine: str = "direct", passes: int = 1,
+                  mesh=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1) scores.  `alpha` as for the
-    generator.  No op mixes samples, so stacked passes (`passes`) need nothing."""
+    generator.  No op mixes samples, so stacked passes (`passes`) and a
+    data-parallel `mesh` need nothing."""
     return _discriminator(Scope(params, spectral=spectral_iters(cfg)), x, alpha, phase, cfg,
                           cfg.leakiness, conv_engine)
 

@@ -3,7 +3,8 @@
     init(rng, *, phase, cfg, device)                            -> flat G+D Params dict
     generator(params, z, alpha, *, phase, cfg, conv_engine, noise=None, mix=None,
               train=True)                                       -> images
-    discriminator(params, x, alpha, *, phase, cfg, conv_engine, passes=1) -> (N, 1) scores
+    discriminator(params, x, alpha, *, phase, cfg, conv_engine, passes=1, mesh=None)
+                                                                -> (N, 1) scores
     refresh_state(g_params, z, *, phase, cfg)                   -> g_params
 
 All six families of the reference are registered (``saragan_tpu/models/registry.py``).
@@ -14,7 +15,9 @@ as the reference does without an rng.  The other families take them and draw not
 ``train=False`` is the samplers' mode (no style mixing; truncation where the family
 applies it).  ``passes`` says how many batches x stacks along axis 0 (the stacked critic
 pass): a discriminator that mixes samples (surfgan's minibatch-stddev head) keeps them
-apart, the others ignore it.  ``refresh_state`` is the
+apart, the others ignore it.  ``mesh`` (a data-parallel ``parallel.Mesh``) says that x holds
+this rank's rows of a global batch: surfgan's head forms its groups over the global
+batch, the others ignore it.  ``refresh_state`` is the
 style families' per-step w-average update (``d_z_avg``) from a batch of latents `z`;
 None for the families without that state.
 """

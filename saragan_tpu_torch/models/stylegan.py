@@ -155,9 +155,10 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine):
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
-                  conv_engine: str = "direct", passes: int = 1) -> torch.Tensor:
+                  conv_engine: str = "direct", passes: int = 1,
+                  mesh=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1).  No op mixes samples (`passes`
-    changes nothing)."""
+    and `mesh` change nothing)."""
     return segment(lambda t: _discriminator(Scope(params, spectral=spectral_iters(cfg)), t,
                                             alpha, phase, cfg, cfg.leakiness, conv_engine),
                    cfg, x)

@@ -216,9 +216,9 @@ def _discriminator_block(scope, x, filters_in, filters_out, activation, param, e
 
 
 def _discriminator_out(scope, x, latent_dim, filters_out, activation, param, conditioning,
-                       passes, engine):
+                       passes, engine, mesh=None):
     o = scope.sub("discriminator_out")
-    x = ops.minibatch_stddev_layer(x, passes=passes)
+    x = ops.minibatch_stddev_layer(x, passes=passes, mesh=mesh)
     c = o.sub("conv1")
     x, rc = _conv_rc(c, x, filters_out, adaptive_kernel(x.shape[2:]), activation, param,
                      engine)
@@ -234,7 +234,8 @@ def _discriminator_out(scope, x, latent_dim, filters_out, activation, param, con
     return x
 
 
-def _discriminator(scope, x, alpha, phase, cfg, param, conditioning, passes, engine):
+def _discriminator(scope, x, alpha, phase, cfg, param, conditioning, passes, engine,
+                   mesh=None):
     activation = cfg.activation
     d = scope.sub("discriminator")
     image = x
@@ -250,18 +251,18 @@ def _discriminator(scope, x, alpha, phase, cfg, param, conditioning, passes, eng
             a = torch.as_tensor(alpha, dtype=x.dtype)
             x = a * prev + (1 - a) * x
     return _discriminator_out(d, x, cfg.latent_dim, filters_out, activation, param,
-                              conditioning, passes, engine)
+                              conditioning, passes, engine, mesh)
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
                   conv_engine: str = "direct", passes: int = 1,
-                  conditioning=None) -> torch.Tensor:
+                  conditioning=None, mesh=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1), the minibatch-stddev groups formed
-    inside each of the `passes` batches x stacks; with `conditioning` the projection
-    score."""
+    inside each of the `passes` batches x stacks (over each pass's global batch under a
+    data-parallel `mesh`); with `conditioning` the projection score."""
     return segment(lambda t: _discriminator(Scope(params, spectral=spectral_iters(cfg)), t,
                                             alpha, phase, cfg, cfg.leakiness, conditioning,
-                                            passes, conv_engine), cfg, x)
+                                            passes, conv_engine, mesh), cfg, x)
 
 
 def init(rng: torch.Generator, *, phase: int, cfg, device) -> Params:

@@ -363,15 +363,35 @@ def instance_norm(x: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
                            + in_dtype(epsilon, x.dtype))
 
 
-def minibatch_stddev_layer(x: torch.Tensor, group_size: int = 4,
-                           passes: int = 1) -> torch.Tensor:
+def minibatch_stddev_layer(x: torch.Tensor, group_size: int = 4, passes: int = 1,
+                           mesh=None) -> torch.Tensor:
     """Append the per-group stddev statistic as one more channel (reference
     ``saragan_tpu/ops/core.py:847-866``), statistics in f32 whatever x's dtype.
 
     The reference's groups are strided across the batch: it reshapes to (G, N/G, ...),
     so sample n is in the group of n mod N/G.  `passes` > 1 says that x holds that many
     batches stacked along axis 0 (the stacked critic pass, [fake, real]) and forms the
-    groups inside each, as the reference's ``jax.vmap`` over the stacked passes does."""
+    groups inside each, as the reference's ``jax.vmap`` over the stacked passes does.
+
+    With a data-parallel `mesh` x holds this rank's rows of each pass, and the groups run
+    over each pass's global batch, as the reference's over its sharded global array: each
+    pass is gathered from every rank (``parallel.gather_rows``, differentiable to any
+    order), the statistic formed over it, and this rank's rows kept."""
+    if mesh is None or mesh.world_size == 1:
+        return _minibatch_stddev(x, group_size, passes)
+    from saragan_tpu_torch.parallel.mesh import gather_rows
+
+    n = x.shape[0] // passes
+    if n * passes != x.shape[0]:
+        raise ValueError(f"batch {x.shape[0]} is not {passes} passes of one size")
+    glob = torch.cat([gather_rows(part, mesh) for part in x.split(n)])
+    out = _minibatch_stddev(glob, group_size, passes)
+    total = n * mesh.world_size
+    lo = mesh.rank * n
+    return torch.cat([out[p * total + lo:p * total + lo + n] for p in range(passes)])
+
+
+def _minibatch_stddev(x: torch.Tensor, group_size: int, passes: int) -> torch.Tensor:
     n = x.shape[0] // passes
     if n * passes != x.shape[0]:
         raise ValueError(f"batch {x.shape[0]} is not {passes} passes of one size")
@@ -419,6 +439,22 @@ class LayerNoise:
             return [LayerNoise(_name_seed(self.seeds[0], f"part/{k}")) for k in range(num)]
         m = len(self.seeds) // num
         return [LayerNoise(self.seeds[k * m:(k + 1) * m]) for k in range(num)]
+
+
+class RankRowsNoise:
+    """This rank's rows of another noise source's global batch: the data-parallel
+    counterpart of one key's noise partitioned by XLA.  A layer asking for (n, ...) gets
+    rows [rank n, (rank + 1) n) of `source`'s (world_size n, ...) draw."""
+
+    def __init__(self, source, rank: int, world_size: int):
+        self.source = source
+        self.rank = rank
+        self.world_size = world_size
+
+    def __call__(self, name: str, shape, dtype: torch.dtype, device) -> torch.Tensor:
+        n = shape[0]
+        full = self.source(name, (n * self.world_size, *shape[1:]), dtype, device)
+        return full[self.rank * n:(self.rank + 1) * n]
 
 
 class NoiseByName:

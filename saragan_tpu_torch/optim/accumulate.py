@@ -2,11 +2,12 @@
 gradients and the reported scalars of K micro-batches, each summed in f32 in micro-batch
 order and divided by K, for one optimizer apply.  The reference scans the micro-batches
 in one XLA program; here a Python loop runs them one after the other, so one
-micro-batch's activations are alive at a time."""
+micro-batch's activations are alive at a time.  Under data parallelism the average's
+all-reduce over the ranks (``reduce``) runs once, after the last micro-batch."""
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -34,18 +35,21 @@ def _tree_map(fn, *trees):
 
 
 def grad_accumulate(grad_fn: Callable, batch: torch.Tensor, draws: Sequence,
-                    num_micro: int):
+                    num_micro: int, reduce: Optional[Callable] = None):
     """``grad_fn(micro_batch, micro_draws) -> (grads, aux)``, trees of tensors, averaged
     over `num_micro` slices of `batch` with ``draws[k]`` for slice k: each leaf summed in
     f32 in slice order, then divided by `num_micro`.  With ``num_micro <= 1`` it is
-    ``grad_fn(batch, draws[0])``."""
+    ``grad_fn(batch, draws[0])``.  `reduce` (the data-parallel all-reduce) maps that
+    result once, after the last micro-batch."""
     if num_micro <= 1:
-        return grad_fn(batch, draws[0])
-    micro = split_microbatches(batch, num_micro)
-    if len(draws) != num_micro:
-        raise ValueError(f"{num_micro} micro-batches need as many draws; got {len(draws)}")
-    total = None
-    for mb, d in zip(micro, draws):
-        out = _tree_map(lambda x: x.float(), grad_fn(mb, d))
-        total = out if total is None else _tree_map(torch.add, total, out)
-    return _tree_map(lambda x: x / num_micro, total)
+        out = grad_fn(batch, draws[0])
+    else:
+        micro = split_microbatches(batch, num_micro)
+        if len(draws) != num_micro:
+            raise ValueError(f"{num_micro} micro-batches need as many draws; got {len(draws)}")
+        total = None
+        for mb, d in zip(micro, draws):
+            part = _tree_map(lambda x: x.float(), grad_fn(mb, d))
+            total = part if total is None else _tree_map(torch.add, total, part)
+        out = _tree_map(lambda x: x / num_micro, total)
+    return out if reduce is None else reduce(out)

@@ -102,28 +102,55 @@ def make_keyed_sampler(cfg: Config, phase: int, batch_size: int = 4, alpha: floa
     alone or micro-batched with others in the same batch size.  JAX's threefry bits are
     not reproduced.
 
+    `device` may be a list of devices (data-parallel serving, the counterpart of the
+    reference's sampler over a 1-axis mesh): the parameters are replicated on each (once
+    per parameter dict), device i computes rows [i B/n, (i + 1) B/n) and the rows come
+    back concatenated in order on the first device.  `batch_size` must divide by their
+    count.
+
     `fetch_dtype` ("float16"/"bfloat16") casts the output on the device before the
     caller fetches it: half the device->host bytes, about 3 decimal digits kept."""
-    dev = resolve_device(device)
+    devices = list(device) if isinstance(device, (list, tuple)) else [device]
+    if not devices:
+        raise ValueError("no device to serve on")
+    devs = [resolve_device(d) for d in devices]
+    if batch_size % len(devs):
+        raise ValueError(f"batch size {batch_size} does not split over {len(devs)} devices")
     _check_engine(conv_engine)
     cfg = _serving_cfg(cfg, fast_inference)
     arch = get_architecture(cfg.architecture)
     out_dtype = _FETCH_DTYPES[fetch_dtype] if isinstance(fetch_dtype, str) else fetch_dtype
+    rows_per = batch_size // len(devs)
+    replicas = {}  # the last parameter dict's copies, one per device
+
+    def on_devices(params):
+        if replicas.get("of") is not params:
+            replicas.clear()
+            replicas["of"] = params  # held, so its id cannot be reused while cached
+            replicas["copies"] = [{k: v.to(d) for k, v in params.items()} for d in devs]
+        return replicas["copies"]
+
+    def rows(params, dev, seeds, idxs):
+        row_seeds = [((int(s) & 0xFFFFFFFF) << 32) | (int(j) & 0xFFFFFFFF)
+                     for s, j in zip(seeds, idxs)]
+        z = torch.cat([torch.randn((1, cfg.latent_dim), device=dev,
+                                   generator=torch.Generator(dev).manual_seed(r))
+                       for r in row_seeds])
+        out = arch.generator(params, z, alpha, phase=phase, cfg=cfg, conv_engine=conv_engine,
+                             train=False, noise=LayerNoise(row_seeds))
+        return out if out_dtype is None else out.to(out_dtype)
 
     def gen(params, seeds, idxs) -> torch.Tensor:
         if len(seeds) != batch_size or len(idxs) != batch_size:
             raise ValueError(f"sampler built for batch {batch_size}, got {len(seeds)} seeds "
                              f"and {len(idxs)} indices")
         with _inference_context():
-            row_seeds = [((int(s) & 0xFFFFFFFF) << 32) | (int(j) & 0xFFFFFFFF)
-                         for s, j in zip(seeds, idxs)]
-            rows = [torch.randn((1, cfg.latent_dim), device=dev,
-                                generator=torch.Generator(dev).manual_seed(r))
-                    for r in row_seeds]
-            out = arch.generator(params, torch.cat(rows), alpha, phase=phase, cfg=cfg,
-                                 conv_engine=conv_engine, train=False,
-                                 noise=LayerNoise(row_seeds))
-            return out if out_dtype is None else out.to(out_dtype)
+            if len(devs) == 1:
+                return rows(params, devs[0], seeds, idxs)
+            parts = [rows(p, d, seeds[i * rows_per:(i + 1) * rows_per],
+                          idxs[i * rows_per:(i + 1) * rows_per])
+                     for i, (p, d) in enumerate(zip(on_devices(params), devs))]
+            return torch.cat([t.to(devs[0]) for t in parts])
 
     return gen
 

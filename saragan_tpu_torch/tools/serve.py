@@ -25,8 +25,13 @@ Endpoints:
                       (N capped by --max_samples; client errors are 400, server
                       faults 500)
 
-Not ported yet: data-parallel serving over several devices (``--serve_devices > 1``); it
-raises.
+``--serve_devices N`` serves a checkpoint on N cards (``cuda:0`` .. ``cuda:N-1``; with
+``--device cpu``, N copies on the CPU): the parameters replicated on each, every batch's
+rows split between them (``make_keyed_sampler`` over a list of devices), each row still
+keyed by its own seed, so the responses equal one device's.  Every bucket batch size must
+divide by N, and fewer cards than N raise ``ValueError``, as the reference's does.  An
+artifact is one program on one device: ``--artifact`` with ``--serve_devices`` above 1
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -237,6 +242,23 @@ class MicroBatcher:
                 t.event.set()
 
 
+def serve_devices(device, n: int) -> list:
+    """The devices of ``--serve_devices n``: ``cuda:0`` .. ``cuda:n-1`` for a CUDA
+    `device` (``ValueError`` when the machine has fewer cards), else n times `device`."""
+    import torch
+
+    if n < 1:
+        raise ValueError(f"--serve_devices {n} < 1")
+    if n == 1:
+        return [device]
+    if device.type != "cuda":
+        return [device] * n
+    have = torch.cuda.device_count()
+    if n > have:
+        raise ValueError(f"--serve_devices {n} > {have} available CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 class GeneratorService:
     """Keyed samplers + their parameters; concurrent requests are micro-batched through
     one worker thread."""
@@ -264,18 +286,19 @@ class GeneratorService:
         from saragan_tpu_torch._device import resolve_device
         from saragan_tpu_torch.tools.generate import _load_generator_params, make_keyed_sampler
 
-        if n_devices != 1:
-            raise NotImplementedError("data-parallel serving (--serve_devices > 1) is not "
-                                      "ported yet")
         dev = resolve_device(device)
+        devices = serve_devices(dev, n_devices)
         # the family served is `architecture`, whatever family `cfg` names
         cfg = dataclasses.replace(cfg, architecture=architecture)
         g_params, _ = _load_generator_params(model_path, use_ema, dev)
         sizes = sorted({int(b) for b in (batch_sizes or [batch_size])})
+        bad = [b for b in sizes if b % n_devices]
+        if bad:
+            raise ValueError(f"batch sizes {bad} do not divide by --serve_devices {n_devices}")
 
         def make_run(size: int):
             sampler = make_keyed_sampler(cfg, phase, size, alpha, fetch_dtype=fetch_dtype,
-                                         device=dev, conv_engine=conv_engine)
+                                         device=devices, conv_engine=conv_engine)
 
             def run_slots(seeds: np.ndarray, idxs: np.ndarray) -> np.ndarray:
                 return sampler(g_params, seeds, idxs).cpu().float().numpy()
@@ -294,6 +317,7 @@ class GeneratorService:
             "fetch_dtype": fetch_dtype or "float32",
             "serve_devices": n_devices,
             "device": str(dev),
+            "devices": [str(d) for d in devices],
             "conv_engine": conv_engine,
             "num_params": int(sum(v.numel() for v in g_params.values())),
         }
@@ -464,7 +488,7 @@ def main(argv: Optional[list] = None):
                    help="cast volumes to this dtype on the device before the host fetch "
                         "(half the bytes, about 3 decimal digits; responses stay float32)")
     p.add_argument("--serve_devices", type=int, default=1,
-                   help="data-parallel serving over N devices (not ported yet)")
+                   help="data-parallel serving over N devices (cuda:0 .. cuda:N-1)")
     p.add_argument("--alpha", type=float, default=0.0)
     p.add_argument("--port", type=int, default=8753)
     p.add_argument("--host", default="127.0.0.1")
@@ -475,8 +499,8 @@ def main(argv: Optional[list] = None):
 
     if args.artifact:
         if args.serve_devices != 1:
-            raise NotImplementedError("data-parallel serving (--serve_devices > 1) is not "
-                                      "ported yet")
+            raise ValueError("--serve_devices applies to a checkpoint; an artifact is one "
+                             "program on one device")
         service = GeneratorService.from_artifact(
             args.artifact, data_mean=args.data_mean, data_stddev=args.data_stddev,
             max_samples=args.max_samples, device=args.device)

@@ -10,6 +10,10 @@
   of CPU tensors; the port cannot read the reference's pickles of JAX arrays, nor the
   reference the port's.  The ``.pkl`` suffix keeps the reference's file names, which
   ``find_auto_resume`` and ``prune_cadence_checkpoints`` rank.
+
+Every file is written to a temporary name of the writing process (``<name>.<pid>.tmp``)
+and renamed over its final name, so data-parallel ranks that share a logdir each write
+whole, identical files: one rank's rename never publishes another's half-written file.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ def save_params(path: str, params: Params, ema: Optional[Params] = None,
     if not path.endswith(".npz"):
         path = path + ".npz"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"  # per process: ranks may share the logdir
     with open(tmp, "wb") as f:
         np.savez(f, **out)
     os.replace(tmp, path)
@@ -95,7 +99,7 @@ def save_full_state(path: str, state, counters: Dict[str, object]) -> str:
     if not path.endswith(".pkl"):
         path = path + ".pkl"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"  # per process: ranks may share the logdir
     torch.save(blob, tmp)
     os.replace(tmp, path)
     return path

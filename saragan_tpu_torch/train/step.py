@@ -64,10 +64,12 @@ from saragan_tpu_torch.core import Params, filter_params
 from saragan_tpu_torch.models.common import offload_taps, recompute
 from saragan_tpu_torch.models.style_ops import StyleMix
 from saragan_tpu_torch.ops.core import refresh_spectral_u
-from saragan_tpu_torch.optim.accumulate import grad_accumulate
+from saragan_tpu_torch.optim.accumulate import grad_accumulate, split_microbatches
 from saragan_tpu_torch.optim.ema import ema_init, ema_update
 from saragan_tpu_torch.optim.factory import Optimizer, make_optimizers_from_config
 from saragan_tpu_torch.optim.freeze import freeze_select
+from saragan_tpu_torch.parallel.mesh import (allreduce_mean_, allreduce_min, gather_rows,
+                                             shard_rows, world_size)
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64}
 
@@ -193,12 +195,12 @@ def style_phase(arch, phase: int) -> Optional[int]:
 
 
 def model_fns(arch, cfg, phase: int, alpha, conv_engine: str,
-              draws: Optional[losses.Draws] = None):
+              draws: Optional[losses.Draws] = None, mesh=None):
     """(gen_fn, disc_fn, gp_disc_fn) of one step at `alpha` (a number or a 0-dim
     tensor), wrapped as the memory levers of `cfg` ask; gp_disc_fn is None where the
     penalty uses disc_fn.  gen_fn(p, z) runs in training mode with the style draws of
     `draws` (its noise source and style mixing; none without draws);
-    disc_fn(p, x, passes=1)."""
+    disc_fn(p, x, passes=1) over this rank's rows of a data-parallel `mesh`'s batch."""
     mix = None
     if draws is not None and draws.z_mix is not None:
         mix = StyleMix(draws.z_mix, draws.mix_coin, draws.mix_cutoff)
@@ -211,7 +213,7 @@ def model_fns(arch, cfg, phase: int, alpha, conv_engine: str,
 
         def disc_fn(p, x, passes=1):
             return arch.discriminator(p, x, alpha, phase=phase, cfg=c, conv_engine=conv_engine,
-                                      passes=passes)
+                                      passes=passes, mesh=mesh)
 
         return gen_fn, disc_fn
 
@@ -238,7 +240,8 @@ def _lever_scope(cfg, record: List):
 
 
 def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
-                  static_alpha: Optional[float] = None, *, conv_engine: str = "direct"):
+                  static_alpha: Optional[float] = None, *, conv_engine: str = "direct",
+                  mesh=None):
     """The gradient half of the simultaneous train step for one (micro-)batch:
     ``grads(g_params, d_params, real, draws, alpha) -> ((g_grads, d_grads), LossOutput)``
     with `real` in the compute dtype and the draws given; arguments as for
@@ -251,7 +254,7 @@ def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
     def grads_fn(g_params: Params, d_params: Params, real: torch.Tensor,
                  draws: losses.Draws, alpha):
         a = torch.tensor(float(alpha)) if static_alpha is None else static_alpha
-        gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, conv_engine, draws)
+        gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, conv_engine, draws, mesh)
         g_p = {k: v.detach().requires_grad_(True) for k, v in g_params.items()}
         d_p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         common = dict(gp_weight=gp_weight, noise_stddev=cfg.noise_stddev,
@@ -273,7 +276,8 @@ def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
 
 
 def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
-                         static_alpha: Optional[float], conv_engine: str, parked: List):
+                         static_alpha: Optional[float], conv_engine: str, parked: List,
+                         mesh=None):
     """The two gradient halves of the ``alternate`` strategy for one (micro-)batch:
     ``d_grads(g_params, d_params, real, draws, alpha) -> (grads, (disc_loss, gp_loss))``
     and ``g_grads(g_params, d_params, draws, alpha) -> (grads, (gen_loss, (min, max)))``
@@ -282,7 +286,7 @@ def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
 
     def fns(alpha, draws):
         a = torch.tensor(float(alpha)) if static_alpha is None else static_alpha
-        return model_fns(arch, cfg, phase, a, conv_engine, draws)
+        return model_fns(arch, cfg, phase, a, conv_engine, draws, mesh)
 
     def d_grads(g_params, d_params, real, draws, alpha):
         gen_fn, disc_fn, gp_disc_fn = fns(alpha, draws)
@@ -309,9 +313,6 @@ def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
     return d_grads, g_grads
 
 
-_BATCH_DRAWS = ("z", "gamma", "noise_real", "noise_fake", "z_mix")
-
-
 def micro_draws(draws, num_micro: int) -> Sequence[losses.Draws]:
     """A step's draws as one ``losses.Draws`` per micro-batch: a sequence as given, or
     one batch's ``Draws`` split into `num_micro`: the per-sample draws along the batch,
@@ -321,7 +322,7 @@ def micro_draws(draws, num_micro: int) -> Sequence[losses.Draws]:
         return list(draws)
     if num_micro == 1:
         return [draws]
-    parts = {f: getattr(draws, f).chunk(num_micro) for f in _BATCH_DRAWS
+    parts = {f: getattr(draws, f).chunk(num_micro) for f in losses.ROW_DRAWS
              if getattr(draws, f) is not None}
     noise = None if draws.noise is None else draws.noise.chunk(num_micro)
     return [draws._replace(**{f: p[k] for f, p in parts.items()},
@@ -333,7 +334,8 @@ def micro_draws(draws, num_micro: int) -> Sequence[losses.Draws]:
 def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: Optimizer,
                     frozen_names: FrozenSet[str] = frozenset(), freeze: bool = False,
                     apply_gp: bool = True, grad_histograms: bool = False,
-                    static_alpha: Optional[float] = None, *, conv_engine: str = "direct"):
+                    static_alpha: Optional[float] = None, *, conv_engine: str = "direct",
+                    mesh=None):
     """The train step for one phase:
     ``step(state, real, rng, alpha, g_lr, d_lr, draws=None) -> (state, StepMetrics)``.
 
@@ -351,19 +353,33 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
     Otherwise alpha goes in as a 0-dim tensor and the branches always run, as the
     reference's traced alpha does.  `conv_engine` is "direct" (cuDNN) or "flat" (the
     hand-written kernels).  Under ``remat_offload`` ``step.parked_bytes`` is what the
-    last step parked in host memory."""
+    last step parked in host memory.
+
+    `mesh` (a ``parallel.Mesh``): data parallelism.  `real` is then this rank's rows of
+    the global batch (rank-major), and the draws, drawn or given, are the global batch's,
+    of which each rank takes its rows (``losses.shard_draws``).  Under accumulation,
+    micro-batch k is the global batch's k-th contiguous slice, as the reference splits its
+    global array, and its draws are that slice's: each rank takes its rows of both (the
+    real rows regathered by one all-gather of the batch per step).  After the
+    micro-batches, one ``parallel.allreduce_mean_`` averages the G and D gradients and
+    the reported losses over the ranks (the generated sample's min and max are the
+    global ones; the real batch's first sample is each rank's own), before clipping,
+    freezing, the optimizer and the EMA, so every rank applies the same update.  Models are not wrapped in ``DistributedDataParallel``:
+    its hooks follow ``backward()``, and the step takes its gradients with
+    ``torch.autograd.grad``."""
     _check_options(cfg)
     dtype = compute_dtype(cfg)
     frozen = frozenset(frozen_names) if freeze else frozenset()
     hist_bins = 64 if grad_histograms else 0
     accum = int(cfg.gradient_accumulation)
     alternate = cfg.optim_strategy == "alternate"
+    world = world_size(mesh)
     grads_fn = make_grads_fn(arch, cfg, phase, apply_gp, static_alpha,
-                             conv_engine=conv_engine)
+                             conv_engine=conv_engine, mesh=mesh)
     parked = grads_fn.parked
     if alternate:
         d_grads_fn, g_grads_fn = _alternate_grads_fns(arch, cfg, phase, apply_gp, static_alpha,
-                                                      conv_engine, parked)
+                                                      conv_engine, parked, mesh)
 
     def apply_updates(optimizer, params, opt_state, grads, lr, clipping):
         grads, max_norm, norms, hists = _clip_and_norms(grads, clipping, hist_bins, frozen)
@@ -372,27 +388,63 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
                 freeze_select(opt_state, new_opt, frozen), max_norm, norms, hists)
 
     def draw(rng, n, real, compute_gp):
-        return [losses.draw_inputs(rng, n // accum, cfg.latent_dim, real.shape[1:], dtype,
-                                   real.device, noise_stddev=cfg.noise_stddev,
+        """The global batch's draws, one per micro-batch."""
+        return [losses.draw_inputs(rng, n * world // accum, cfg.latent_dim, real.shape[1:],
+                                   dtype, real.device, noise_stddev=cfg.noise_stddev,
                                    compute_gp=compute_gp,
                                    style_phase=style_phase(arch, phase))
                 for _ in range(accum)]
+
+    def rank_draws(draws):
+        return [losses.shard_draws(d, mesh) for d in micro_draws(draws, accum)]
+
+    def rank_micro_rows(real):
+        """This rank's rows of each global micro-batch, concatenated in micro-batch
+        order (so that ``split_microbatches`` of the result gives them back)."""
+        if world == 1 or accum == 1:
+            return real
+        split_microbatches(real, accum)  # the per-process batch must split
+        micro = split_microbatches(gather_rows(real, mesh), accum)
+        return torch.cat([shard_rows(m, mesh) for m in micro])
+
+    def dp_reduce(grads, loss_terms, minmax=None):
+        """The gradient dicts (G and D, or one) and the loss scalars averaged over the
+        ranks in one all-reduce; (min, max) of the sample over the ranks."""
+        if mesh is None:
+            return grads, loss_terms, minmax
+        merged = {k: v for g in grads for k, v in g.items()}
+        merged["step/losses"] = torch.stack([t.float() for t in loss_terms])
+        allreduce_mean_(merged, mesh)
+        grads = tuple({k: merged[k] for k in g} for g in grads)
+        loss_terms = tuple(merged["step/losses"].unbind())
+        if minmax is not None:
+            lo, hi = minmax
+            both = allreduce_min(torch.stack([lo.float(), -hi.float()]), mesh)
+            minmax = (both[0].to(lo.dtype), (-both[1]).to(hi.dtype))
+        return grads, loss_terms, minmax
 
     def train_step(state: TrainState, real: torch.Tensor, rng: Optional[torch.Generator],
                    alpha, g_lr, d_lr, draws=None):
         real = real.to(dtype)
         n = real.shape[0]
+        micro_real = rank_micro_rows(real)
         parked.clear()
         if alternate:
             d_draws, g_draws = (draws if draws is not None else
                                 (draw(rng, n, real, apply_gp), draw(rng, n, real, False)))
-            d_draws, g_draws = micro_draws(d_draws, accum), micro_draws(g_draws, accum)
+            d_draws, g_draws = rank_draws(d_draws), rank_draws(g_draws)
             refresh_z = g_draws[0].refresh_z
 
             def d_micro(mb, dr):
                 return d_grads_fn(state.g_params, state.d_params, mb, dr, alpha)
 
-            d_grads, (disc_loss, gp_loss) = grad_accumulate(d_micro, real, d_draws, accum)
+            def d_reduce(out):
+                grads, (disc, gp) = out
+                (grads,), (disc, gp), _ = dp_reduce((grads,), (disc, gp))
+                return grads, (disc, gp)
+
+            d_grads, (disc_loss, gp_loss) = grad_accumulate(d_micro, micro_real, d_draws,
+                                                            accum, d_reduce)
             with torch.no_grad():
                 d_params, d_opt, max_d_norm, d_norms, d_hists = apply_updates(
                     d_optimizer, state.d_params, state.d_opt, d_grads, d_lr, cfg.d_clipping)
@@ -400,9 +452,14 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
             def g_micro(mb, dr):
                 return g_grads_fn(state.g_params, d_params, dr, alpha)
 
+            def g_reduce(out):
+                grads, (gen, minmax) = out
+                (grads,), (gen,), minmax = dp_reduce((grads,), (gen,), minmax)
+                return grads, (gen, minmax)
+
             # G trains against the updated discriminator
             g_grads, (gen_loss, (fake_min, fake_max)) = grad_accumulate(
-                g_micro, real, g_draws, accum)
+                g_micro, real, g_draws, accum, g_reduce)
             with torch.no_grad():
                 g_params, g_opt, max_g_norm, g_norms, g_hists = apply_updates(
                     g_optimizer, state.g_params, state.g_opt, g_grads, g_lr, cfg.g_clipping)
@@ -412,11 +469,15 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
                 return grads, (out.gen_loss, out.disc_loss, out.gp_loss,
                                torch.min(out.gen_sample), torch.max(out.gen_sample))
 
-            draws = micro_draws(draw(rng, n, real, apply_gp) if draws is None else draws,
-                                accum)
+            def reduce(out):
+                grads, (gen, disc, gp, lo, hi) = out
+                grads, (gen, disc, gp), (lo, hi) = dp_reduce(grads, (gen, disc, gp), (lo, hi))
+                return grads, (gen, disc, gp, lo, hi)
+
+            draws = rank_draws(draw(rng, n, real, apply_gp) if draws is None else draws)
             refresh_z = draws[0].refresh_z
             (g_grads, d_grads), (gen_loss, disc_loss, gp_loss, fake_min, fake_max) = (
-                grad_accumulate(micro, real, draws, accum))
+                grad_accumulate(micro, micro_real, draws, accum, reduce))
             with torch.no_grad():
                 g_params, g_opt, max_g_norm, g_norms, g_hists = apply_updates(
                     g_optimizer, state.g_params, state.g_opt, g_grads, g_lr, cfg.g_clipping)

@@ -60,8 +60,21 @@ The log and ``events.jsonl`` (``config/input_pipeline``) say which ran, and each
 writes the host's mean wait for its next batch (``Timing/input_wait_ms``, the first step
 left out).
 
-Not ported (raises ``NotImplementedError`` naming ROADMAP.md): a mesh or ``horovod``
-(item 12).
+Data parallelism (``mesh``, a ``parallel.Mesh``: one process per device, as the
+reference's mesh over its 'data' axis): the global size is the world size, the phase's
+batch size is each rank's and the global batch their sum; the learning rates scale with
+the world size as ``g_scaling`` / ``d_scaling`` ask (``scale_lr``); every rank draws the same global path list and loads its
+paths [rank::world] (``batch_sharded`` on the Python thread, the same slice on the C++
+prefetcher), so each volume is read once per global batch; the parameters come from
+rank 0 at each phase's start (``parallel.broadcast_params_``); the step averages its
+gradients and losses over the ranks and ``draws_fn`` returns the global batch's draws,
+of which the step takes each rank's rows.  Every rank writes the same checkpoints (under
+per-process temporary names) and ends with bit-identical parameters; rank 0 alone prints
+and writes ``events.jsonl``; img/s is global, ``local_img_s`` per rank.  A signal stops
+every rank after the same step: whether one arrived on any rank is agreed after each step
+(``parallel.any_rank``), so no rank is left in a collective.  The validation losses of the
+summaries run on rank 0's batch alone.  ``num_space_shards`` / ``num_space2_shards``
+above 1 raise ``NotImplementedError`` (ROADMAP.md queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -88,6 +101,8 @@ from saragan_tpu_torch.ops.core import LayerNoise, generator_seed
 from saragan_tpu_torch.optim.ema import fold_ema
 from saragan_tpu_torch.optim.freeze import apply_freeze_names
 from saragan_tpu_torch.optim.schedules import lr_schedule, scale_lr
+from saragan_tpu_torch.parallel import (SPACE_NOT_PORTED, any_rank, broadcast_params_, rank,
+                                        world_size)
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train import summaries as summ
 from saragan_tpu_torch.train.step import (TrainState, _train_numerics, compute_dtype,
@@ -159,10 +174,6 @@ class PhaseResult:
     img_s: float
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
-
-
 def _sampler(sample, g_params, alpha: float):
     """The metrics callback's sampler(generator, n) of `g_params` at `alpha`."""
     return lambda generator, n: sample(g_params, generator, n, alpha)
@@ -193,11 +204,14 @@ class Trainer:
         draws_fn(phase, local_step) -> losses.Draws hands every step its random inputs
         (tests feed the reference's draws); None draws them on the device.
         trial: an HPO trial with ``report(value, step)`` and ``should_prune()``.
-        `device` is CUDA unless named."""
-        if mesh is not None or cfg.horovod:
-            _not_ported("training over a mesh or more than one process (queue 1 item 12)")
+        `device` is CUDA unless named; with a `mesh` (``parallel.Mesh``) the mesh's."""
+        if cfg.num_space_shards > 1 or cfg.num_space2_shards > 1:
+            raise NotImplementedError(SPACE_NOT_PORTED)
+        if mesh is not None and device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         # the run's engine, resolved for the device where unset: what the steps, the
         # events and a resumed run (which resolves the same way) see.  Held here, not
         # written into the caller's config, so that another Trainer built from the same
@@ -209,8 +223,8 @@ class Trainer:
         self.draws_fn = draws_fn
         self.metrics_callback = metrics_callback
         self.trial = trial
-        self.global_size = 1  # processes: one (the mesh is not ported)
-        self.verbose = verbose
+        self.global_size = world_size(mesh)
+        self.verbose = verbose and (mesh is None or mesh.rank == 0)
         self.prefetch = prefetch
         self.logdir = cfg.logdir or os.path.join("runs", cfg.architecture,
                                                  time.strftime("%Y-%m-%d_%H-%M-%S"))
@@ -225,7 +239,7 @@ class Trainer:
                 cfg.starting_phase = ar.starting_phase
                 self._auto_resume_note = (f"auto_resume: continuing from {ar.continue_path} "
                                           f"at phase {ar.starting_phase}")
-        self.writer = summ.SummaryWriter(self.logdir if verbose else None)
+        self.writer = summ.SummaryWriter(self.logdir if self.verbose else None)
         self.writer.text("config/conv_engine", self.conv_engine, 0)
         self.last_fid: Optional[float] = None
         self.last_img_s: float = 0.0
@@ -448,7 +462,7 @@ class Trainer:
                 if cfg.ending_phase and phase == cfg.ending_phase:
                     self._log("Reached final phase, breaking.")
                     break
-                if self._interrupt is not None and phase < cfg.num_phases:
+                if self._interrupted() and phase < cfg.num_phases:
                     # the signal landed on the phase's last step: the phase completed
                     # (model_<phase> written) and the next one resumes from it
                     exc = TrainingInterrupted(self._last_checkpoint, phase + 1, global_step)
@@ -467,7 +481,7 @@ class Trainer:
     def _run_phase(self, phase: int, global_step: int) -> PhaseResult:
         cfg = self.cfg
         verbose = self.verbose
-        global_size = 1
+        global_size = self.global_size
         dev = self.device
 
         npy_data = self._get_dataset(phase)
@@ -505,6 +519,10 @@ class Trainer:
             self.arch, torch.Generator().manual_seed(cfg.seed), phase=phase, cfg=cfg,
             device=dev)
         state = self._restore_for_phase(phase, state)
+        if self.mesh is not None:  # replicated from rank 0
+            for tree in (state.g_params, state.d_params, state.ema,
+                         *state.g_opt.slots.values(), *state.d_opt.slots.values()):
+                broadcast_params_(tree, self.mesh)
         self._log(f"Generator parameters: {sum(v.numel() for v in state.g_params.values())}")
         self._log(f"Discriminator parameters: "
                   f"{sum(v.numel() for v in state.d_params.values())}")
@@ -525,7 +543,7 @@ class Trainer:
                     self.arch, cfg, phase, g_optimizer, d_optimizer,
                     frozen_names=frozen if mixing else frozenset(),
                     freeze=bool(frozen) and mixing, apply_gp=use_gp, grad_histograms=hists,
-                    static_alpha=None if mixing else 0.0, conv_engine=engine)
+                    static_alpha=None if mixing else 0.0, conv_engine=engine, mesh=self.mesh)
             return steps[key]
 
         eval_losses = self._make_eval_losses(phase)
@@ -578,9 +596,14 @@ class Trainer:
                     "phase": phase, "phase_start_step": phase_start_step}
 
         transfer_dtype = resolve_transfer_dtype(cfg)
+        shard = rank(self.mesh)
 
         def make_batch():
-            b = normalize_numpy(npy_train.batch(global_batch), cfg.data_mean, cfg.data_stddev)
+            if self.mesh is not None:  # this rank's share of the global batch
+                b = npy_train.batch_sharded(batch_size, global_size, shard)
+            else:
+                b = npy_train.batch(global_batch)
+            b = normalize_numpy(b, cfg.data_mean, cfg.data_stddev)
             return self._to_device(b, transfer_dtype)
 
         prefetcher, pipeline = None, "none"
@@ -588,12 +611,10 @@ class Trainer:
             both = (cfg.data_mean is None) == (cfg.data_stddev is None)
             if (cfg.native_prefetch and both and hasattr(npy_train, "batch_paths")
                     and getattr(npy_train, "shape", None) is not None):
-                # paths in Python (the deterministic stream; [pidx::nproc] with one
-                # process), read, normalize and round on the C++ pool into pinned memory
-                nproc, pidx = global_size, 0
-
+                # paths in Python (the deterministic stream, this rank's [rank::world]),
+                # read, normalize and round on the C++ pool into pinned memory
                 def paths_fn():
-                    return npy_train.batch_paths(global_batch)[pidx::nproc]
+                    return npy_train.batch_paths(global_batch)[shard::global_size]
 
                 host = NativeBatchPrefetcher(paths_fn, npy_train.shape, cfg.data_mean,
                                              cfg.data_stddev, out_dtype=transfer_dtype,
@@ -734,7 +755,7 @@ class Trainer:
                 # the phase's last step completes the phase instead
                 phase_done = global_step >= phase_start_step + steps_per_phase
 
-                if self._interrupt is not None and not phase_done:
+                if self._interrupted() and not phase_done:
                     resume_path = ckpt.save_full_state(
                         ckpt.phase_checkpoint_path(self.logdir, phase, global_step)
                         + "_interrupt", state, full_state_counters())
@@ -790,6 +811,20 @@ class Trainer:
                     if tag == "validation" and m and m.get("FID") is not None:
                         self.last_fid = float(m["FID"])
         return PhaseResult(phase, global_step, self.last_fid, img_s)
+
+    def _interrupted(self) -> bool:
+        """Whether a signal arrived, on this rank or, under a mesh, on any rank (agreed
+        over the host group, so that every rank stops after the same step)."""
+        hit = self._interrupt is not None
+        if self.mesh is not None and self.mesh.world_size > 1:
+            agreed = any_rank(hit, self.mesh)
+            if agreed and not hit:
+                self._interrupt = signal.SIGTERM  # another rank's signal
+                for s, prev in self._installed_handlers.items():
+                    signal.signal(s, prev)
+                self._installed_handlers = {}
+            hit = agreed
+        return hit
 
     def _start_profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]

@@ -133,7 +133,7 @@ def test_latent_mismatch_flat_engine_and_serve_devices_are_refused(tmp_path, ref
     assert torch.equal(flat(z), gen(z))
     assert ([n.target for n in flat.program.graph.nodes if n.op == "call_function"]
             == [n.target for n in gen.program.graph.nodes if n.op == "call_function"])
-    with pytest.raises(NotImplementedError, match="serve_devices"):
+    with pytest.raises(ValueError, match="serve_devices"):
         serve.main(["--artifact", path, "--device", "cpu", "--serve_devices", "2"])
 
 

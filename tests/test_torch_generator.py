@@ -278,8 +278,19 @@ def test_service_warmup_seeds_all_buckets(checkpoint_path):
 
 
 def test_unported_serving_options_raise(checkpoint_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _service(checkpoint_path, n_devices=2)
+    """Data-parallel serving is ported: two devices (two CPU copies here) serve every
+    response bit-equal to one device's, and a bucket that does not split over them
+    raises."""
+    one, two = _service(checkpoint_path, batch_size=4), _service(checkpoint_path, batch_size=4,
+                                                                  n_devices=2)
+    try:
+        assert two.info["serve_devices"] == 2 and two.info["devices"] == ["cpu", "cpu"]
+        np.testing.assert_array_equal(two.generate(5, seed=3), one.generate(5, seed=3))
+    finally:
+        one.close()
+        two.close()
+    with pytest.raises(ValueError, match="divide"):
+        _service(checkpoint_path, batch_sizes=[2, 3], n_devices=2)
 
 
 def test_generate_minimal_writes_unnormalized_volumes(checkpoint_path, tmp_path):

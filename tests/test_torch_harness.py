@@ -188,12 +188,26 @@ def test_only_out_of_memory_fails_a_trial(tmp_path, error, caught):
         assert [t.state for t in study.trials] == ["FAIL"]
 
 
-def test_more_than_one_process_raises(monkeypatch):
-    monkeypatch.setattr(harness, "_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run(Config(optuna_ntrials=1), stub_objective_factory([]))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        harness.default_objective(None, Config())
+def test_more_than_one_process_raises():
+    """Trials across processes are ported (tests/test_torch_multiprocess.py runs them in
+    lockstep); what still raises is ``--horovod`` without the joined group's mesh, a data
+    axis other than the world and the spatial axes (ROADMAP.md queue 1 item 16), before
+    any training."""
+    from saragan_tpu_torch.parallel import init_mesh
+
+    with pytest.raises(ValueError, match="mesh"):
+        harness.default_objective(None, Config(horovod=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        init_mesh("cpu", num_space=2)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        init_mesh("cpu", num_space2=2)
+    mesh = init_mesh("cpu", verbose=False)  # no launcher: a group of one
+    try:
+        assert (mesh.world_size, mesh.rank, mesh.backend) == (1, 0, "gloo")
+        with pytest.raises(ValueError, match="num_data_shards 2"):
+            init_mesh("cpu", num_data=2)
+    finally:
+        mesh.close()
 
 
 def _make_data(root, n=12):

@@ -36,8 +36,8 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the trainer slice's, the metrics slice's, the model families', the HPO slice's and the
-# input layer's modules, which the hook must reach
+# the trainer slice's, the metrics slice's, the model families', the HPO slice's, the
+# input layer's and the data-parallel slice's modules, which the hook must reach
 REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             "saragan_tpu_torch.optim.factory", "saragan_tpu_torch.hpo",
             *(f"saragan_tpu_torch.hpo.{m}" for m in ("engine", "harness", "suggestions")),
@@ -49,7 +49,9 @@ REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             *(f"saragan_tpu_torch.models.{m}"
               for m in ("pgan2", "pgandeep", "style_ops", "stylegan", "stylegan2", "surfgan")),
             "saragan_tpu_torch.data.native", "saragan_tpu_torch.data.imagenet",
-            "saragan_tpu_torch.ops._build"}
+            "saragan_tpu_torch.ops._build", "saragan_tpu_torch.parallel",
+            *(f"saragan_tpu_torch.parallel.{m}" for m in ("mesh", "multihost", "halo")),
+            "saragan_tpu_torch.tools.profile_parallel"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():

@@ -252,11 +252,13 @@ class FakeTrial:
 
 
 @pytest.mark.parametrize("change,match", [  # ids as before calc_metrics and profile_dir
-    pytest.param(dict(horovod=True), "mesh", id="change1-mesh"),
+    pytest.param(dict(horovod=True, num_space_shards=2), "item 16", id="change1-mesh"),
     pytest.param(dict(dataset="imagenet"), None, id="change3-ImageNet")])
 def test_unported_options_raise(tmp_path, change, match):
-    """The mesh raises; the ImageNet dataset, ported since, takes the JPEG class folders
-    under the dataset path (tests/test_torch_2d.py holds it to the reference)."""
+    """The mesh's spatial axes raise (its data axis is ported since: one process per
+    device, tests/test_torch_multiprocess.py); the ImageNet dataset, ported since, takes
+    the JPEG class folders under the dataset path (tests/test_torch_2d.py holds it to the
+    reference)."""
     cfg = Config(**base_cfg(tmp_path, **change)).finalize()
     if match is None:
         from PIL import Image
