@@ -242,15 +242,37 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (c) ``--serve_devices 2`` raises ValueError on this one-card machine; the keyed
    sampler's rows split over [cuda:0, cuda:0] bit-equal to one device's, #1 and #4
    launched;
+   (d) spatial sharding on gloo ranks sharing the card: ``tools.profile_parallel --space``
+   through torchrun, the flagship step (phase 6, batch 8, flat, the mixing half) with each
+   volume's depth split 16 + 16 over two ranks (data 1 x space 2), f32 and bf16, against
+   the one-process step from the same state and draws (f32: gradients within 1e-4 of
+   max, or within ``SPACE_F32_MARGIN`` times the one-process f32 step's own distance
+   from the same step with f64 activations, and the sharded f64 step within
+   ``F64_GRAD_LIMIT`` of max of the one-process f64 step; parameters rtol 1e-4 / atol
+   1e-6 but where the gradient is within the gradient limit of max of zero, those within
+   2 lr and at most ``SPACE_LOOSE_SHARE`` of the entries; bf16: the limits of (b) at the
+   margin ``BF16_SPACE_GRAD_MARGIN``),
+   the ranks bit-equal after one and after 3 more steps, #1 (forward and dgrad), #2 and
+   #4 launched on each rank's slab in that step (counts set to 0 just before, read just
+   after; printed per rank, no plain version), the ms per step per rank and the
+   exchanges' share of an instrumented step; then four ranks at phase 5, depth and height
+   each split over two (space 2 x space2 2), f32 only, the same limits; then
+   the CLI with ``--horovod
+   --num_space_shards 2`` from phase 5 to 6 on two ranks: both exit 0, model_6.npz's
+   arrays equal, rank 0 alone writes events, finite losses; #1, #1' and #2 timed at every
+   conv shape of the two-rank bf16 step's slabs (the kernels line's ``[space]`` rows;
+   their bounds and TFLOP/s count the work of the cropped output, not the 2 radius
+   slices per exchanged axis that a halo conv's extended slab computes and drops);
 18. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone, ``--only
 families`` phase 13, ``--only hpo`` phase 14, ``--only tools`` phase 15, ``--only two_d``
-phase 16, ``--only parallel`` phase 17 (each without the result lines), for working on
-it.  ``--only parallel_cards``, on a machine with two or more cards, runs phase 17 (b) with
+phase 16, ``--only parallel`` phase 17, ``--only parallel_space`` its part (d) (each
+without the result lines), for working on it.  ``--only parallel_cards``, on a machine with two or more cards, runs phase 17 (b) with
 one rank on each card over NCCL (its NVLink collectives and halo exchange) and
-``--serve_devices`` over every card against one device, and nothing else.
+``--serve_devices`` over every card against one device, and (d)'s two-rank step with one
+rank a card over NCCL (data cards / 2 x space 2), and nothing else.
 """
 
 from __future__ import annotations
@@ -752,12 +774,29 @@ def train_engine(cfg, engine, state0, opts, real):
     return rows, launches, (conv_shapes, wgrad_shapes)
 
 
-def _conv_bound(n, c, f, taps, vox, dtype):
+def _conv_bound(n, c, f, taps, vox, dtype, c_vox=None, f_vox=None):
+    """The bound of a conv whose C-channel side has `c_vox` voxels and F-channel side
+    `f_vox` (both `vox` by default); its operations count the smaller (a halo conv's
+    cropped output)."""
+    c_vox, f_vox = c_vox or vox, f_vox or vox
     esize = 2 if dtype == torch.bfloat16 else 4
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     # x and w (or dy) read once, y (or dw) written once
-    return bound((n * c * vox + taps * c * f + n * f * vox) * esize, 2 * n * f * c * taps * vox,
-                 peak)
+    return bound((n * c * c_vox + taps * c * f + n * f * f_vox) * esize,
+                 2 * n * f * c * taps * min(c_vox, f_vox), peak)
+
+
+def _needed_vox(spatial, kernel, role, crops):
+    """(C side, F side) voxels that a conv at `spatial` must move: the whole volume, or at
+    a halo conv's extended slab (`crops`: {(spatial, kernel): [depth, height] slices
+    cropped at each end}) the cropped output's on the side that holds the output (the
+    forward's y, the dgrad's input dy, the wgrad's dy)."""
+    vox = math.prod(spatial)
+    radii = (crops or {}).get((tuple(spatial), tuple(kernel)))
+    if not radii:
+        return vox, vox
+    inner = (spatial[0] - 2 * radii[0]) * (spatial[1] - 2 * radii[1]) * spatial[2]
+    return (inner, vox) if role == "dgrad" else (vox, inner)
 
 
 def _add(entry, weight, t):
@@ -774,11 +813,12 @@ def _rate_line(t):
 
 
 def check_train_convs(conv_shapes, wgrad_shapes, steps, detail,
-                      dtypes=(torch.float32, torch.bfloat16)):
+                      dtypes=(torch.float32, torch.bfloat16), crops=None):
     """Forward/dgrad and wgrad kernels at every (shape, role) the train step launched, in
     f32 (CUDA cores) and bf16 (tensor cores), or the `dtypes` given.  Returns {(kind,
     dtype name): summed per-step entry}; each shape's numbers count as often as one step
-    launches it."""
+    launches it.  `crops` (``_needed_vox``): the halo convs' extended slabs, whose bounds
+    and operations count the cropped output."""
     g = torch.Generator(device="cuda").manual_seed(2)
     limits = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     entries, timed = {}, {}
@@ -810,14 +850,15 @@ def check_train_convs(conv_shapes, wgrad_shapes, steps, detail,
                     del y, again, ref
                     wt = w.permute(4, 3, 0, 1, 2).contiguous()
                     n, c = xs[:2]
+                    c_vox, f_vox = _needed_vox(xs[2:], ws[:3], role, crops)
                     b_ms, t_bytes, t_ops = _conv_bound(n, c, ws[-1], ws[0] * ws[1] * ws[2],
-                                                       math.prod(xs[2:]), dtype)
+                                                       math.prod(xs[2:]), dtype, c_vox, f_vox)
                     t = dict(ms=time_ms(lambda: cf.conv3d_flat_cuda(x, w, role), reps=5, warmup=1),
                              plain_ms=time_ms(lambda: cf.conv3d_flat_plain(x, w), reps=3, warmup=1),
                              library_ms=time_ms(lambda: F.conv3d(x, wt, padding="same"), reps=5,
                                                 warmup=1),
                              bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops,
-                             t_flop=2 * n * ws[-1] * c * ws[0] * ws[1] * ws[2] * math.prod(xs[2:]),
+                             t_flop=2 * n * ws[-1] * c * ws[0] * ws[1] * ws[2] * min(c_vox, f_vox),
                              err=err, scale=scale)
                     timed[key] = t
                     detail.append(dict(kernel="conv3d_flat", route=cf.conv_route(dtype),
@@ -855,14 +896,15 @@ def check_train_convs(conv_shapes, wgrad_shapes, steps, detail,
                 check(err <= limits[dtype] * scale and torch.isfinite(dw).all().item(),
                       f"wgrad {dtype} x{xs} dy{dys}: max|err| {err} > {limits[dtype]} * {scale}")
                 n, c = xs[:2]
+                c_vox, f_vox = _needed_vox(xs[2:], k, "wgrad", crops)
                 b_ms, t_bytes, t_ops = _conv_bound(n, c, dys[1], math.prod(k), math.prod(xs[2:]),
-                                                   dtype)
+                                                   dtype, c_vox, f_vox)
                 t = dict(ms=time_ms(lambda: cf.conv3d_flat_wgrad_cuda(x, dy, k), reps=5, warmup=1),
                          plain_ms=time_ms(lambda: cf.conv3d_flat_wgrad_plain(x, dy, k), reps=3,
                                           warmup=1),
                          library_ms=time_ms(library, reps=5, warmup=1),
                          bound_ms=b_ms, t_bytes=t_bytes, t_ops=t_ops,
-                         t_flop=2 * n * dys[1] * c * math.prod(k) * math.prod(xs[2:]),
+                         t_flop=2 * n * dys[1] * c * math.prod(k) * min(c_vox, f_vox),
                          err=err, scale=scale)
                 detail.append(dict(kernel="conv3d_wgrad", route=cf.conv_route(dtype),
                                    dtype=str(dtype), x=list(xs), dy=list(dys), kernel_size=list(k),
@@ -2964,44 +3006,9 @@ def parallel_ranks(tmp: Path, world: int = 2, one_card: bool = True):
               f"{r['against_one_process']}")
     check(ranks["halo"]["ok"], f"parallel (b): halo conv {ranks['halo']}")
 
-    write_dataset(tmp / "data")
-    port = str(_free_port())
-    procs = {r: _cli_process(trainer_args(tmp / "data", tmp / f"rank{r}", "--horovod",
-                                          *device),
-                             env=dict(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                                      MASTER_PORT=port))
-             for r in range(world)}
-    t0 = time.perf_counter()
-    done = _finish(procs, timeout=400)
-    cli_s = time.perf_counter() - t0
-    for r, (rc, text) in done.items():
-        check(rc == 0, f"parallel (b): CLI rank {r} exited {rc}:\n{text[-3000:]}")
-    line = (f"Data parallel: {world} process(es); rank 0 of {world} on cuda:0, " +
-            ("gloo collectives over host memory" if one_card else
-             "nccl collectives over the device"))
-    check(line in done[0][1], f"parallel (b): the transport line: {done[0][1][:2000]}")
-    shas = []
-    for r in range(world):
-        for p in (5, 6):
-            check((tmp / f"rank{r}" / f"model_{p}.npz").is_file(),
-                  f"parallel (b): rank {r} wrote no model_{p}.npz")
-        h = hashlib.sha256()
-        with np.load(tmp / f"rank{r}" / f"model_{PHASE}.npz") as z:
-            for k in sorted(z.files):
-                h.update(k.encode())
-                h.update(z[k].tobytes())
-        shas.append(h.hexdigest())
-    check(len(set(shas)) == 1, "parallel (b): the ranks' model_6.npz differ")
-    check(not any((tmp / f"rank{r}" / "events.jsonl").exists() for r in range(1, world)),
-          "parallel (b): a rank other than 0 wrote events")
-    events = _events(tmp / "rank0")
-    losses_ = [e["value"] for e in events if e["tag"] in ("Loss/d_loss", "Loss/g_loss")]
-    check(losses_ and all(math.isfinite(v) for v in losses_), f"parallel (b): losses {losses_}")
-    steps = {h: [e["value"] for e in events if e["tag"] == f"Timing/step_ms_{h}"]
-             for h in ("mixing", "stabilizing")}
-    report = dict(tool=ranks, tool_s=tool_s, cli=dict(wall_s=cli_s, params_sha=shas[0],
-                                                      step_ms=steps))
+    cli_report = _cli_ranks(tmp, world, device, [], "parallel (b)", one_card)
+    cli_s = cli_report["wall_s"]
+    report = dict(tool=ranks, tool_s=tool_s, cli=cli_report)
     for dt, r in ranks["steps"].items():
         print(f"parallel (b) {ranks['backend']} x{world}, {dt}: DP step {statistics.median(r['step_ms']):.2f} ms per "
               f"rank (rank 0, median of {PARALLEL_STEPS}); all-reduce alone "
@@ -3015,6 +3022,49 @@ def parallel_ranks(tmp: Path, world: int = 2, one_card: bool = True):
           f"extended slab {h['kernel']['ms']:.3f} ms; CLI 5 -> 6 on {world} ranks {cli_s:.1f} s, "
           f"model_6 equal", flush=True)
     return report
+
+
+def _cli_ranks(tmp: Path, world: int, device, extra, label, one_card=True):
+    """The CLI with ``--horovod`` (and `extra`) from phase 5 to 6 on `world` ranks launched
+    as torchrun launches them: every rank exits 0, model_6.npz equal on all, rank 0 alone
+    writes events, finite losses, the transport line in the log."""
+    write_dataset(tmp / "data")
+    port = str(_free_port())
+    procs = {r: _cli_process(trainer_args(tmp / "data", tmp / f"rank{r}", "--horovod",
+                                          *device, *extra),
+                             env=dict(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                                      MASTER_PORT=port))
+             for r in range(world)}
+    t0 = time.perf_counter()
+    done = _finish(procs, timeout=400)
+    cli_s = time.perf_counter() - t0
+    for r, (rc, text) in done.items():
+        check(rc == 0, f"{label}: CLI rank {r} exited {rc}:\n{text[-3000:]}")
+    line = (f"Data parallel: {world} process(es); rank 0 of {world} on cuda:0, " +
+            ("gloo collectives over host memory" if one_card else
+             "nccl collectives over the device"))
+    check(line in done[0][1], f"{label}: the transport line: {done[0][1][:2000]}")
+    shas = []
+    for r in range(world):
+        for p in (5, 6):
+            check((tmp / f"rank{r}" / f"model_{p}.npz").is_file(),
+                  f"{label}: rank {r} wrote no model_{p}.npz")
+        h = hashlib.sha256()
+        with np.load(tmp / f"rank{r}" / f"model_{PHASE}.npz") as z:
+            for k in sorted(z.files):
+                h.update(k.encode())
+                h.update(z[k].tobytes())
+        shas.append(h.hexdigest())
+    check(len(set(shas)) == 1, f"{label}: the ranks' model_6.npz differ")
+    check(not any((tmp / f"rank{r}" / "events.jsonl").exists() for r in range(1, world)),
+          f"{label}: a rank other than 0 wrote events")
+    events = _events(tmp / "rank0")
+    losses_ = [e["value"] for e in events if e["tag"] in ("Loss/d_loss", "Loss/g_loss")]
+    check(losses_ and all(math.isfinite(v) for v in losses_), f"{label}: losses {losses_}")
+    steps = {h: [e["value"] for e in events if e["tag"] == f"Timing/step_ms_{h}"]
+             for h in ("mixing", "stabilizing")}
+    return dict(wall_s=cli_s, params_sha=shas[0], step_ms=steps)
 
 
 def parallel_serving(cards: int = 1):
@@ -3065,23 +3115,110 @@ def parallel_serving(cards: int = 1):
                                                  fused=counts["fused"]))
 
 
-def parallel(phase5_per_step=None):
-    """Phase 17.  Returns (report, the halo conv's kernel entry and launches)."""
+SPACE_PHASE4 = 5  # the four-rank (space 2 x space2 2) run's phase
+
+
+def _space_tool(world: int, out: Path, *extra, device=("--device", "cuda:0")):
+    """``tools.profile_parallel`` in its spatial mode on `world` ranks: gloo ranks sharing
+    cuda:0, or with `device` () a card each over NCCL; returns (report, seconds)."""
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+           str(world), "--master_addr", "127.0.0.1", "--master_port", str(_free_port()), "-m",
+           "saragan_tpu_torch.tools.profile_parallel", *device, "--out", str(out), *extra]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
+    check(run.returncode == 0 and out.is_file(),
+          f"parallel (d): profile_parallel {' '.join(extra)} exited {run.returncode}:\n"
+          f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    return json.loads(out.read_text()), time.perf_counter() - t0
+
+
+def _space_checked(report, label):
+    """Every check of one spatial run, and its lines."""
+    for dt, r in report["steps"].items():
+        check(r["ranks_bit_equal_first"] and r["ranks_bit_equal_after"],
+              f"parallel (d) {label} {dt}: the ranks differ")
+        check(r["against_one_process"]["ok"],
+              f"parallel (d) {label} {dt}: against the one-process step: "
+              f"{r['against_one_process']}")
+        for rank, c in enumerate(r["launches_by_rank"]):
+            check(min(c[k] for k in PARALLEL_KINDS) > 0 and c["plain"] == 0,
+                  f"parallel (d) {label} {dt}: rank {rank} launches {c}")
+        ex = r["exchanges"]
+        print(f"parallel (d) {label} {dt}: slab {r['slab']}, step "
+              f"{statistics.median(r['step_ms']):.2f} ms per rank (rank 0, median of "
+              f"{len(r['step_ms'])}, CUDA events); exchanges {ex['ms']:.2f} ms of an "
+              f"instrumented step's {ex['instrumented_step_ms']:.2f} ({100 * ex['share']:.1f} "
+              f"%, {ex['calls']} calls); launches per rank {r['launches_by_rank']}; against "
+              f"the one-process step {r['against_one_process']}; against the one-process step "
+              f"with f64 activations {r.get('f64')}",
+              flush=True)
+
+
+def parallel_space(tmp: Path, detail):
+    """(d) Spatial sharding on gloo ranks sharing the card (see the module's phase 17)."""
+    two, two_s = _space_tool(2, OUT_DIR / "profile_parallel_space.json", "--space", "2",
+                             "--phase", str(PHASE))
+    check(two["layout"] == [1, 2, 1], f"parallel (d): layout {two['layout']}")
+    _space_checked(two, "data 1 x space 2")
+    four, four_s = _space_tool(4, OUT_DIR / "profile_parallel_space4.json", "--space", "2",
+                               "--space2", "2", "--phase", str(SPACE_PHASE4), "--f32_only")
+    check(four["layout"] == [1, 2, 2], f"parallel (d): layout {four['layout']}")
+    _space_checked(four, "data 1 x space 2 x space2 2")
+    cli_report = _cli_ranks(tmp, 2, ["--device", "cuda:0"], ["--num_space_shards", "2"],
+                            "parallel (d)")
+    # #1, #1' and #2 at every conv shape of the two-rank bf16 step's slabs (rank 0's)
+    shapes = two["steps"]["bfloat16"]["shapes"]
+    conv_shapes = Counter({tuple(tuple(v) if isinstance(v, list) else v for v in k): n
+                           for k, n in shapes["conv"]})
+    wgrad_shapes = Counter({tuple(tuple(v) if isinstance(v, list) else v for v in k): n
+                            for k, n in shapes["wgrad"]})
+    crops = {(tuple(spatial), tuple(kernel)): r for (spatial, kernel), r in shapes["halo_crops"]}
+    convs = check_train_convs(conv_shapes, wgrad_shapes, 1, detail, dtypes=(torch.bfloat16,),
+                              crops=crops)
+    launches = two["steps"]["bfloat16"]["launches_by_rank"][0]
+    print(f"parallel (d): tool {two_s:.1f} s (2 ranks) + {four_s:.1f} s (4 ranks), CLI 5 -> 6 "
+          f"on 2 ranks {cli_report['wall_s']:.1f} s, model_6 equal", flush=True)
+    return dict(two_ranks=two, four_ranks=four, cli=cli_report, tool_s=[two_s, four_s]), (
+        convs, launches)
+
+
+def parallel(phase5_per_step=None, detail=None):
+    """Phase 17.  Returns (report, the kernel rows' inputs: the halo conv's entry and
+    launches, the spatial step's conv entries and launches)."""
+    detail = [] if detail is None else detail
     report = dict(nccl_world_one=parallel_nccl_world_one(phase5_per_step))
     with tempfile.TemporaryDirectory() as tmp:
         report["two_ranks"] = parallel_ranks(Path(tmp))
     report["serving"] = parallel_serving()
+    with tempfile.TemporaryDirectory() as tmp:
+        report["space"], space = parallel_space(Path(tmp), detail)
     halo = report["two_ranks"]["tool"]["halo"]
-    return report, (halo["kernel"], halo["launches"])
+    return report, (halo["kernel"], halo["launches"], *space)
 
 
-def parallel_entries(entry, launches):
+def parallel_entries(entry, launches, space_convs, space_launches):
     per = (f"the local conv of the depth-halo conv (parallel.halo_conv3d, engine flat) at the "
            f"phase-{PHASE} batch-{BATCH} last generator conv, f32, depth split over two gloo "
            f"ranks on one card: one rank's extended slab (ms and bound for its own output "
            f"slices); launches of that halo call on rank 0")
+    per_space = (f"one phase-{PHASE} batch-{BATCH} bf16 train step under flat with each "
+                 f"volume's depth split 16 + 16 over two gloo ranks on one card: rank 0's "
+                 f"launches at every conv shape of its extended slabs (sum over them; bound "
+                 f"and operations for the cropped outputs); "
+                 f"launches counted over that one step on rank 0")
     return [("conv3d_flat[halo,f32]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd.cu",
-             "saragan_tpu/ops/pallas_conv.py:124", entry, launches, "library_ms", per, None)]
+             "saragan_tpu/ops/pallas_conv.py:124", entry, launches, "library_ms", per, None),
+            ("conv3d_flat[forward,bf16,space]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
+             "saragan_tpu/ops/pallas_conv.py:124", space_convs[("forward", "bfloat16")],
+             space_launches["forward"], "library_ms", per_space, 1),
+            ("conv3d_flat[dgrad,bf16,space]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
+             "saragan_tpu/ops/core.py:386", space_convs[("dgrad", "bfloat16")],
+             space_launches["dgrad"], "library_ms", per_space, 1),
+            ("conv3d_wgrad[bf16,space]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad_tc.cu",
+             "saragan_tpu/ops/pallas_conv.py:183", space_convs[("wgrad", "bfloat16")],
+             space_launches["wgrad"], "library_ms", per_space, 1)]
 
 
 def kernel_row(name, route, source, replaces, e, launches, library, per_what, unit):
@@ -3192,13 +3329,26 @@ def main(argv=None) -> int:
         return 0
 
     if args.only == "parallel":  # this phase alone, for working on it: no result line
-        par, (halo_entry, halo_launches) = parallel()
+        par_detail = []
+        par, par_rows = parallel(detail=par_detail)
         phase_done("parallel")
-        rows = [kernel_row(*r) for r in parallel_entries(halo_entry, halo_launches)]
+        rows = [kernel_row(*r) for r in parallel_entries(*par_rows)]
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_parallel.json").write_text(json.dumps(dict(
             card=card, parallel=par, kernels=rows, seconds=seconds), indent=1, default=str))
         print("parallel kernels: " + json.dumps(rows), flush=True)
+        return 0
+
+    if args.only == "parallel_space":  # phase 17 (d) alone, for working on it: no result line
+        par_detail = []
+        with tempfile.TemporaryDirectory() as tmp:
+            par, (convs, launches) = parallel_space(Path(tmp), par_detail)
+        phase_done("parallel (d)")
+        rows = [kernel_row(*r) for r in parallel_entries(None, 0, convs, launches)[1:]]
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_parallel_space.json").write_text(json.dumps(dict(
+            card=card, space=par, kernels=rows, seconds=seconds), indent=1, default=str))
+        print("parallel (d) kernels: " + json.dumps(rows), flush=True)
         return 0
 
     if args.only == "parallel_cards":  # one rank a card over NCCL: no result line
@@ -3207,6 +3357,11 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             par = dict(ranks=parallel_ranks(Path(tmp), cards, one_card=False),
                        serving=parallel_serving(cards))
+        # (d) over NCCL: each volume's depth over two cards (data cards / 2 x space 2)
+        space, _ = _space_tool(cards - cards % 2, OUT_DIR / "profile_parallel_space_cards.json",
+                               "--space", "2", "--phase", str(PHASE), device=())
+        _space_checked(space, f"NCCL data {space['layout'][0]} x space 2")
+        par["space"] = space
         phase_done("parallel over the cards")
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_parallel_cards.json").write_text(json.dumps(dict(
@@ -3327,7 +3482,7 @@ def main(argv=None) -> int:
 
     # data parallelism on the one card: the DP step over NCCL at world size 1, two gloo
     # ranks (the DP step, the halo conv, the CLI 5 -> 6), the row-split sampler
-    par_report, (halo_entry, halo_launches) = parallel(trained["flat"][1]["mixing"]["per_step"])
+    par_report, par_rows = parallel(trained["flat"][1]["mixing"]["per_step"], detail)
     phase_done("parallel")
 
     main_launches = served["flat"][2]
@@ -3396,7 +3551,7 @@ def main(argv=None) -> int:
     kernels += [kernel_row(*r) for r in big_volume_entries(big_kernels, big_launches)]
     kernels += [kernel_row(*r) for r in family_entries(fam_convs, fam_launches)]
     kernels += [kernel_row(*r) for r in two_d_entries(two_d_report, two_d_kernels)]
-    kernels += [kernel_row(*r) for r in parallel_entries(halo_entry, halo_launches)]
+    kernels += [kernel_row(*r) for r in parallel_entries(*par_rows)]
     f32_train = {f"{kind}[f32]": {x: e[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "max_abs_err", "launches_per_step")}
                  for (kind, dt), e in train_convs.items() if dt == "float32"}
@@ -3471,7 +3626,7 @@ def _parse(argv):
 
     p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
     p.add_argument("--only", choices=["big_volume", "families", "hpo", "tools", "two_d",
-                                       "parallel", "parallel_cards"],
+                                       "parallel", "parallel_space", "parallel_cards"],
                    default=None,
                    help="build, then run this phase alone (no result line)")
     return p.parse_args(argv)

@@ -27,8 +27,10 @@ pick the C++ prefetch executor or the Python thread for the npy pyramid.
 cards, ``gloo`` with ``--device cpu`` and where a host's ranks share the one card
 ``--device`` names, which NCCL refuses) before the run, and with ``--optuna_*`` the study
 runs in lockstep over the ranks.  Each rank takes ``cuda:LOCAL_RANK`` unless ``--device`` names
-one.  ``--num_data_shards`` must be the world size or None; ``--num_space_shards`` /
-``--num_space2_shards`` above 1 raise (ROADMAP.md queue 1 item 16).  ``--use_adasum``,
+one.  ``--num_data_shards`` x ``--num_space_shards`` x ``--num_space2_shards`` must be the
+world size (``--num_data_shards`` None: the rest): the space axes split each volume's
+depth and height over the ranks (pgan; other families raise naming ROADMAP.md queue 1
+item 17).  ``--use_adasum``,
 ``--gpu`` and ``--num_inter_ops`` are accepted and do nothing, as in the reference.
 """
 
@@ -258,11 +260,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "cuda:LOCAL_RANK unless named")
     # data parallelism
     p.add_argument("--num_data_shards", default=None, type=none_or_int,
-                   help="the data axis under --horovod: None or the world size")
+                   help="the data axis under --horovod: None (the world over the space "
+                        "axes) or that")
     p.add_argument("--num_space_shards", default=1, type=int,
-                   help="depth shards of a volume (not ported: > 1 raises)")
+                   help="depth shards of each volume under --horovod (pgan)")
     p.add_argument("--num_space2_shards", default=1, type=int,
-                   help="height shards of a volume (not ported: > 1 raises)")
+                   help="height shards of each volume under --horovod (pgan)")
     return p
 
 

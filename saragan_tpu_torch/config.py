@@ -7,10 +7,9 @@ names, defaults and derived properties), trimmed to what the port runs.  There i
 cuDNN, the reference's choice off the TPU; or "flat", the hand-written kernels), handed
 down to every conv, never a process-wide gate.  Left "unset", the trainer resolves it
 for its device (``resolve_conv_engine``), as the reference's ``apply_runtime_opts`` picks
-an engine by backend.  Fields of options the port does not run yet
-(``num_space_shards`` / ``num_space2_shards`` above 1) are kept so a configuration reads
-the same in both packages; the code that meets them raises and names ROADMAP.md.
-``g_annealing``, ``d_annealing`` and ``use_adasum`` are fields only, in the reference too.
+an engine by backend.  ``num_space_shards`` / ``num_space2_shards`` above 1 (a volume's
+depth and height split across the ranks of a mesh) run for pgan; the trainer raises for
+the other families, naming ROADMAP.md.  ``g_annealing``, ``d_annealing`` and ``use_adasum`` are fields only, in the reference too.
 
 ``single_chip_big_volume`` is the reference's preset for phases 7 and 8 (64x256x256 and
 128x512x512 volumes) on one device (``saragan_tpu/config.py:448-456``): ``finalize``
@@ -168,8 +167,8 @@ class Config:
     d_annealing: float = 1.0
     gradient_accumulation: int = 1
     compute_dtype: str = "float32"  # "bfloat16": bf16 activations, f32 params and state
-    # the data axis: None or the world size (one process per device); the spatial axes
-    # (a volume's depth, height across devices) above 1 raise (ROADMAP queue 1 item 16)
+    # the mesh: data x space x space2 is the world (one process per device), data None
+    # the rest; the spatial axes split a volume's depth and height across the ranks
     num_data_shards: Optional[int] = None
     num_space_shards: int = 1
     num_space2_shards: int = 1

@@ -15,7 +15,9 @@ values follow the reference's distributions, not JAX's threefry bits.
 
 ``spectral`` > 0 spectrally normalizes every weight ``ops.core.get_weight`` reads under
 the scope, with that many power iterations (the discriminator's scope under
-``use_spectral_norm``; reference ``saragan_tpu/core.py:49-65``).
+``use_spectral_norm``; reference ``saragan_tpu/core.py:49-65``).  ``hook``, where set,
+maps every parameter read in apply mode (a spatially sharded model's replicated layers
+read theirs through ``parallel.halo.lead_only``).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ class Scope:
 
     def __init__(self, params: Params, prefix: str = "", *, init: bool = False,
                  rng: Optional[torch.Generator] = None, device=None,
-                 dtype: torch.dtype = torch.float32, spectral: int = 0):
+                 dtype: torch.dtype = torch.float32, spectral: int = 0,
+                 hook: Optional[Callable] = None):
         self.params = params
         self.prefix = prefix
         self.init = init
@@ -50,10 +53,19 @@ class Scope:
         self.device = device
         self.dtype = dtype
         self.spectral = spectral
+        self.hook = hook
 
     def sub(self, name: str) -> "Scope":
         return Scope(self.params, self.path(name), init=self.init, rng=self.rng,
-                     device=self.device, dtype=self.dtype, spectral=self.spectral)
+                     device=self.device, dtype=self.dtype, spectral=self.spectral,
+                     hook=self.hook)
+
+    def hooked(self, hook: Optional[Callable]) -> "Scope":
+        """This scope with every parameter read through `hook` (None: unchanged)."""
+        if hook is None:
+            return self
+        return Scope(self.params, self.prefix, init=self.init, rng=self.rng,
+                     device=self.device, dtype=self.dtype, spectral=self.spectral, hook=hook)
 
     def path(self, name: str) -> str:
         return f"{self.prefix}/{name}" if self.prefix else name
@@ -70,10 +82,11 @@ class Scope:
                 self.params[full] = value.to(self.device)
             return self.params[full].to("meta")
         try:
-            return self.params[full]
+            value = self.params[full]
         except KeyError:
             raise KeyError(f"Parameter {full!r} not found; params has {len(self.params)} "
                            f"entries (e.g. {list(self.params)[:4]})") from None
+        return value if self.hook is None else self.hook(value)
 
 
 def normal_initializer(stddev: float) -> Callable:

@@ -17,6 +17,14 @@ losses read z, gamma and the instance noise; the step binds the style draws into
 generator (``train/step.py::model_fns``).  Under data parallelism a step's draws are the
 global batch's, and each rank takes its rows (``shard_draws``).
 
+Under spatial sharding (``space``, a mesh with a space axis, given where the models
+run on each rank's depth/height slab) the sample tensors are slabs and the scores are the
+whole volumes', the same on every rank of the space group.  The penalty's gradient norm
+sums its squares over the slab and then over the space group (``parallel.halo.
+space_sum``, differentiable: the adjoint hands the replicated cotangent to every slab);
+the input gradient of the replicated score is this rank's slab of the whole one, since
+the models' gathers keep their slab in the backward.
+
 Reference quirk kept: the simultaneous penalty reduces the gradient norm over axes
 (1, 2, 3), which for 3-D volumes leaves per-(sample, W-slice) slopes (reference
 ``loss.py:140``); ``gp_full_reduction=True`` reduces over every non-batch axis.  The
@@ -101,19 +109,28 @@ def draw_inputs(generator: Optional[torch.Generator], n: int, latent_dim: int,
 ROW_DRAWS = ("z", "gamma", "noise_real", "noise_fake", "z_mix")
 
 
-def shard_draws(draws: Draws, mesh) -> Draws:
+VOXEL_DRAWS = ("noise_real", "noise_fake")
+
+
+def shard_draws(draws: Draws, mesh, slab: bool = False) -> Draws:
     """This rank's rows of the global batch's draws under a data-parallel `mesh`
-    (``parallel.Mesh``): the per-sample draws' rows (``parallel.shard_rows``), the noise
-    source's rows of its global draw (``ops.core.RankRowsNoise``); the mixing coin and
-    cutoff and the refresh latents are shared.  `draws` itself without a mesh."""
+    (``parallel.Mesh``), by its data index: the per-sample draws' rows
+    (``parallel.shard_rows``), the noise source's rows of its global draw
+    (``ops.core.RankRowsNoise``); the mixing coin and cutoff and the refresh latents are
+    shared.  With `slab` (a spatially sharded step) the voxel-shaped draws, the instance
+    noise, are also cut to this rank's depth/height slab.  `draws` itself without a
+    mesh."""
     if mesh is None or mesh.world_size == 1:
         return draws
+    from saragan_tpu_torch.parallel.halo import take_slab
     from saragan_tpu_torch.parallel.mesh import shard_rows
 
     rows = {f: shard_rows(getattr(draws, f), mesh) for f in ROW_DRAWS
             if getattr(draws, f) is not None}
+    if slab:
+        rows.update({f: take_slab(rows[f], mesh) for f in VOXEL_DRAWS if f in rows})
     noise = (None if draws.noise is None
-             else RankRowsNoise(draws.noise, mesh.rank, mesh.world_size))
+             else RankRowsNoise(draws.noise, mesh.data_rank, mesh.data_size))
     return draws._replace(**rows, noise=noise)
 
 
@@ -123,24 +140,31 @@ def _instance_noise(x: torch.Tensor, noise: Optional[torch.Tensor], noise_stddev
     return x
 
 
-def _slopes_from_grads(grads: torch.Tensor, axes) -> torch.Tensor:
-    """||g|| over `axes` in f32: the one definition of the penalty's slope norm."""
-    return torch.sqrt(torch.sum(torch.square(grads.float()), dim=axes))
+def _slopes_from_grads(grads: torch.Tensor, axes, space=None) -> torch.Tensor:
+    """||g|| over `axes` in f32: the one definition of the penalty's slope norm.  Under
+    spatial sharding (`space`) the sum of squares over this rank's slab, summed over the
+    space group before the root."""
+    sq = torch.sum(torch.square(grads.float()), dim=axes)
+    if space is not None:
+        from saragan_tpu_torch.parallel.halo import space_sum
+
+        sq = space_sum(sq, space)
+    return torch.sqrt(sq)
 
 
 def _input_grad(disc_fn: Callable, d_params: Params, interp: torch.Tensor,
                 create_graph: bool) -> torch.Tensor:
-    """d sum(D(x)) / d x at `interp`."""
+    """d sum(D(x)) / d x at `interp` (under spatial sharding, this rank's slab of it)."""
     interp = interp.detach().requires_grad_(True)
     score = disc_fn(d_params, interp).sum().float()
     (grads,) = torch.autograd.grad(score, interp, create_graph=create_graph)
     return grads
 
 
-def _gp_slopes(disc_fn: Callable, d_params: Params, interp: torch.Tensor, axes):
+def _gp_slopes(disc_fn: Callable, d_params: Params, interp: torch.Tensor, axes, space=None):
     """||d D(x)/d x|| over `axes`, itself differentiable (the graph of the input
     gradient is kept for the parameter gradient)."""
-    return _slopes_from_grads(_input_grad(disc_fn, d_params, interp, True), axes)
+    return _slopes_from_grads(_input_grad(disc_fn, d_params, interp, True), axes, space)
 
 
 def _detached(params: Params) -> Params:
@@ -148,7 +172,7 @@ def _detached(params: Params) -> Params:
 
 
 def _gp_revfwd(gp_dfn: Callable, d_params: Params, interp: torch.Tensor, axes,
-               gp_weight: float):
+               gp_weight: float, space=None):
     """The penalty and its parameter gradient by the reference's ``revfwd`` algebra
     (``saragan_tpu/losses.py:211-233``): with g = dD/dx at the interpolates and P(g) the
     mean penalty, dP/dtheta = (dg/dtheta)^T c for the frozen cotangent c = P'(g), so the
@@ -156,11 +180,13 @@ def _gp_revfwd(gp_dfn: Callable, d_params: Params, interp: torch.Tensor, axes,
     parameters.  The reference forms that directional derivative in forward mode
     (``jax.jvp``); the kernels' autograd Functions have no forward mode, so here it is the
     contraction of a ``create_graph`` input gradient with c, whose parameter gradient is
-    the same function: one D forward and input backward, as ``revrev``'s.  Returns
+    the same function: one D forward and input backward, as ``revrev``'s.  Under spatial
+    sharding the contraction is this rank's slab's part (the gathers in D's backward
+    graph carry every slab's part to the replicated layers).  Returns
     (penalty, {name: gradient})."""
     gx = _input_grad(gp_dfn, d_params, interp, True)
     g = gx.detach().requires_grad_(True)
-    penalty = torch.mean(gp_weight * (_slopes_from_grads(g, axes) - 1.0) ** 2)
+    penalty = torch.mean(gp_weight * (_slopes_from_grads(g, axes, space) - 1.0) ** 2)
     (c,) = torch.autograd.grad(penalty, g)
     c = c.to(interp.dtype)
     directional = torch.sum(gx.float() * c.float())
@@ -191,12 +217,12 @@ def forward_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
                          loss_fn: str = "wgan", gp_weight: float = 1.0,
                          noise_stddev: float = 0.0, gp_full_reduction: bool = False,
                          compute_gp: bool = True,
-                         gp_disc_fn: Optional[Callable] = None) -> LossOutput:
+                         gp_disc_fn: Optional[Callable] = None, space=None) -> LossOutput:
     """Joint G+D forward (reference ``forward_simultaneous``): the discriminator's
     terms see a detached fake sample and the generator's term a detached critic, so the
     gradient of gen_loss + disc_loss with respect to (g_params, d_params) is the pair of
     the reference's two separate minimizations.  gen_fn(params, z) -> images,
-    disc_fn(params, x) -> (N, 1) scores."""
+    disc_fn(params, x) -> (N, 1) scores; `space` as the module says."""
     gen_sample = gen_fn(g_params, draws.z)
     real = _instance_noise(real, draws.noise_real, noise_stddev)
     fake = _instance_noise(gen_sample, draws.noise_fake, noise_stddev)
@@ -207,7 +233,7 @@ def forward_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
     if compute_gp:
         axes = _simultaneous_axes(real.ndim, gp_full_reduction)
         slopes = _gp_slopes(gp_disc_fn or disc_fn, d_params,
-                            _interpolates(draws, real, fake_sg), axes)
+                            _interpolates(draws, real, fake_sg), axes, space)
     disc_fake_g = disc_fn(_detached(d_params), fake)
 
     disc_fake_d, disc_real, disc_fake_g = (s.float() for s in (disc_fake_d, disc_real,
@@ -237,7 +263,7 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
                        gp_weight: float = 1.0, noise_stddev: float = 0.0,
                        gp_full_reduction: bool = False, compute_gp: bool = True,
                        gp_grad_mode: str = "revrev", batched_passes: bool = False,
-                       gp_disc_fn: Optional[Callable] = None
+                       gp_disc_fn: Optional[Callable] = None, space=None
                        ) -> Tuple[Tuple[Params, Params], LossOutput]:
     """WGAN simultaneous gradients with the fake critic pass shared (reference
     ``grads_simultaneous``): for the WGAN loss the cotangents of D(fake) in the
@@ -255,7 +281,7 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
 
     ``gp_grad_mode``: "revrev" (reverse over reverse: the penalty's parameter gradient
     differentiates through the inner input gradient) or "revfwd" (``_gp_revfwd``); both
-    exact, summed in other orders.
+    exact, summed in other orders.  `space` as the module says.
     Returns ((g_grads, d_grads), LossOutput) with detached values."""
     if gp_grad_mode not in ("revrev", "revfwd"):
         raise ValueError(f"Unknown gp_grad_mode: {gp_grad_mode}")
@@ -290,9 +316,9 @@ def grads_simultaneous(gen_fn: Callable, disc_fn: Callable, g_params: Params,
         interp = _interpolates(draws, real, fake.detach())
         if gp_grad_mode == "revfwd":
             gp_mean, ggp_d = _gp_revfwd(gp_disc_fn or disc_fn, d_params, interp, axes,
-                                        gp_weight)
+                                        gp_weight, space)
         else:
-            slopes = _gp_slopes(gp_disc_fn or disc_fn, d_params, interp, axes)
+            slopes = _gp_slopes(gp_disc_fn or disc_fn, d_params, interp, axes, space)
             gp_mean = torch.mean(gp_weight * (slopes - 1.0) ** 2)
             ggp_d = param_grads(gp_mean, d_params)
 
@@ -327,11 +353,12 @@ def forward_discriminator(gen_fn: Callable, disc_fn: Callable, g_params: Params,
                           d_params: Params, real: torch.Tensor, draws: Draws, *,
                           loss_fn: str = "wgan", gp_weight: float = 1.0,
                           noise_stddev: float = 0.0, compute_gp: bool = True,
-                          gp_disc_fn: Optional[Callable] = None
+                          gp_disc_fn: Optional[Callable] = None, space=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Discriminator-only forward of the ``alternate`` strategy (reference
     ``forward_discriminator``): the generator's sample without a graph, the penalty's
-    norm over every non-batch axis.  Returns (disc_loss, gp_loss)."""
+    norm over every non-batch axis; `space` as the module says.  Returns
+    (disc_loss, gp_loss)."""
     with torch.no_grad():
         gen_sample = gen_fn(_detached(g_params), draws.z)
     real = _instance_noise(real, draws.noise_real, noise_stddev)
@@ -342,7 +369,7 @@ def forward_discriminator(gen_fn: Callable, disc_fn: Callable, g_params: Params,
     if compute_gp:
         axes = tuple(range(1, real.ndim))
         slopes = _gp_slopes(gp_disc_fn or disc_fn, d_params, _interpolates(draws, real, fake),
-                            axes)
+                            axes, space)
     if loss_fn == "wgan":
         gp_term = gp_out = zero
         if compute_gp:

@@ -20,6 +20,20 @@ reference's TF scope names.  pgan's discriminator has no cross-sample op (its
 minibatch-stddev head is disabled in the reference), which the stacked critic pass of
 the train step relies on.
 
+Spatial sharding (``space``, a ``parallel.Mesh`` with a space axis; an explicit argument
+like ``conv_engine``): x and the generator's output are this rank's depth/height slab of
+each volume.  ``space_plan`` decides per resolution whether it runs sharded (its volume
+splits by ``parallel.halo.space_splits`` under the radii of its convs and of the fused
+transition out of it, and so does every finer resolution) or replicated (the same values
+on every rank of the space group).  Sharded: every SAME conv through
+``parallel.halo_conv3d``, a fused transition out of a sharded resolution through
+``halo_upscale_conv``; the upscale, the pool, the 1x1x1 RGB heads, the bias, the
+activations and the fused op are local.  The crossings: a generator block whose input is
+replicated upscales it, takes this rank's slab (``take_slab``) and convolves with halos
+(so its fused transition becomes upscale + halo conv); the discriminator gathers its
+slabs (``gather_slabs``) before the pool into a replicated resolution, and before its
+dense head.  A replicated layer reads its parameters through ``halo.lead_only``.
+
 Each network is written as a chain of recompute regions between its block boundaries
 (``models/common.py``: ``segment`` and ``block_tap``, at the reference's tap names), which
 ``remat_offload`` checkpoints and otherwise runs as plain calls.  ``use_spectral_norm``
@@ -30,6 +44,7 @@ persisted ``<weight>_u`` start vector among the parameters.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,6 +55,8 @@ from saragan_tpu_torch.models.common import (block_tap, init_from_shape_passes, 
 from saragan_tpu_torch.models.registry import Architecture, register
 from saragan_tpu_torch.ops import core as ops
 from saragan_tpu_torch.ops.fused_bias_act import bias_act_pixelnorm
+from saragan_tpu_torch.parallel.halo import (gather_slabs, halo_conv3d, halo_upscale_conv,
+                                             lead_only, space_axes, space_splits, take_slab)
 
 
 def _get_spec(spec, phase_i, layer_i, what):
@@ -58,6 +75,72 @@ def get_kernels(kernel_spec, phase_i, layer_i):
     return _get_spec(kernel_spec, phase_i, layer_i, "kernel shape")
 
 
+class _Plan:
+    """One call's spatial sharding: the mesh and, per resolution 1..phase, whether it runs
+    sharded."""
+
+    def __init__(self, mesh, sharded):
+        self.mesh = mesh
+        self.sharded = tuple(sharded)
+
+    def at(self, res: int) -> bool:
+        return self.sharded[res - 1]
+
+    def scope(self, scope, res: Optional[int]):
+        """`scope` for a layer at resolution `res` (None: a dense layer, replicated)."""
+        if res is not None and self.at(res):
+            return scope
+        return scope.hooked(lead_only(self.mesh))
+
+    def cross(self, x, src: bool, dst: bool):
+        """`x` from a sharded (`src`) or replicated layout to the `dst` one."""
+        if src == dst:
+            return x
+        return take_slab(x, self.mesh) if dst else gather_slabs(x, self.mesh)
+
+
+def _radii(kernel):
+    return [int(k) // 2 for k in kernel[:2]]
+
+
+def space_plan(cfg, phase: int, mesh) -> tuple:
+    """Per resolution 1..`phase`: True where it runs sharded on `mesh`'s space axes.  A
+    resolution is sharded where its volume and every finer one's split over the axes
+    (``space_splits``) under the depth/height radii of the convs at it (G's and D's) and
+    of the fused transition out of it (``halo_upscale_conv``'s coarse halo)."""
+    ks = cfg.resolved_kernel_spec()
+    ok = []
+    for res in range(1, phase + 1):
+        kernels = [get_kernels(ks, 0, 1)] if res == 1 else [get_kernels(ks, res - 1, 0),
+                                                            get_kernels(ks, res - 1, 1)]
+        radii = [max(r) for r in zip(*[_radii(k) for k in kernels])]
+        if res < phase and cfg.fused_transitions:
+            coarse = [(r + 1) // 2 for r in _radii(get_kernels(ks, res, 0))]
+            radii = [max(a, b) for a, b in zip(radii, coarse)]
+        ok.append(space_splits(mesh, cfg.current_shape(res, 1)[2:], radii))
+    sharded = [all(ok[r:]) for r in range(phase)]
+    return tuple(sharded)
+
+
+def _plan(space, phase: int, cfg) -> Optional[_Plan]:
+    if not space_axes(space):
+        return None
+    return _Plan(space, space_plan(cfg, phase, space))
+
+
+def _scope(sp: Optional[_Plan], scope, res: Optional[int]):
+    return scope if sp is None else sp.scope(scope, res)
+
+
+def _conv(c, x, fmaps, kernel, activation, param, engine, sp=None, res=None):
+    """A layer's SAME conv: ``ops.conv``, or the halo conv where `res` runs sharded."""
+    if sp is None or not sp.at(res):
+        return ops.conv(c, x, fmaps, kernel, activation, param=param, engine=engine)
+    kernel = tuple(int(k) for k in kernel)
+    w = ops.get_weight(c, (*kernel, x.shape[1], fmaps), activation, param=param)
+    return halo_conv3d(x, w.to(x.dtype), sp.mesh, engine=engine)
+
+
 def _bias_act_pn(scope, x, activation, param, fused: bool):
     """bias -> act -> pixel_norm; one fused kernel when enabled and the activation is
     leaky_relu."""
@@ -69,60 +152,73 @@ def _bias_act_pn(scope, x, activation, param, fused: bool):
     return ops.pixel_norm(x)
 
 
-def _generator_in(scope, x, shape, activation, kernel_spec, filter_spec, param, fused, engine):
-    d = scope.sub("dense")
+def _generator_in(scope, x, shape, activation, kernel_spec, filter_spec, param, fused, engine,
+                  sp=None):
+    d = _scope(sp, scope.sub("dense"), None)
     f0 = get_filters(filter_spec, 0, 0)
     x = ops.dense(d, x, int(np.prod(shape)) * f0, activation, param=param)
     x = ops.apply_bias(d, x)
     x = ops.act(x, activation, param=param)
     x = x.reshape((-1, f0, *shape))
-    c = scope.sub("conv")
-    x = ops.conv(c, x, get_filters(filter_spec, 0, 1), get_kernels(kernel_spec, 0, 1),
-                 activation, param=param, engine=engine)
+    c = _scope(sp, scope.sub("conv"), 1)
+    if sp is not None:
+        x = sp.cross(x, False, sp.at(1))
+    x = _conv(c, x, get_filters(filter_spec, 0, 1), get_kernels(kernel_spec, 0, 1),
+              activation, param, engine, sp, 1)
     return _bias_act_pn(c, x, activation, param, fused)
 
 
-def _conv_bias_act_pn(c, x, fmaps, kernel, activation, param, fused, engine):
-    x = ops.conv(c, x, fmaps, kernel, activation, param=param, engine=engine)
+def _conv_bias_act_pn(c, x, fmaps, kernel, activation, param, fused, engine, sp=None,
+                      res=None):
+    x = _conv(c, x, fmaps, kernel, activation, param, engine, sp, res)
     return _bias_act_pn(c, x, activation, param, fused)
 
 
 def _generator_block(scope, x, activation, kernel_spec, filter_spec, i, param, fused,
-                     fused_transitions, engine, cfg):
+                     fused_transitions, engine, cfg, sp=None):
     """Block i from the previous block's output, as two recompute regions (``segment``):
     the transition up to the ``gen_block_{i}_mid`` tap, then conv_2."""
-    c1, c2 = scope.sub("conv_1"), scope.sub("conv_2")
+    c1, c2 = _scope(sp, scope.sub("conv_1"), i), _scope(sp, scope.sub("conv_2"), i)
+    # a replicated input to a sharded block: upscale, this rank's slab, the halo conv
+    entering = sp is not None and sp.at(i) and not sp.at(i - 1)
 
     def first(t):
-        if fused_transitions:
+        if fused_transitions and not entering:
             kernel = tuple(int(k) for k in get_kernels(kernel_spec, i - 1, 0))
             w = ops.get_weight(c1, (*kernel, t.shape[1], get_filters(filter_spec, i - 1, 0)),
                                activation, param=param)
-            return _bias_act_pn(c1, ops.upscale_conv(t, w.to(t.dtype)), activation, param,
-                                fused)
-        return _conv_bias_act_pn(c1, ops.upscale(t), get_filters(filter_spec, i - 1, 0),
+            if sp is not None and sp.at(i):
+                y = halo_upscale_conv(t, w.to(t.dtype), sp.mesh)
+            else:
+                y = ops.upscale_conv(t, w.to(t.dtype))
+            return _bias_act_pn(c1, y, activation, param, fused)
+        t = ops.upscale(t)
+        if entering:
+            t = sp.cross(t, False, True)
+        return _conv_bias_act_pn(c1, t, get_filters(filter_spec, i - 1, 0),
                                  get_kernels(kernel_spec, i - 1, 0), activation, param, fused,
-                                 engine)
+                                 engine, sp, i)
 
     def second(t):
         return _conv_bias_act_pn(c2, t, get_filters(filter_spec, i - 1, 1),
                                  get_kernels(kernel_spec, i - 1, 1), activation, param, fused,
-                                 engine)
+                                 engine, sp, i)
 
     mid = block_tap(segment(first, cfg, x), f"gen_block_{i}_mid", cfg)
     return segment(second, cfg, mid)
 
 
-def _generator(scope, z, alpha, phase, cfg, param, engine):
+def _generator(scope, z, alpha, phase, cfg, param, engine, space=None):
     base_shape = cfg.base_shape
     kernel_spec = cfg.resolved_kernel_spec()
     filter_spec = cfg.resolved_filter_spec()
     activation = cfg.activation
     g = scope.sub("generator")
     fused = cfg.use_pallas_fusion
+    sp = _plan(space, phase, cfg)
 
     x = segment(lambda t: _generator_in(g.sub("generator_in"), t, base_shape[1:], activation,
-                                        kernel_spec, filter_spec, param, fused, engine),
+                                        kernel_spec, filter_spec, param, fused, engine, sp),
                 cfg, z)
     x = block_tap(x, "gen_in", cfg)
 
@@ -131,15 +227,20 @@ def _generator(scope, z, alpha, phase, cfg, param, engine):
         if i == phase and not static_alpha_zero(alpha):
             x_prev = x
         x = _generator_block(g.sub(f"generator_block_{i}"), x, activation, kernel_spec,
-                             filter_spec, i, param, fused, cfg.fused_transitions, engine, cfg)
+                             filter_spec, i, param, fused, cfg.fused_transitions, engine, cfg,
+                             sp)
         x = block_tap(x, f"gen_block_{i}", cfg)
 
     def out(t, t_prev):
-        x_out = ops.to_rgb(g.sub(f"to_rgb_{phase}"), t, channels=base_shape[0], engine=engine)
+        x_out = ops.to_rgb(_scope(sp, g.sub(f"to_rgb_{phase}"), phase), t,
+                           channels=base_shape[0], engine=engine)
         if t_prev is None:
             return x_out
-        x_upsample = ops.upscale(ops.to_rgb(g.sub(f"to_rgb_{phase - 1}"), t_prev,
+        x_upsample = ops.upscale(ops.to_rgb(_scope(sp, g.sub(f"to_rgb_{phase - 1}"),
+                                                   phase - 1), t_prev,
                                             channels=base_shape[0], engine=engine))
+        if sp is not None:
+            x_upsample = sp.cross(x_upsample, sp.at(phase - 1), sp.at(phase))
         a = torch.as_tensor(alpha, dtype=x_out.dtype)
         return a * x_upsample + (1 - a) * x_out
 
@@ -148,31 +249,43 @@ def _generator(scope, z, alpha, phase, cfg, param, engine):
 
 def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
               conv_engine: str = "direct", noise=None, mix=None,
-              train: bool = True) -> torch.Tensor:
+              train: bool = True, space=None) -> torch.Tensor:
     """G(z) at `phase`: (N, latent_dim) -> (N, C, *spatial).  `alpha` is a Python float
     (0 skips the transition branch) or a 0-dim tensor (the branch always runs).  pgan
-    draws no noise and mixes no styles: `noise`, `mix` and `train` change nothing."""
-    return _generator(Scope(params), z, alpha, phase, cfg, cfg.leakiness, conv_engine)
+    draws no noise and mixes no styles: `noise`, `mix` and `train` change nothing.
+    `space` (a mesh with a space axis): the output is this rank's slab of each volume,
+    as ``space_plan`` lays the layers out (every rank of the space group calls it)."""
+    return _generator(Scope(params), z, alpha, phase, cfg, cfg.leakiness, conv_engine, space)
 
 
-def _conv_bias_act(c, x, fmaps, kernel, activation, param, engine):
-    x = ops.conv(c, x, fmaps, kernel, activation, param=param, engine=engine)
+def _conv_bias_act(c, x, fmaps, kernel, activation, param, engine, sp=None, res=None):
+    x = _conv(c, x, fmaps, kernel, activation, param, engine, sp, res)
     return ops.act(ops.apply_bias(c, x), activation, param=param)
 
 
 def _discriminator_out(scope, x, latent_dim, activation, kernel_spec, filter_spec, param,
-                       engine):
+                       engine, sp=None):
     o = scope.sub("discriminator_out")
-    x = _conv_bias_act(o, x, get_filters(filter_spec, 0, 0), get_kernels(kernel_spec, 0, 1),
-                       activation, param, engine)
-    d1 = o.sub("dense_1")
+    x = _conv_bias_act(_scope(sp, o, 1), x, get_filters(filter_spec, 0, 0),
+                       get_kernels(kernel_spec, 0, 1), activation, param, engine, sp, 1)
+    if sp is not None:
+        x = sp.cross(x, sp.at(1), False)
+    d1 = _scope(sp, o.sub("dense_1"), None)
     x = ops.act(ops.apply_bias(d1, ops.dense(d1, x, latent_dim, activation, param=param)),
                 activation, param=param)
-    d2 = o.sub("dense_2")
+    d2 = _scope(sp, o.sub("dense_2"), None)
     return ops.apply_bias(d2, ops.dense(d2, x, 1, activation="linear"))
 
 
-def _discriminator(scope, x, alpha, phase, cfg, param, engine):
+def _downscale(x, sp: Optional[_Plan], res: int):
+    """The pool from resolution `res` into `res` - 1; gathered first where `res` runs
+    sharded and `res` - 1 replicated."""
+    if sp is not None:
+        x = sp.cross(x, sp.at(res), sp.at(res - 1))
+    return ops.downscale(x)
+
+
+def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
     """From_rgb, then per block i = phase .. 2 two recompute regions (``segment``), up to
     the ``disc_block_{i}_mid`` tap and from it through conv_2 and the pooling; the
     transition blend after the top block opens the region that follows it.  The
@@ -184,15 +297,17 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine):
     activation = cfg.activation
     d = scope.sub("discriminator")
     image = x
+    sp = _plan(space, phase, cfg)
 
     def transition(t, img):
-        prev = ops.from_rgb(d.sub(f"from_rgb_{phase - 1}"), ops.downscale(img),
+        prev = ops.from_rgb(_scope(sp, d.sub(f"from_rgb_{phase - 1}"), phase - 1),
+                            _downscale(img, sp, phase),
                             get_filters(filter_spec, phase - 2, 1), activation, param=param,
                             engine=engine)
         a = torch.as_tensor(alpha, dtype=t.dtype)
         return a * prev + (1 - a) * t
 
-    x = segment(lambda img: ops.from_rgb(d.sub(f"from_rgb_{phase}"), img,
+    x = segment(lambda img: ops.from_rgb(_scope(sp, d.sub(f"from_rgb_{phase}"), phase), img,
                                          get_filters(filter_spec, phase - 1, 1), activation,
                                          param=param, engine=engine), cfg, image)
     x = block_tap(x, "disc_in", cfg)
@@ -203,13 +318,17 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine):
         def first(t, img, b=b, i=i, pending=pending):
             if pending is not None:
                 t = pending(t, img)
-            return _conv_bias_act(b.sub("conv_1"), t, get_filters(filter_spec, i - 1, 0),
-                                  get_kernels(kernel_spec, i - 1, 1), activation, param, engine)
+            return _conv_bias_act(_scope(sp, b.sub("conv_1"), i), t,
+                                  get_filters(filter_spec, i - 1, 0),
+                                  get_kernels(kernel_spec, i - 1, 1), activation, param, engine,
+                                  sp, i)
 
         def second(t, b=b, i=i):
-            t = _conv_bias_act(b.sub("conv_2"), t, get_filters(filter_spec, i - 2, 1),
-                               get_kernels(kernel_spec, i - 1, 0), activation, param, engine)
-            return ops.downscale(t)
+            t = _conv_bias_act(_scope(sp, b.sub("conv_2"), i), t,
+                               get_filters(filter_spec, i - 2, 1),
+                               get_kernels(kernel_spec, i - 1, 0), activation, param, engine,
+                               sp, i)
+            return _downscale(t, sp, i)
 
         x = block_tap(segment(first, cfg, x, image), f"disc_block_{i}_mid", cfg)
         x = block_tap(segment(second, cfg, x), f"disc_block_{i}", cfg)
@@ -219,19 +338,21 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine):
         if pending is not None:
             t = pending(t, img)
         return _discriminator_out(d, t, cfg.latent_dim, activation, kernel_spec, filter_spec,
-                                  param, engine)
+                                  param, engine, sp)
 
     return segment(out, cfg, x, image)
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
                   conv_engine: str = "direct", passes: int = 1,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, space=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1) scores.  `alpha` as for the
     generator.  No op mixes samples, so stacked passes (`passes`) and a
-    data-parallel `mesh` need nothing."""
+    data-parallel `mesh` need nothing.  `space` (a mesh with a space axis): x is this
+    rank's slab of each volume (the layout of ``space_plan``) and the scores are the
+    whole volumes', the same on every rank of the space group."""
     return _discriminator(Scope(params, spectral=spectral_iters(cfg)), x, alpha, phase, cfg,
-                          cfg.leakiness, conv_engine)
+                          cfg.leakiness, conv_engine, space)
 
 
 def init(rng: torch.Generator, *, phase: int, cfg, device) -> Params:
@@ -247,4 +368,4 @@ def init(rng: torch.Generator, *, phase: int, cfg, device) -> Params:
         rng, phase=phase, cfg=cfg, device=device)
 
 
-register(Architecture("pgan", init, generator, discriminator))
+register(Architecture("pgan", init, generator, discriminator, space_plan=space_plan))

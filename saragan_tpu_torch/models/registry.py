@@ -6,6 +6,7 @@
     discriminator(params, x, alpha, *, phase, cfg, conv_engine, passes=1, mesh=None)
                                                                 -> (N, 1) scores
     refresh_state(g_params, z, *, phase, cfg)                   -> g_params
+    space_plan(cfg, phase, mesh)                                -> per-resolution sharded
 
 All six families of the reference are registered (``saragan_tpu/models/registry.py``).
 ``noise`` (a noise source, ``ops.core.LayerNoise`` / ``NoiseByName``) and ``mix`` (a
@@ -19,7 +20,10 @@ apart, the others ignore it.  ``mesh`` (a data-parallel ``parallel.Mesh``) says 
 this rank's rows of a global batch: surfgan's head forms its groups over the global
 batch, the others ignore it.  ``refresh_state`` is the
 style families' per-step w-average update (``d_z_avg``) from a batch of latents `z`;
-None for the families without that state.
+None for the families without that state.  ``space_plan`` is set for the families that
+run spatially sharded (pgan): their generator and discriminator then take ``space=``, a
+mesh with a space axis, and run on this rank's slab of each volume; None for the others,
+which raise under spatial sharding (ROADMAP.md queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ class Architecture(NamedTuple):
     generator: Callable
     discriminator: Callable
     refresh_state: Optional[Callable] = None
+    space_plan: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, Architecture] = {}

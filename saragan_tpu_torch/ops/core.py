@@ -377,7 +377,7 @@ def minibatch_stddev_layer(x: torch.Tensor, group_size: int = 4, passes: int = 1
     over each pass's global batch, as the reference's over its sharded global array: each
     pass is gathered from every rank (``parallel.gather_rows``, differentiable to any
     order), the statistic formed over it, and this rank's rows kept."""
-    if mesh is None or mesh.world_size == 1:
+    if mesh is None or mesh.data_size == 1:
         return _minibatch_stddev(x, group_size, passes)
     from saragan_tpu_torch.parallel.mesh import gather_rows
 
@@ -386,8 +386,8 @@ def minibatch_stddev_layer(x: torch.Tensor, group_size: int = 4, passes: int = 1
         raise ValueError(f"batch {x.shape[0]} is not {passes} passes of one size")
     glob = torch.cat([gather_rows(part, mesh) for part in x.split(n)])
     out = _minibatch_stddev(glob, group_size, passes)
-    total = n * mesh.world_size
-    lo = mesh.rank * n
+    total = n * mesh.data_size
+    lo = mesh.data_rank * n
     return torch.cat([out[p * total + lo:p * total + lo + n] for p in range(passes)])
 
 

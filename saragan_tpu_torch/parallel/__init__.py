@@ -1,7 +1,15 @@
-"""Data parallelism and HPO in lockstep over ``torch.distributed`` (counterpart of
-``saragan_tpu/parallel/``): one process per device in an explicit process group."""
+"""Data parallelism, spatial sharding and HPO in lockstep over ``torch.distributed``
+(counterpart of ``saragan_tpu/parallel/``): one process per device in an explicit
+process group."""
 
-from saragan_tpu_torch.parallel.halo import halo_conv3d  # noqa: F401
+from saragan_tpu_torch.parallel.halo import (  # noqa: F401
+    gather_slabs,
+    halo_conv3d,
+    halo_exchange,
+    halo_upscale_conv,
+    space_sum,
+    take_slab,
+)
 from saragan_tpu_torch.parallel.mesh import (  # noqa: F401
     SPACE_NOT_PORTED,
     Mesh,
@@ -12,6 +20,7 @@ from saragan_tpu_torch.parallel.mesh import (  # noqa: F401
     init_mesh,
     rank,
     shard_rows,
+    space_not_ported,
     world_size,
 )
 from saragan_tpu_torch.parallel.multihost import (  # noqa: F401

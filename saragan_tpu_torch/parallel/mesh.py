@@ -34,11 +34,20 @@ Control decisions (a broadcast trial parameter, "does another trial start", "did
 rank get a signal") travel over a gloo group on host memory (``Mesh.host_group``), so
 they never wait on the device.
 
+The 'space' axes (``make_mesh``'s reshape, ``mesh.py:50-64`` there): the world is
+data x space x space2, rank = (d S + s) S2 + s2.  Ranks of one data index d hold the same
+rows (``shard_rows`` and ``gather_rows`` go by the data index, over the data group: the
+ranks of the same (s, s2)); within them, rank (s, s2) holds depth slab s of S and height
+slab s2 of S2 of every sample (``parallel/halo.py``: the halo exchanges, the crossings
+between sharded and replicated layers, the penalty's sum over the space group).  Each
+rank's gradient of a sharded layer counts its slab's voxels, that of a replicated layer
+comes from the lead rank of its space group alone (``halo.lead_only`` zeroes it on the
+others), so the step's one all-reduce sums over the space group and averages over the
+data axis (``allreduce_mean_(..., space_sum=True)``).
+
 No counterpart: ``aot_with_options`` and ``resolve_compiler_options`` (XLA compiler
 options, TPU only), and ``jit_train_step``'s shardings (the port's step all-reduces its
-gradients itself, ``train/step.py``).  The 'space' axes (a volume's depth and height
-sharded across devices) are ROADMAP.md queue 1 item 16: ``num_space`` or ``num_space2``
-above 1 raises.
+gradients itself, ``train/step.py``).
 """
 
 from __future__ import annotations
@@ -46,23 +55,31 @@ from __future__ import annotations
 import os
 import socket
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from saragan_tpu_torch._device import resolve_device
 
-SPACE_NOT_PORTED = ("spatial sharding (num_space_shards / num_space2_shards > 1: a volume's "
-                    "depth and height split across devices) is not ported yet (ROADMAP.md "
-                    "queue 1 item 16)")
+SPACE_NOT_PORTED = ("spatial sharding (num_space_shards / num_space2_shards > 1) is ported "
+                    "for pgan only: {what} is not ported yet (ROADMAP.md queue 1 item 17)")
+
+
+def space_not_ported(what: str) -> str:
+    """The message of what still raises under spatial sharding, naming ROADMAP.md."""
+    return SPACE_NOT_PORTED.format(what=what)
 
 
 @dataclass
 class Mesh:
-    """The process group this process joined: its device, rank and world size.
-    ``group`` carries the tensors of the step, ``host_group`` (gloo) the control
-    decisions; ``owned`` says whether ``init_mesh`` initialised the default group (and
-    ``close`` destroys it)."""
+    """The process group this process joined: its device, rank and world size, and the
+    layout data x space x space2 of the world (``num_space`` depth slabs, ``num_space2``
+    height slabs of every sample).  ``group`` carries the tensors of the step (the world),
+    ``host_group`` (gloo) the control decisions; ``data_group`` the ranks of this rank's
+    (space, space2) index (None: ``group``, when there is no space axis), ``space_group``
+    those of its data index, ``axis_groups`` those along the depth and the height axis
+    (None where that axis has one rank); ``owned`` says whether ``init_mesh`` initialised
+    the default group (and ``close`` destroys it)."""
     group: Any
     host_group: Any
     device: torch.device
@@ -70,6 +87,64 @@ class Mesh:
     world_size: int
     backend: str
     owned: bool = False
+    num_space: int = 1
+    num_space2: int = 1
+    data_group: Any = None
+    space_group: Any = None
+    axis_groups: Tuple[Any, Any] = (None, None)
+
+    @property
+    def space_size(self) -> int:
+        return self.num_space * self.num_space2
+
+    @property
+    def data_size(self) -> int:
+        return self.world_size // self.space_size
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.space_size
+
+    @property
+    def space_rank(self) -> int:
+        return (self.rank // self.num_space2) % self.num_space
+
+    @property
+    def space2_rank(self) -> int:
+        return self.rank % self.num_space2
+
+    @property
+    def space_lead(self) -> bool:
+        """Whether this rank is the first of its space group."""
+        return self.rank % self.space_size == 0
+
+    @property
+    def rows_group(self):
+        """The group ``gather_rows`` and the row collectives run over."""
+        return self.group if self.data_group is None else self.data_group
+
+    def global_rank(self, d: int, s: int, s2: int) -> int:
+        return (d * self.num_space + s) * self.num_space2 + s2
+
+    def axis_size(self, axis: int) -> int:
+        """Ranks along a volume axis of NCDHW: 2 (depth) over space, 3 (height) over
+        space2, 1 for any other."""
+        return {2: self.num_space, 3: self.num_space2}.get(axis, 1)
+
+    def axis_index(self, axis: int) -> int:
+        return {2: self.space_rank, 3: self.space2_rank}.get(axis, 0)
+
+    def axis_group(self, axis: int):
+        return self.axis_groups[axis - 2]
+
+    def neighbour(self, axis: int, step: int) -> Optional[int]:
+        """The global rank of the neighbour `step` (+-1) along `axis`, or None past the
+        volume's end."""
+        i = self.axis_index(axis) + step
+        if not 0 <= i < self.axis_size(axis):
+            return None
+        s, s2 = (i, self.space2_rank) if axis == 2 else (self.space_rank, i)
+        return self.global_rank(self.data_rank, s, s2)
 
     @property
     def transport(self) -> str:
@@ -78,8 +153,13 @@ class Mesh:
         return "host" if self.backend == "gloo" and self.device.type == "cuda" else "device"
 
     def describe(self) -> str:
-        return (f"rank {self.rank} of {self.world_size} on {self.device}, {self.backend} "
+        text = (f"rank {self.rank} of {self.world_size} on {self.device}, {self.backend} "
                 f"collectives over {'host memory' if self.transport == 'host' else 'the device'}")
+        if self.space_size > 1:
+            text += (f"; data {self.data_size} x space {self.num_space} x space2 "
+                     f"{self.num_space2} (this rank: data {self.data_rank}, space "
+                     f"{self.space_rank}, space2 {self.space2_rank})")
+        return text
 
     def close(self):
         """Destroy the default group if ``init_mesh`` made it."""
@@ -119,18 +199,62 @@ def default_backend(dev: torch.device, device_named: bool) -> str:
     return "gloo" if shared else "nccl"
 
 
+def _launcher_world() -> int:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return 1
+
+
+def mesh_shape(world: int, num_data: Optional[int], num_space: int,
+               num_space2: int) -> int:
+    """The data axis of a world of `world` processes split data x space x space2
+    (`num_data` None: the rest); raises ValueError where the product is not the world."""
+    if num_space < 1 or num_space2 < 1:
+        raise ValueError(f"--num_space_shards {num_space} / --num_space2_shards "
+                         f"{num_space2} must be >= 1")
+    space = num_space * num_space2
+    if num_data is None:
+        num_data = world // space if world % space == 0 else 0
+    if num_data < 1 or num_data * space != world:
+        shown = "None" if num_data == 0 else num_data
+        raise ValueError(f"--num_data_shards {shown} x --num_space_shards {num_space} x "
+                         f"--num_space2_shards {num_space2} does not make the world size "
+                         f"{world}: the port runs one process per device, so data x space x "
+                         f"space2 is the world")
+    return num_data
+
+
+def _own_group(dist, lists, rank: int):
+    """Every rank creates every group of `lists` (torch.distributed's rule: all ranks call
+    ``new_group`` in the same order); returns this rank's, None for a group of one."""
+    mine = None
+    for ranks in lists:
+        if len(ranks) == 1:
+            continue
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine = g
+    return mine
+
+
 def init_mesh(device=None, *, num_data: Optional[int] = None, num_space: int = 1,
               num_space2: int = 1, verbose: bool = True) -> Mesh:
     """Join the process group and return this process's ``Mesh``.
 
     `device`: this rank's device; default ``cuda:LOCAL_RANK``.  The backend is
     ``default_backend``'s, or that of the group the caller already initialised.
-    `num_data` (``--num_data_shards``) must be None or the world size: one process per
-    device."""
+    `num_data` (``--num_data_shards``), `num_space` and `num_space2` split the world as
+    the JAX package's ``make_mesh`` (rank = (d S + s) S2 + s2): their product must be the
+    world size (one process per device), `num_data` None takes the rest.  The product
+    is checked before the group is joined.  Called again on a joined group (every rank
+    alike), it makes another layout of the same world."""
     import torch.distributed as dist
 
-    if num_space > 1 or num_space2 > 1:
-        raise NotImplementedError(SPACE_NOT_PORTED)
+    num_data = mesh_shape(_launcher_world(), num_data, num_space, num_space2)
     dev = _mesh_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -147,11 +271,20 @@ def init_mesh(device=None, *, num_data: Optional[int] = None, num_space: int = 1
         owned = True
     backend = dist.get_backend()
     world = dist.get_world_size()
-    if num_data is not None and num_data != world:
-        raise ValueError(f"--num_data_shards {num_data} != the world size {world}: the port "
-                         f"runs one process per device, so the data axis is the world")
+    me = dist.get_rank()
     host_group = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
-    mesh = Mesh(dist.group.WORLD, host_group, dev, dist.get_rank(), world, backend, owned)
+    mesh = Mesh(dist.group.WORLD, host_group, dev, me, world, backend, owned, num_space,
+                num_space2)
+    if mesh.space_size > 1:
+        g = mesh.global_rank
+        ds, ss, s2s = range(num_data), range(num_space), range(num_space2)
+        mesh.data_group = _own_group(dist, [[g(d, s, s2) for d in ds] for s in ss
+                                            for s2 in s2s], me)
+        mesh.space_group = _own_group(dist, [[g(d, s, s2) for s in ss for s2 in s2s]
+                                             for d in ds], me)
+        mesh.axis_groups = (
+            _own_group(dist, [[g(d, s, s2) for s in ss] for d in ds for s2 in s2s], me),
+            _own_group(dist, [[g(d, s, s2) for s2 in s2s] for d in ds for s in ss], me))
     if verbose and mesh.rank == 0:
         print(f"Data parallel: {world} process(es); {mesh.describe()}", flush=True)
     return mesh
@@ -181,18 +314,38 @@ def _unwire(wire: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return wire if wire.device == like.device else wire.to(like.device)
 
 
-def _mean_(mesh: Mesh, flat: torch.Tensor):
+def _bits(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """`t`'s wire for a collective that only moves data (a gather, a send): bf16 as its
+    bytes under gloo, which takes neither bf16 nor int16 for every collective (the last
+    axis doubles; the collectives here concatenate along the others)."""
+    wire = _wire(mesh, t)
+    if mesh.backend == "gloo" and wire.dtype == torch.bfloat16:
+        return wire.view(torch.uint8)
+    return wire
+
+
+def _unbits(wire: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if wire.dtype != like.dtype:
+        wire = wire.view(like.dtype)
+    return _unwire(wire, like)
+
+
+def _mean_(mesh: Mesh, flat: torch.Tensor, space_sum: bool = False):
     """`flat` in place to its mean over the ranks: NCCL's AVG (each term scaled by 1/W
     before the sum), or under gloo the sum divided by W.  At world size 1 NCCL still
-    runs its own path (a one-rank reduction kernel)."""
+    runs its own path (a one-rank reduction kernel).  With `space_sum`: the sum over
+    every rank divided by the data axis (the mean over the data axis of each space
+    group's sum)."""
     import torch.distributed as dist
 
-    if mesh.backend == "nccl":
+    divisor = mesh.data_size if space_sum else mesh.world_size
+    if mesh.backend == "nccl" and not space_sum:
         dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=mesh.group)
         return
     wire = _wire(mesh, flat)
     dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=mesh.group)
-    wire.div_(mesh.world_size)
+    if divisor != 1:
+        wire.div_(divisor)
     if wire is not flat:
         flat.copy_(wire)
 
@@ -217,16 +370,18 @@ def _flat_in_place(tensors: Dict[str, torch.Tensor], keys, fn):
         offset += n
 
 
-def allreduce_mean_(tensors: Dict[str, torch.Tensor],
-                    mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+def allreduce_mean_(tensors: Dict[str, torch.Tensor], mesh: Optional[Mesh], *,
+                    space_sum: bool = False) -> Dict[str, torch.Tensor]:
     """Each entry of `tensors`, in place in the dict, replaced by its mean over the ranks
     (a view of its bucket): one flat bucket per dtype, the names in sorted order.
-    Identity without a mesh.  Returns `tensors`."""
+    With `space_sum` (a spatially sharded step, each rank holding its slab's part): the
+    sum over each space group, averaged over the data axis.  Identity without a mesh.
+    Returns `tensors`."""
     if mesh is None:
         return tensors
 
     def mean(flat):
-        _mean_(mesh, flat)
+        _mean_(mesh, flat, space_sum)
         return flat
 
     for _, keys in _buckets(tensors):
@@ -234,14 +389,19 @@ def allreduce_mean_(tensors: Dict[str, torch.Tensor],
     return tensors
 
 
-def allreduce_min(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The elementwise minimum of `t` over the ranks (a new tensor)."""
+def allreduce_min(t: torch.Tensor, mesh: Optional[Mesh], *,
+                  space_only: bool = False) -> torch.Tensor:
+    """The elementwise minimum of `t` over the ranks (a new tensor); with `space_only`
+    over this rank's space group (the slabs of the same samples)."""
     if mesh is None:
+        return t
+    group = mesh.space_group if space_only else mesh.group
+    if space_only and group is None:
         return t
     import torch.distributed as dist
 
     wire = _wire(mesh, t).clone()
-    dist.all_reduce(wire, op=dist.ReduceOp.MIN, group=mesh.group)
+    dist.all_reduce(wire, op=dist.ReduceOp.MIN, group=group)
     return _unwire(wire, t)
 
 
@@ -266,31 +426,32 @@ def broadcast_params_(tensors: Dict[str, torch.Tensor],
 
 def shard_rows(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """This rank's contiguous rows of the global tensor `t` (rank-major, as the JAX
-    package's global batch); `t` itself without a mesh."""
-    if mesh is None or mesh.world_size == 1:
+    package's global batch), by its data index: the ranks of one space group take the
+    same rows.  `t` itself without a mesh."""
+    if mesh is None or mesh.data_size == 1:
         return t
     n = t.shape[0]
-    if n % mesh.world_size:
-        raise ValueError(f"{n} rows do not split over {mesh.world_size} ranks")
-    m = n // mesh.world_size
-    return t[mesh.rank * m:(mesh.rank + 1) * m]
+    if n % mesh.data_size:
+        raise ValueError(f"{n} rows do not split over {mesh.data_size} ranks")
+    m = n // mesh.data_size
+    return t[mesh.data_rank * m:(mesh.data_rank + 1) * m]
 
 
 def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     import torch.distributed as dist
 
-    wire = _wire(mesh, x)
-    parts = [torch.empty_like(wire) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, wire, group=mesh.group)
-    return _unwire(torch.cat(parts), x)
+    wire = _bits(mesh, x)
+    parts = [torch.empty_like(wire) for _ in range(mesh.data_size)]
+    dist.all_gather(parts, wire, group=mesh.rows_group)
+    return _unbits(torch.cat(parts), x)
 
 
 def _sum_scatter(g: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum over the ranks of `g` (global rows), this rank's rows of it."""
+    """The sum over the data axis of `g` (global rows), this rank's rows of it."""
     import torch.distributed as dist
 
     wire = _wire(mesh, g).clone()
-    dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=mesh.rows_group)
     return shard_rows(_unwire(wire, g), mesh)
 
 
@@ -317,11 +478,11 @@ class _SumScatterRows(torch.autograd.Function):
 
 
 def gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """Every rank's rows of `x`, concatenated in rank order (the global batch).  Its
-    backward sums the cotangent over the ranks and keeps this rank's rows (a reduce-
-    scatter), whose own backward is this gather again, so gradients of any order
-    (the penalty's ``create_graph`` pass) go through.  Every rank must call it in the
-    same order."""
-    if mesh is None or mesh.world_size == 1:
+    """Every data index's rows of `x`, concatenated in rank order (the global batch), over
+    the data group.  Its backward sums the cotangent over the data group and keeps this
+    rank's rows (a reduce-scatter), whose own backward is this gather again, so gradients
+    of any order (the penalty's ``create_graph`` pass) go through.  Every rank must call
+    it in the same order."""
+    if mesh is None or mesh.data_size == 1:
         return x
     return _GatherRows.apply(x, mesh)

@@ -23,7 +23,27 @@ last generator conv (batch 8, f32) with its depth split over the ranks, through 
 max, bit-equality reported); its time against the whole-volume #1's, and #1's own time
 on the extended slab beside its plain version, ``F.conv3d`` on the same slab and the
 bound. Rank 0 prints one JSON line and writes it to
-``chiprun_out/profile_parallel.json``; a failed check raises on every rank. No number
+``chiprun_out/profile_parallel.json``; a failed check raises on every rank.
+
+Spatial mode (``--space S [--space2 S2] [--phase P] [--f32_only]``): the world is
+data x S x S2 (``init_mesh``), every volume's depth split over S ranks and its height
+over S2.  For f32 (and bf16 unless ``--f32_only``) the flagship step at phase P (default
+6) runs on each rank's rows and slab (``train.step.slab``) and rank 0 holds it against
+the one-process step on the global batch from the same state and generator seed
+(``compare_states(space=True)``: in f32 also against the same step with f64 activations,
+``f64_witness``: the sharded f64 step within ``F64_GRAD_LIMIT`` of max of the
+one-process f64 step's gradients, the f32 gradients within ``GRAD_LIMIT`` of max or
+``SPACE_F32_MARGIN`` times f32's own distance from f64, parameters rtol 1e-4 /
+atol 1e-6 but where the gradient is within that limit of zero; bf16 at
+``BF16_SPACE_GRAD_MARGIN``); the ranks' states bit-equal after it
+and after 3 more; #1 (forward and dgrad), #2 and #4's launches in that step counted on
+each rank (set to 0 just before, read just after) and every conv shape with its count
+(rank 0's, for the kernels' own timing elsewhere), with the crop of each halo conv's
+extended slab (for the kernels' bounds); the ms per step per rank (CUDA
+events) and, in one more step with a device synchronisation around each exchange (the
+halo exchanges and their adjoints, the slab gathers, the penalty's space sum), the
+exchanges' host seconds against that step's.  Written to ``--out``
+(default ``chiprun_out/profile_parallel_space.json``). No number
 here is a multi-card speed-up: ranks sharing one card measure the protocol's cost.
 """
 
@@ -42,12 +62,13 @@ import torch.nn.functional as F
 
 from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.ops import conv3d_flat as cf
+from saragan_tpu_torch.ops import fused_bias_act as fba
 from saragan_tpu_torch.ops.core import conv_apply
-from saragan_tpu_torch.parallel import (allreduce_mean_, any_rank, halo_conv3d, init_mesh,
-                                        shard_rows)
+from saragan_tpu_torch.parallel import (allreduce_mean_, any_rank, halo, halo_conv3d,
+                                        init_mesh, shard_rows)
 from saragan_tpu_torch.tools.profile_serving import time_ms
 from saragan_tpu_torch.tools.profile_training import bench_train_config, real_batch
-from saragan_tpu_torch.train.step import init_train_state, make_train_step
+from saragan_tpu_torch.train.step import init_train_state, make_train_step, slab
 
 HBM_BYTES_PER_S = 3.35e12  # one H100 SXM (NVIDIA data sheet), as chip_smoke.py
 F32_FLOPS = 67e12
@@ -56,9 +77,34 @@ LR = 1e-3
 # one-process bf16 gradient is.  Measured on an H100 (every run alike): G 3.05e-3 against
 # 2.60e-3 of max (1.17x), D 4.07e-2 against 4.07e-2 (1.00x)
 BF16_GRAD_MARGIN = 1.5
+# the same for the spatially sharded step, whose slab-edge input gradients also sum two
+# bf16-rounded partial dgrads (the halo's adjoint; every voxel is an edge at 4 x 16^2 and
+# below).  Measured on an H100 at phase 6, depth 16 + 16, in two runs of the same code
+# (the kernels are deterministic: the readings are equal to the bit): G 5.82e-3 against
+# 3.63e-3 of max (1.61x), D 5.63e-2 against 4.15e-2 (1.35x)
+BF16_SPACE_GRAD_MARGIN = 2.0
+# f32: each network's gradients within this fraction of its largest from the one-process
+# step's
+GRAD_LIMIT = 1e-4
+# f32, spatial step: or within this many times the one-process f32 step's own distance
+# from the same step with f64 activations, f32's rounding of this step.  Measured on an
+# H100 at phase 5, space 2 and space 2 x space2 2 alike (two runs each, equal to the
+# bit): D 1.52e-4 of max from the one-process f32 step, which lies 7.03e-5 from f64
+# (2.2x; the sharded f32 step 1.52e-4 from f64); G 2.95e-5, within GRAD_LIMIT
+SPACE_F32_MARGIN = 3.0
+# the sharded step with f64 activations against the one-process f64 step: the sharded
+# path's own error (the gradient is stored in f32).  Measured on an H100 at phases 5 and
+# 6: 2.6e-8 to 1.0e-7 of max
+F64_GRAD_LIMIT = 1e-6
+# f32, spatial step: the parameters off rtol 1e-4 / atol 1e-6 (all where the gradient is
+# within the gradient limit of zero) may be at most this fraction of the entries.
+# Measured (two runs each, equal): G 1052 of 7.40e6 (1.4e-4) at phase 6 over two
+# ranks, 2038 of 7.36e6 (2.8e-4) at phase 5 over 2 x 2; D 29 and 49
+SPACE_LOOSE_SHARE = 1e-3
 ALPHA = 0.5
 PHASE, BATCH, STEPS = 6, 8, 3  # the flagship step's phase and rows per rank; timed steps
 OUT = Path("chiprun_out") / "profile_parallel.json"
+OUT_SPACE = Path("chiprun_out") / "profile_parallel_space.json"
 
 
 def state_sha(state) -> str:
@@ -84,28 +130,46 @@ def _err(a, b, top) -> float:
     return max(float((a[k] - v).abs().max()) for k, v in b.items()) / top
 
 
-def compare_states(dp, one, compute_dtype: str, f32_one=None) -> dict:
+def compare_states(dp, one, compute_dtype: str, f32_one=None, space: bool = False,
+                   f64=None) -> dict:
     """The data-parallel step's state `dp` against the one-process step's `one` (both
     from one state; Adam with beta1 0, so the first moment is the gradient).
 
     f32: parameters and EMA within rtol 1e-4 / atol 1e-6 but for entries whose gradient is
     below 1e-7 of the network's largest (Adam's step there is set by the rounding of a
     gradient under its eps), those within 2 lr and fewer than 1e-4 of the entries; each
-    network's gradients within 1e-4 of its largest.
+    network's gradients within ``GRAD_LIMIT`` of its largest.  With `space` (the spatially
+    sharded step, whose gradients differ by more than 1e-7 of max: its slabs' partial
+    sums meet in other orders, and the penalty's (|g| - 1) amplifies that) and `f64`
+    (``f64_witness``'s): the sharded f64 step within ``F64_GRAD_LIMIT`` of the one-process
+    f64 step, and the gradient limit the larger of ``GRAD_LIMIT`` and
+    ``SPACE_F32_MARGIN`` times the one-process f32 step's distance from f64; the
+    exception is every entry whose gradient is within that limit of max of zero, where a
+    gradient that meets the limit may have the other sign, so that Adam's step of about
+    lr sign(g) is not determined: those within 2 lr and fewer than
+    ``SPACE_LOOSE_SHARE`` of the entries.
     bf16: the gradients no farther from the one-process f32 step's `f32_one` than
     ``BF16_GRAD_MARGIN`` times the one-process bf16 step's are (bf16 rounds each rank's
     partial sums, so the data-parallel gradient is another bf16 rounding of the same sum);
     parameters and EMA within lr / 2 of the one-process bf16 step's but where the f32
     gradient is within those gradient errors (plus 1e-7) of zero, so that its sign, and
     so Adam's step of about lr sign(g) at beta1 0, is not determined in bf16: those within
-    2 lr.  Returns the measured errors and whether every limit held."""
+    2 lr; with `space` the margin is ``BF16_SPACE_GRAD_MARGIN``.  Returns the measured
+    errors, the entries off their limit where the sign is determined (``determined_off``,
+    which must be 0) and whether every limit held."""
     out, ok = {}, True
+    margin = BF16_SPACE_GRAD_MARGIN if space else BF16_GRAD_MARGIN
     for net, params in (("g", "g_params"), ("d", "d_params")):
         mu_dp, mu_one = _grads(dp, net), _grads(one, net)
         top = max(float(v.abs().max()) for v in mu_one.values())
         row = dict(grad_rel_err=_err(mu_dp, mu_one, top))
+        limit = GRAD_LIMIT
+        if f64 is not None:
+            limit = max(GRAD_LIMIT, SPACE_F32_MARGIN * f64[net]["one_process_f32"])
+            ok &= f64[net]["sharded_f64"] <= F64_GRAD_LIMIT
         worst = ptop = 0.0
-        loose = total = 0
+        loose = total = determined_off = 0
+        unsigned = limit * top
         if compute_dtype != "float32":
             ref = _grads(f32_one, net)
             f32_top = max(float(v.abs().max()) for v in ref.values())
@@ -121,20 +185,23 @@ def compare_states(dp, one, compute_dtype: str, f32_one=None) -> dict:
                 ptop = max(ptop, float(v.abs().max()))
                 if compute_dtype == "float32":
                     off = d > 1e-6 + 1e-4 * v.abs()
-                    tiny = mu_one[k].abs() < 1e-7 * top
+                    tiny = (mu_one[k].abs() <= unsigned if space
+                            else mu_one[k].abs() < 1e-7 * top)
                 else:
                     off = d > 0.5 * LR
                     tiny = ref[k].abs() <= unsigned
-                ok &= not bool((off & ~tiny).any())
+                determined_off += int((off & ~tiny).sum())
                 loose += int(off.sum())
                 total += v.numel()
-        row.update(param_max_abs_diff=worst, param_max_abs=ptop, params=total)
-        ok &= worst <= 2 * LR + 1e-6
+        row.update(param_max_abs_diff=worst, param_max_abs=ptop, params=total,
+                   determined_off=determined_off)
+        ok &= worst <= 2 * LR + 1e-6 and determined_off == 0
         if compute_dtype == "float32":
-            ok &= row["grad_rel_err"] <= 1e-4 and loose <= 1e-4 * total
-            row["params_outside_rtol"] = loose
+            share = SPACE_LOOSE_SHARE if space else 1e-4
+            ok &= row["grad_rel_err"] <= limit and loose <= share * total
+            row.update(params_outside_rtol=loose, grad_limit=limit)
         else:
-            ok &= row["dp_vs_f32"] <= BF16_GRAD_MARGIN * row["one_vs_f32"]
+            ok &= row["dp_vs_f32"] <= margin * row["one_vs_f32"]
             row["params_beyond_half_lr"] = loose
         out[net] = row
     out["ok"] = bool(ok)
@@ -228,9 +295,10 @@ def dp_step(mesh, phase: int, batch: int, compute_dtype: str, steps: int, f32_on
     return report, ref
 
 
-def halo(mesh, phase: int, batch: int) -> dict:
+def halo_report(mesh, phase: int, batch: int) -> dict:
     """The depth-halo conv at phase `phase`'s last generator conv (f32) against kernel #1
-    on the whole volume; #1's own numbers on this rank's extended slab."""
+    on the whole volume; #1's own numbers on this rank's extended slab.  `mesh`: every rank
+    a depth slab (data 1 x space W)."""
     dev = mesh.device
     cfg = bench_train_config(phase, batch)
     fs, ks = cfg.resolved_filter_spec(), cfg.resolved_kernel_spec()
@@ -241,7 +309,7 @@ def halo(mesh, phase: int, batch: int) -> dict:
     x = torch.randn((batch, c, *spatial), generator=g, device=dev)
     w = torch.randn((*kernel, c, f), generator=g, device=dev) * (2.0 / (c * np.prod(kernel))) ** 0.5
     depth = spatial[0] // mesh.world_size
-    local = shard_rows(x.transpose(0, 2), mesh).transpose(0, 2).contiguous()
+    local = halo.take_slab(x, mesh)
     with torch.no_grad():
         before = cf.conv3d_flat_cuda.launches
         y = halo_conv3d(local, w, mesh, engine="flat")
@@ -251,9 +319,7 @@ def halo(mesh, phase: int, batch: int) -> dict:
         scale = float(whole.abs().max())
         err = float((y - mine).abs().max())
         radius = kernel[0] // 2
-        from saragan_tpu_torch.parallel.halo import _halo_exchange_depth
-
-        x_ext = _halo_exchange_depth(local, radius, mesh)
+        x_ext = halo.halo_exchange(local, radius, mesh, 2)
         plain = cf.conv3d_flat_plain(x_ext, w)[:, :, radius:radius + depth]
         kern = cf.conv3d_flat_cuda(x_ext, w)[:, :, radius:radius + depth]
         kernel_err = float((kern - plain).abs().max())
@@ -282,12 +348,229 @@ def halo(mesh, phase: int, batch: int) -> dict:
                             t_flop=flop, max_abs_err=kernel_err))
 
 
+KINDS = ("forward", "dgrad", "wgrad", "fused", "fused_grad", "plain")
+
+
+def zero_counts():
+    for fn in (cf.conv3d_flat_cuda, cf.conv3d_flat_wgrad_cuda):
+        fn.launches = 0
+        fn.by_shape.clear()
+    fba.fused_bias_act_pixelnorm.launches = 0
+    fba.fused_bias_act_pixelnorm_grad.launches = 0
+    for fn in (cf.conv3d_flat_plain, cf.conv3d_flat_wgrad_plain, fba.bias_act_pixelnorm_plain,
+               fba.bias_act_pixelnorm_grad_plain):
+        fn.calls = 0
+
+
+def read_counts() -> dict:
+    roles = {"forward": 0, "dgrad": 0}
+    for (role, *_), n in cf.conv3d_flat_cuda.by_shape.items():
+        roles[role] += n
+    return dict(roles, wgrad=cf.conv3d_flat_wgrad_cuda.launches,
+                fused=fba.fused_bias_act_pixelnorm.launches,
+                fused_grad=fba.fused_bias_act_pixelnorm_grad.launches,
+                plain=(cf.conv3d_flat_plain.calls + cf.conv3d_flat_wgrad_plain.calls
+                       + fba.bias_act_pixelnorm_plain.calls
+                       + fba.bias_act_pixelnorm_grad_plain.calls))
+
+
+def _gathered(value, mesh):
+    import torch.distributed as dist
+
+    got = [None] * mesh.world_size
+    dist.all_gather_object(got, value, group=mesh.host_group)
+    return got
+
+
+class _ExchangeClock:
+    """Host seconds inside the exchanges (``parallel.halo``'s point-to-point halos and
+    their adjoints, the slab gathers, the space sums), each bracketed by device
+    synchronisations so that its time is its own."""
+
+    NAMES = ("_exchange", "_exchange_adjoint", "_gather_axis", "space_sum")
+
+    def __init__(self):
+        self.seconds, self.calls, self._saved = 0.0, 0, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = getattr(halo, name)
+            self._saved[name] = fn
+
+            def timed(*a, _fn=fn, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+
+            setattr(halo, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(halo, name, fn)
+
+
+class _HaloCrops:
+    """The extended slabs of ``halo_conv3d``'s convs under ``flat`` in a step: {(the
+    slab's spatial shape, the kernel): [depth, height] slices cropped at each end}, the
+    part of #1, #1' and #2's work at those shapes that the step drops."""
+
+    def __init__(self, mesh):
+        self.mesh, self.crops, self._saved = mesh, {}, None
+
+    def __enter__(self):
+        self._saved = apply = halo.conv_apply
+
+        def recorded(x, w, engine):
+            kernel = tuple(int(k) for k in w.shape[:3])
+            radii = [kernel[a - 2] // 2 if self.mesh.axis_size(a) > 1 else 0 for a in (2, 3)]
+            self.crops[(tuple(x.shape[2:]), kernel)] = radii
+            return apply(x, w, engine)
+
+        halo.conv_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        halo.conv_apply = self._saved
+
+
+def space_step(mesh, phase: int, batch: int, compute_dtype: str, steps: int, f32_one=None):
+    """The spatially sharded flagship step against the one-process step on the global
+    batch (rank 0), as the module says.  Returns (report, rank 0's one-process state)."""
+    dev = mesh.device
+    cfg = bench_train_config(phase, batch, compute_dtype=compute_dtype)
+    arch = get_architecture("pgan")
+    state0, opts = init_train_state(arch, torch.Generator().manual_seed(0), phase=phase,
+                                    cfg=cfg, device=dev)
+    real = real_batch(cfg, phase, batch * mesh.data_size, dev)
+    step = make_train_step(arch, cfg, phase, *opts, conv_engine="flat", mesh=mesh)
+    if step.space is None:
+        raise RuntimeError(f"phase {phase} does not split over {mesh.describe()}")
+    mine = slab(shard_rows(real, mesh), step)
+    zero_counts()  # the main path: counts set to 0 just before, read just after
+    with _HaloCrops(mesh) as halos:
+        new, metrics = step(state0, mine, torch.Generator(dev).manual_seed(1), ALPHA, LR, LR)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    shapes = dict(conv=[[list(k), n] for k, n in cf.conv3d_flat_cuda.by_shape.items()],
+                  wgrad=[[list(k), n] for k, n in cf.conv3d_flat_wgrad_cuda.by_shape.items()],
+                  halo_crops=[[list(k), r] for k, r in halos.crops.items()])
+    report = dict(losses=[float(metrics.gen_loss), float(metrics.disc_loss),
+                          float(metrics.gp_loss)], slab=list(mine.shape),
+                  launches_by_rank=_gathered(counts, mesh), shapes=shapes)
+    report["ranks_bit_equal_first"] = _all_equal(state_sha(new), mesh)
+    ref = None
+    if mesh.rank == 0:
+        one = make_train_step(arch, cfg, phase, *opts, conv_engine="flat")
+        ref, ref_m = one(state0, real, torch.Generator(dev).manual_seed(1), ALPHA, LR, LR)
+        report["one_process_losses"] = [float(ref_m.gen_loss), float(ref_m.disc_loss),
+                                        float(ref_m.gp_loss)]
+    if compute_dtype == "float32":
+        report["f64"] = f64_witness(mesh, phase, batch, real, new, ref)
+    if mesh.rank == 0:
+        report["against_one_process"] = compare_states(new, ref, compute_dtype, f32_one,
+                                                       space=True, f64=report.get("f64"))
+    state, gen, events = new, torch.Generator(dev).manual_seed(2), []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, mine, gen, ALPHA, LR, LR)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    report["step_ms"] = [s.elapsed_time(e) for s, e in events]
+    report["ranks_bit_equal_after"] = _all_equal(state_sha(state), mesh)
+    with _ExchangeClock() as clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, mine, gen, ALPHA, LR, LR)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    report["exchanges"] = dict(calls=clock.calls, ms=1e3 * clock.seconds,
+                               instrumented_step_ms=1e3 * step_s,
+                               share=clock.seconds / step_s)
+    _all_equal(0, mesh)  # a barrier on the host group
+    return report, ref
+
+
+def f64_witness(mesh, phase: int, batch: int, real, sharded32, one32) -> dict:
+    """The f32 steps' gradients against the same step with f64 activations (under the
+    library conv and the fused op's plain version; f32 parameters and state, the same
+    draws): each network's distance, as a fraction of its largest gradient, of the
+    sharded f32 step (`sharded32`), the one-process f32 step (`one32`, rank 0's) and the
+    sharded f64 step from the one-process f64 step.  The last is the sharded path's own
+    error; the one-process f32 step's is f32's.  Every rank runs the sharded step; the
+    result is rank 0's (None elsewhere)."""
+    dev = mesh.device
+    cfg = bench_train_config(phase, batch, compute_dtype="float64", use_pallas_fusion=False)
+    arch = get_architecture("pgan")
+    state0, opts = init_train_state(arch, torch.Generator().manual_seed(0), phase=phase,
+                                    cfg=cfg, device=dev)
+    step = make_train_step(arch, cfg, phase, *opts, conv_engine="direct", mesh=mesh)
+    sharded64, _ = step(state0, slab(shard_rows(real, mesh), step),
+                        torch.Generator(dev).manual_seed(1), ALPHA, LR, LR)
+    if mesh.rank != 0:
+        return None
+    one = make_train_step(arch, cfg, phase, *opts, conv_engine="direct")
+    one64, _ = one(state0, real, torch.Generator(dev).manual_seed(1), ALPHA, LR, LR)
+    out = {}
+    for net in ("g", "d"):
+        truth = _grads(one64, net)
+        top = max(float(v.abs().max()) for v in truth.values())
+        out[net] = {name: _err(_grads(st, net), truth, top) for name, st in
+                    (("sharded_f32", sharded32), ("one_process_f32", one32),
+                     ("sharded_f64", sharded64))}
+    return out
+
+
+def space_main(args) -> int:
+    mesh = init_mesh(args.device, num_space=args.space, num_space2=args.space2)
+    try:
+        report = dict(world=mesh.world_size, layout=[mesh.data_size, mesh.num_space,
+                                                     mesh.num_space2],
+                      backend=mesh.backend, transport=mesh.transport, phase=args.phase,
+                      device=str(mesh.device), card=torch.cuda.get_device_name(mesh.device))
+        f32, f32_one = space_step(mesh, args.phase, BATCH, "float32", STEPS)
+        report["steps"] = {"float32": f32}
+        if not args.f32_only:
+            report["steps"]["bfloat16"], _ = space_step(mesh, args.phase, BATCH, "bfloat16",
+                                                        STEPS, f32_one)
+        failed = [k for k, v in report["steps"].items()
+                  if not (v["ranks_bit_equal_first"] and v["ranks_bit_equal_after"]
+                          and v.get("against_one_process", {"ok": True})["ok"]
+                          and all(min(c[k] for k in KINDS[:5]) > 0 and c["plain"] == 0
+                                  for c in v["launches_by_rank"]))]
+        failed_anywhere = any_rank(bool(failed), mesh)
+        if mesh.rank == 0:
+            line = json.dumps(report, default=str)
+            print(line, flush=True)
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(line)
+        if failed_anywhere:
+            raise SystemExit(f"profile_parallel: rank {mesh.rank}: checks failed: {failed}")
+    finally:
+        mesh.close()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default=None, help="every rank's card (default cuda:LOCAL_RANK)")
+    p.add_argument("--space", type=int, default=1, help="depth shards: the spatial mode")
+    p.add_argument("--space2", type=int, default=1, help="height shards (spatial mode)")
+    p.add_argument("--phase", type=int, default=PHASE, help="the spatial mode's phase")
+    p.add_argument("--f32_only", action="store_true", help="spatial mode: no bf16 step")
+    p.add_argument("--out", default=str(OUT_SPACE), help="the spatial mode's JSON")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_parallel: no CUDA device is available")
+    if args.space > 1 or args.space2 > 1:
+        return space_main(args)
     mesh = init_mesh(args.device)
     try:
         report = dict(world=mesh.world_size, backend=mesh.backend, transport=mesh.transport,
@@ -295,7 +578,8 @@ def main(argv=None) -> int:
         f32, f32_one = dp_step(mesh, PHASE, BATCH, "float32", STEPS)
         bf16, _ = dp_step(mesh, PHASE, BATCH, "bfloat16", STEPS, f32_one)
         report["steps"] = {"float32": f32, "bfloat16": bf16}
-        report["halo"] = halo(mesh, PHASE, BATCH)
+        report["halo"] = halo_report(init_mesh(args.device, num_space=mesh.world_size,
+                                               verbose=False), PHASE, BATCH)
         failed = [k for k, v in report["steps"].items()
                   if not (v["ranks_bit_equal_first"] and v["ranks_bit_equal_after"]
                           and v.get("against_one_process", {"ok": True})["ok"])]

@@ -68,8 +68,9 @@ from saragan_tpu_torch.optim.accumulate import grad_accumulate, split_microbatch
 from saragan_tpu_torch.optim.ema import ema_init, ema_update
 from saragan_tpu_torch.optim.factory import Optimizer, make_optimizers_from_config
 from saragan_tpu_torch.optim.freeze import freeze_select
+from saragan_tpu_torch.parallel.halo import space_axes, take_slab
 from saragan_tpu_torch.parallel.mesh import (allreduce_mean_, allreduce_min, gather_rows,
-                                             shard_rows, world_size)
+                                             shard_rows, space_not_ported)
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64}
 
@@ -194,26 +195,46 @@ def style_phase(arch, phase: int) -> Optional[int]:
     return phase if arch.refresh_state is not None else None
 
 
+def space_of(arch, cfg, phase: int, mesh):
+    """The mesh the models run spatially sharded on (``space=``), or None: `mesh` where it
+    has a space axis, the volumes are 3-D (2-D batches run unsharded, each space rank
+    repeating its data group's rows, as the JAX package's ``space_axis=None``) and the
+    finest resolution splits over it (``arch.space_plan``).  Raises where the family or
+    an option does not run sharded yet."""
+    if not space_axes(mesh):
+        return None
+    if arch.space_plan is None:
+        raise NotImplementedError(space_not_ported(f"the {arch.name} family"))
+    if cfg.remat or cfg.remat_offload:
+        raise NotImplementedError(space_not_ported("remat / remat_offload (the recompute "
+                                                   "would re-run the halo exchanges)"))
+    if cfg.ndim != 3 or not arch.space_plan(cfg, phase, mesh)[-1]:
+        return None
+    return mesh
+
+
 def model_fns(arch, cfg, phase: int, alpha, conv_engine: str,
-              draws: Optional[losses.Draws] = None, mesh=None):
+              draws: Optional[losses.Draws] = None, mesh=None, space=None):
     """(gen_fn, disc_fn, gp_disc_fn) of one step at `alpha` (a number or a 0-dim
     tensor), wrapped as the memory levers of `cfg` ask; gp_disc_fn is None where the
     penalty uses disc_fn.  gen_fn(p, z) runs in training mode with the style draws of
     `draws` (its noise source and style mixing; none without draws);
-    disc_fn(p, x, passes=1) over this rank's rows of a data-parallel `mesh`'s batch."""
+    disc_fn(p, x, passes=1) over this rank's rows of a data-parallel `mesh`'s batch.
+    `space` (``space_of``): both run on this rank's slab of each volume."""
     mix = None
     if draws is not None and draws.z_mix is not None:
         mix = StyleMix(draws.z_mix, draws.mix_coin, draws.mix_cutoff)
     noise = None if draws is None else draws.noise
+    sharded = {} if space is None else {"space": space}
 
     def wrap(c):
         def gen_fn(p, z):
             return arch.generator(p, z, alpha, phase=phase, cfg=c, conv_engine=conv_engine,
-                                  noise=noise, mix=mix)
+                                  noise=noise, mix=mix, **sharded)
 
         def disc_fn(p, x, passes=1):
             return arch.discriminator(p, x, alpha, phase=phase, cfg=c, conv_engine=conv_engine,
-                                      passes=passes, mesh=mesh)
+                                      passes=passes, mesh=mesh, **sharded)
 
         return gen_fn, disc_fn
 
@@ -250,16 +271,18 @@ def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
     lazy_k = max(1, int(cfg.lazy_gp))
     gp_weight = cfg.gp_weight * lazy_k if apply_gp else 0.0
     fused = cfg.loss_fn == "wgan" and cfg.fused_grads
+    space = space_of(arch, cfg, phase, mesh)
 
     def grads_fn(g_params: Params, d_params: Params, real: torch.Tensor,
                  draws: losses.Draws, alpha):
         a = torch.tensor(float(alpha)) if static_alpha is None else static_alpha
-        gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, conv_engine, draws, mesh)
+        gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, conv_engine, draws, mesh,
+                                                space)
         g_p = {k: v.detach().requires_grad_(True) for k, v in g_params.items()}
         d_p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         common = dict(gp_weight=gp_weight, noise_stddev=cfg.noise_stddev,
                       gp_full_reduction=cfg.gp_full_reduction, compute_gp=apply_gp,
-                      gp_disc_fn=gp_disc_fn)
+                      gp_disc_fn=gp_disc_fn, space=space)
         with _train_numerics(), _lever_scope(cfg, grads_fn.parked):
             if fused:
                 return losses.grads_simultaneous(
@@ -283,10 +306,11 @@ def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
     and ``g_grads(g_params, d_params, draws, alpha) -> (grads, (gen_loss, (min, max)))``
     of the fake sample."""
     gp_weight = cfg.gp_weight * max(1, int(cfg.lazy_gp)) if apply_gp else 0.0
+    space = space_of(arch, cfg, phase, mesh)
 
     def fns(alpha, draws):
         a = torch.tensor(float(alpha)) if static_alpha is None else static_alpha
-        return model_fns(arch, cfg, phase, a, conv_engine, draws, mesh)
+        return model_fns(arch, cfg, phase, a, conv_engine, draws, mesh, space)
 
     def d_grads(g_params, d_params, real, draws, alpha):
         gen_fn, disc_fn, gp_disc_fn = fns(alpha, draws)
@@ -295,7 +319,7 @@ def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
             disc_loss, gp_loss = losses.forward_discriminator(
                 gen_fn, disc_fn, g_params, d_p, real, draws, loss_fn=cfg.loss_fn,
                 gp_weight=gp_weight, noise_stddev=cfg.noise_stddev, compute_gp=apply_gp,
-                gp_disc_fn=gp_disc_fn)
+                gp_disc_fn=gp_disc_fn, space=space)
             grads = losses.param_grads(disc_loss, d_p)
         return grads, (disc_loss.detach(), gp_loss.detach())
 
@@ -366,14 +390,24 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
     global ones; the real batch's first sample is each rank's own), before clipping,
     freezing, the optimizer and the EMA, so every rank applies the same update.  Models are not wrapped in ``DistributedDataParallel``:
     its hooks follow ``backward()``, and the step takes its gradients with
-    ``torch.autograd.grad``."""
+    ``torch.autograd.grad``.
+
+    A mesh with a space axis (``space_of``: pgan's 3-D volumes): `real` is this rank's
+    rows, by its data index, and its depth/height slab of them (``slab``, the
+    ``space_plan`` layout of the finest resolution); the draws are cut to the rows and
+    the instance noise to the slab.  The models run sharded, the penalty's norm sums over
+    the space group, and the one all-reduce sums each space group's gradients (a sharded
+    layer's from every slab, a replicated layer's from the lead rank) and averages them
+    over the data axis; the losses, the same on a space group, come from its lead rank;
+    the real sample's min and max span its slabs.  The ranks end bit-equal."""
     _check_options(cfg)
     dtype = compute_dtype(cfg)
     frozen = frozenset(frozen_names) if freeze else frozenset()
     hist_bins = 64 if grad_histograms else 0
     accum = int(cfg.gradient_accumulation)
     alternate = cfg.optim_strategy == "alternate"
-    world = world_size(mesh)
+    space = space_of(arch, cfg, phase, mesh)
+    world = 1 if mesh is None else mesh.data_size
     grads_fn = make_grads_fn(arch, cfg, phase, apply_gp, static_alpha,
                              conv_engine=conv_engine, mesh=mesh)
     parked = grads_fn.parked
@@ -387,16 +421,19 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
         return (freeze_select(params, new_params, frozen),
                 freeze_select(opt_state, new_opt, frozen), max_norm, norms, hists)
 
+    sample_shape = tuple(cfg.current_shape(phase, 1)[1:]) if space is not None else None
+
     def draw(rng, n, real, compute_gp):
         """The global batch's draws, one per micro-batch."""
-        return [losses.draw_inputs(rng, n * world // accum, cfg.latent_dim, real.shape[1:],
-                                   dtype, real.device, noise_stddev=cfg.noise_stddev,
-                                   compute_gp=compute_gp,
+        return [losses.draw_inputs(rng, n * world // accum, cfg.latent_dim,
+                                   sample_shape or real.shape[1:], dtype, real.device,
+                                   noise_stddev=cfg.noise_stddev, compute_gp=compute_gp,
                                    style_phase=style_phase(arch, phase))
                 for _ in range(accum)]
 
     def rank_draws(draws):
-        return [losses.shard_draws(d, mesh) for d in micro_draws(draws, accum)]
+        return [losses.shard_draws(d, mesh, slab=space is not None)
+                for d in micro_draws(draws, accum)]
 
     def rank_micro_rows(real):
         """This rank's rows of each global micro-batch, concatenated in micro-batch
@@ -409,12 +446,15 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
 
     def dp_reduce(grads, loss_terms, minmax=None):
         """The gradient dicts (G and D, or one) and the loss scalars averaged over the
-        ranks in one all-reduce; (min, max) of the sample over the ranks."""
+        ranks in one all-reduce (under spatial sharding summed over each space group, the
+        losses from its lead rank); (min, max) of the sample over the ranks."""
         if mesh is None:
             return grads, loss_terms, minmax
         merged = {k: v for g in grads for k, v in g.items()}
         merged["step/losses"] = torch.stack([t.float() for t in loss_terms])
-        allreduce_mean_(merged, mesh)
+        if space is not None and not mesh.space_lead:
+            merged["step/losses"] = torch.zeros_like(merged["step/losses"])
+        allreduce_mean_(merged, mesh, space_sum=space is not None)
         grads = tuple({k: merged[k] for k in g} for g in grads)
         loss_terms = tuple(merged["step/losses"].unbind())
         if minmax is not None:
@@ -422,6 +462,14 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
             both = allreduce_min(torch.stack([lo.float(), -hi.float()]), mesh)
             minmax = (both[0].to(lo.dtype), (-both[1]).to(hi.dtype))
         return grads, loss_terms, minmax
+
+    def real_minmax(real):
+        """The first sample's (min, max): over its slabs under spatial sharding."""
+        lo, hi = torch.min(real[0]), torch.max(real[0])
+        if space is None:
+            return lo, hi
+        both = allreduce_min(torch.stack([lo.float(), -hi.float()]), mesh, space_only=True)
+        return both[0].to(lo.dtype), (-both[1]).to(hi.dtype)
 
     def train_step(state: TrainState, real: torch.Tensor, rng: Optional[torch.Generator],
                    alpha, g_lr, d_lr, draws=None):
@@ -492,9 +540,16 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
             ema = ema_update(state.ema, {**g_params, **d_params}, cfg.ema_beta)
             metrics = StepMetrics(gen_loss, disc_loss, gp_loss, max_g_norm, max_d_norm,
                                   g_norms, d_norms, g_hists, d_hists, fake_min, fake_max,
-                                  torch.min(real[0]), torch.max(real[0]))
+                                  *real_minmax(real))
         train_step.parked_bytes = sum(p.nbytes for p in parked)
         return TrainState(g_params, d_params, g_opt, d_opt, ema), metrics
 
     train_step.parked_bytes = 0
+    train_step.space = space
     return train_step
+
+
+def slab(x: torch.Tensor, step) -> torch.Tensor:
+    """This rank's depth/height slab of its rows `x` of the global batch, where `step`
+    (``make_train_step``'s) runs spatially sharded; else `x`."""
+    return x if step.space is None else take_slab(x, step.space)

@@ -73,8 +73,17 @@ per-process temporary names) and ends with bit-identical parameters; rank 0 alon
 and writes ``events.jsonl``; img/s is global, ``local_img_s`` per rank.  A signal stops
 every rank after the same step: whether one arrived on any rank is agreed after each step
 (``parallel.any_rank``), so no rank is left in a collective.  The validation losses of the
-summaries run on rank 0's batch alone.  ``num_space_shards`` / ``num_space2_shards``
-above 1 raise ``NotImplementedError`` (ROADMAP.md queue 1 item 16).
+summaries run on rank 0's batch alone.
+
+Spatial sharding (``num_space_shards`` S / ``num_space2_shards`` S2 above 1, with a mesh of
+that layout, pgan only): the global size is the mesh's data axis; the ranks of one data
+index load the same rows and each trains on its depth/height slab of them
+(``train.step.slab``, for 3-D volumes; 2-D batches run unsharded, every space rank
+repeating its data group's rows, as the reference's ``space_axis=None``,
+``saragan_tpu/train/trainer.py:556-563``).  Summaries, metrics, samples and checkpoints
+run on the replicated parameters through the unsharded models, as without a mesh.  Other
+families raise ``NotImplementedError`` naming ROADMAP.md queue 1 item 17; a layout other
+than the mesh's raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -101,13 +110,12 @@ from saragan_tpu_torch.ops.core import LayerNoise, generator_seed
 from saragan_tpu_torch.optim.ema import fold_ema
 from saragan_tpu_torch.optim.freeze import apply_freeze_names
 from saragan_tpu_torch.optim.schedules import lr_schedule, scale_lr
-from saragan_tpu_torch.parallel import (SPACE_NOT_PORTED, any_rank, broadcast_params_, rank,
-                                        world_size)
+from saragan_tpu_torch.parallel import any_rank, broadcast_params_, space_not_ported
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train import summaries as summ
 from saragan_tpu_torch.train.step import (TrainState, _train_numerics, compute_dtype,
                                           init_train_state, make_train_step, model_fns,
-                                          split_params, style_phase)
+                                          slab, split_params, style_phase)
 
 _TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                     "float16": torch.float16}
@@ -179,6 +187,19 @@ def _sampler(sample, g_params, alpha: float):
     return lambda generator, n: sample(g_params, generator, n, alpha)
 
 
+def _check_space(cfg, mesh):
+    """The spatial axes of `cfg` against the mesh's (ValueError where they differ) and the
+    family (``NotImplementedError`` where it does not run sharded)."""
+    want = (int(cfg.num_space_shards), int(cfg.num_space2_shards))
+    have = (1, 1) if mesh is None else (mesh.num_space, mesh.num_space2)
+    if want != have:
+        raise ValueError(f"--num_space_shards {want[0]} / --num_space2_shards {want[1]} but the "
+                         f"mesh's space axes are {have[0]} x {have[1]}"
+                         + ("" if mesh is not None else " (no mesh: run under --horovod)"))
+    if want != (1, 1) and get_architecture(cfg.architecture).space_plan is None:
+        raise NotImplementedError(space_not_ported(f"the {cfg.architecture} family"))
+
+
 class _OnDevice:
     """A host-batch prefetcher whose batches go to `device` as they are taken (from
     pinned memory without blocking the host on a CUDA device)."""
@@ -205,8 +226,7 @@ class Trainer:
         (tests feed the reference's draws); None draws them on the device.
         trial: an HPO trial with ``report(value, step)`` and ``should_prune()``.
         `device` is CUDA unless named; with a `mesh` (``parallel.Mesh``) the mesh's."""
-        if cfg.num_space_shards > 1 or cfg.num_space2_shards > 1:
-            raise NotImplementedError(SPACE_NOT_PORTED)
+        _check_space(cfg, mesh)
         if mesh is not None and device is not None and torch.device(device) != mesh.device:
             raise ValueError(f"device {device} is not the mesh's {mesh.device}")
         self.cfg = cfg
@@ -223,7 +243,7 @@ class Trainer:
         self.draws_fn = draws_fn
         self.metrics_callback = metrics_callback
         self.trial = trial
-        self.global_size = world_size(mesh)
+        self.global_size = 1 if mesh is None else mesh.data_size
         self.verbose = verbose and (mesh is None or mesh.rank == 0)
         self.prefetch = prefetch
         self.logdir = cfg.logdir or os.path.join("runs", cfg.architecture,
@@ -596,7 +616,7 @@ class Trainer:
                     "phase": phase, "phase_start_step": phase_start_step}
 
         transfer_dtype = resolve_transfer_dtype(cfg)
-        shard = rank(self.mesh)
+        shard = 0 if self.mesh is None else self.mesh.data_rank
 
         def make_batch():
             if self.mesh is not None:  # this rank's share of the global batch
@@ -681,7 +701,8 @@ class Trainer:
                     start = torch.cuda.Event(enable_timing=True)
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
-                state, metrics = fn(state, batch, gen, alpha, g_lr_val, d_lr_val, draws=draws)
+                state, metrics = fn(state, slab(batch, fn), gen, alpha, g_lr_val, d_lr_val,
+                                    draws=draws)
                 if timed:
                     end.record()
                     events.append(("mixing" if mixing_bool else "stabilizing", global_step,

@@ -1084,3 +1084,43 @@ def test_native_prefetcher_lands_batches_pinned(cuda, tmp_path):
     on_card = host.to(cuda, non_blocking=True)
     torch.cuda.synchronize()
     assert torch.equal(on_card.cpu(), want.float().to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("axis,kernel", [(2, (3, 3, 3)), (2, (5, 3, 3)), (3, (3, 5, 3))])
+def test_halo_conv_backward_and_double_backward_at_world_one(cuda, axis, kernel):
+    """The differentiable halo exchange on the card over an NCCL group of one: the slab is
+    the whole volume, so each halo is the zero slab of the volume's end, and the conv of
+    the extended slab (``flat``: #1 on it, cropped; #1' and #2 in its backward) is the
+    SAME conv.  Its output, the input and weight gradients and the second order of the
+    penalty's shape (the gradients of L + |dL/dx|^2) against the unsharded ``flat`` conv,
+    in f32 within 1e-4 of each one's largest value."""
+    from saragan_tpu_torch.ops.core import conv_apply
+    from saragan_tpu_torch.parallel import halo, init_mesh
+
+    mesh = init_mesh("cuda:0", verbose=False)
+    try:
+        g = torch.Generator(device=cuda).manual_seed(3)
+        x = torch.randn((2, 16, 8, 12, 10), generator=g, device=cuda)
+        w = torch.randn((*kernel, 16, 8), generator=g, device=cuda) * 0.1
+        r = kernel[axis - 2] // 2
+
+        def halo_conv(a, b):
+            ext = halo._HaloExchange.apply(a, r, mesh, axis)
+            return halo._crop(conv_apply(ext, b, "flat"), {axis: r})
+
+        out = []
+        cf.conv3d_flat_cuda.launches = cf.conv3d_flat_wgrad_cuda.launches = 0
+        for conv in (halo_conv, lambda a, b: conv_apply(a, b, "flat")):
+            xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            y = conv(xs, ws)
+            (gx,) = torch.autograd.grad((y * y).sum(), xs, create_graph=True)
+            out.append([y.detach(), gx.detach(),
+                        *torch.autograd.grad((y * y).sum() + (gx * gx).sum(), [xs, ws])])
+        torch.cuda.synchronize()
+        assert cf.conv3d_flat_cuda.launches > 0 and cf.conv3d_flat_wgrad_cuda.launches > 0
+        for got, ref in zip(*out):
+            assert got.shape == ref.shape
+            torch.testing.assert_close(got, ref, rtol=0,
+                                       atol=1e-4 * ref.abs().max().item())
+    finally:
+        mesh.close()

@@ -190,16 +190,16 @@ def test_only_out_of_memory_fails_a_trial(tmp_path, error, caught):
 
 def test_more_than_one_process_raises():
     """Trials across processes are ported (tests/test_torch_multiprocess.py runs them in
-    lockstep); what still raises is ``--horovod`` without the joined group's mesh, a data
-    axis other than the world and the spatial axes (ROADMAP.md queue 1 item 16), before
+    lockstep, with the spatial axes too); what still raises is ``--horovod`` without the
+    joined group's mesh and a layout data x space x space2 other than the world, before
     any training."""
     from saragan_tpu_torch.parallel import init_mesh
 
     with pytest.raises(ValueError, match="mesh"):
         harness.default_objective(None, Config(horovod=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="num_space_shards 2 x"):
         init_mesh("cpu", num_space=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="num_space2_shards 2 does not make the world size 1"):
         init_mesh("cpu", num_space2=2)
     mesh = init_mesh("cpu", verbose=False)  # no launcher: a group of one
     try:

@@ -1,8 +1,9 @@
 """The port's ``parallel/`` in one process (its multi-process behaviour is
 ``tests/test_torch_multiprocess.py``): the mesh of one rank, whose collectives are
 identities, the data-parallel step and trainer at world size 1 bit-equal to the plain
-ones, each rank's rows of the global draws, the row-split keyed sampler, the options that
-still raise (ROADMAP.md queue 1 item 16), the CLI's parity flags, the checkpoint writer's
+ones, each rank's rows of the global draws, the row-split keyed sampler, the spatial
+layout's coordinates and what still raises under it (ROADMAP.md queue 1 item 17), the
+CLI's parity flags, the checkpoint writer's
 per-process temporary names, and ``batch_sharded`` against the JAX package's.
 
 Small shapes (latent 16, 8 filters, phase <= 2) with ``torch.set_num_threads(1)``."""
@@ -134,7 +135,8 @@ def test_dp_step_at_world_one_equals_plain_step(mesh, arch, extra):
 
 
 def _trainer_cfg(tmp_path, name, **kw):
-    return Config(**SMALL, architecture="pgan", dataset_path=str(tmp_path / "data"),
+    kw.setdefault("architecture", "pgan")
+    return Config(**SMALL, dataset_path=str(tmp_path / "data"),
                   starting_phase=1, ending_phase=2, base_batch_size=4, mixing_nimg=8,
                   stabilizing_nimg=8, checkpoint_every_nsteps=10_000, g_lr=1e-3, d_lr=1e-3,
                   validation_fraction=0.2, test_fraction=0.2, grad_histograms=False,
@@ -162,23 +164,49 @@ def test_trainer_over_a_mesh_of_one_equals_the_plain_trainer(tmp_path, mesh, nat
 
 
 def test_spatial_sharding_raises_naming_item_16(tmp_path, mesh):
-    """``--num_space_shards`` / ``--num_space2_shards`` above 1 raise, with or without
-    ``--horovod``, naming ROADMAP.md's item 16; so do the Trainer and the mesh."""
+    """Spatial sharding is ported for pgan (ROADMAP.md queue 1 item 16; the sharded step
+    itself runs in ``tests/test_torch_multiprocess.py``): a pgan Trainer and step accept a
+    mesh with space axes.  What raises: a layout whose product is not the world (before
+    joining the group), space axes without the mesh or other than the mesh's, and, naming
+    the new item 17, the other families and the recompute levers."""
     make_data(tmp_path / "data", sizes=(4,))
     argv = ["pgan", str(tmp_path / "data"), "--start_shape", "(1, 4, 4, 4)",
             "--final_shape", "(1, 8, 8, 8)", "--starting_phase", "1", "--ending_phase", "1",
             "--latent_dim", "16", "--noise_stddev", "0", "--g_lr", "1e-3", "--d_lr", "1e-3",
             "--base_batch_size", "4", "--device", "cpu", "--logdir", str(tmp_path / "r")]
-    for extra in (["--num_space_shards", "2"], ["--num_space2_shards", "2", "--horovod"],
+    for extra in (["--num_space2_shards", "2", "--horovod"],
                   ["--num_space_shards", "2", "--horovod"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 16"):
+        with pytest.raises(ValueError, match="does not make the world size 1"):
             cli.main(argv + extra)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="no mesh"):
+        cli.main(argv + ["--num_space_shards", "2"])
+    with pytest.raises(ValueError, match="space axes are 1 x 1"):
         Trainer(_trainer_cfg(tmp_path, "t", num_space_shards=2), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="num_space_shards 1 x --num_space2_shards 4"):
         init_mesh("cpu", num_space2=4)
     with pytest.raises(ValueError, match="world size 1"):
         cli.main(argv + ["--horovod", "--num_data_shards", "2"])
+    space = Mesh(None, None, torch.device("cpu"), 1, 4, "gloo", num_space=2, num_space2=2)
+    assert (space.data_size, space.data_rank, space.space_rank, space.space2_rank) == (1, 0, 0, 1)
+    assert [space.neighbour(2, 1), space.neighbour(2, -1), space.neighbour(3, -1)] == [3, None, 0]
+    tr = Trainer(_trainer_cfg(tmp_path, "sp", num_space_shards=2, num_space2_shards=2),
+                 mesh=space, verbose=False)
+    assert tr.global_size == 1
+    cfg = Config(**SMALL, architecture="pgan", starting_phase=2, ending_phase=2).finalize()
+    a = get_architecture("pgan")
+    _, opts = init_train_state(a, torch.Generator().manual_seed(0), phase=2, cfg=cfg,
+                               device="meta")
+    assert make_train_step(a, cfg, 2, *opts, mesh=space).space is space
+    assert a.space_plan(cfg, 2, space) == (True, True)
+    for arch in ("surfgan", "stylegan"):
+        with pytest.raises(NotImplementedError, match=f"the {arch} family.*item 17"):
+            Trainer(_trainer_cfg(tmp_path, "x", num_space_shards=2, num_space2_shards=2,
+                                 architecture=arch), mesh=space)
+    for lever in ("remat", "remat_offload"):
+        c = Config(**SMALL, architecture="pgan", starting_phase=2, ending_phase=2,
+                   **{lever: True}).finalize()
+        with pytest.raises(NotImplementedError, match="remat.*item 17"):
+            make_train_step(a, c, 2, *opts, mesh=space)
 
 
 def test_parity_flags_and_data_parallel_options_parse():
@@ -280,8 +308,8 @@ def test_serve_devices(monkeypatch):
 
 
 def test_halo_conv_at_world_one(mesh):
-    """One rank holds the whole depth: both engines are the SAME conv (zero slabs at both
-    ends); the conv refuses autograd (its backward is item 16) and even depth kernels."""
+    """One rank holds the whole volume: both engines are the SAME conv (no exchange), and so
+    are its first- and second-order gradients (the penalty's); even depth kernels raise."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 3, 6, 5, 4, generator=g, dtype=torch.float64)
     for kd in (1, 3, 5):
@@ -290,7 +318,14 @@ def test_halo_conv_at_world_one(mesh):
         for engine in ("direct", "flat"):
             torch.testing.assert_close(halo_conv3d(x, w, mesh, engine=engine), ref,
                                        rtol=0, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        halo_conv3d(x.requires_grad_(True), w, mesh)
+            grads = []
+            for fn in (lambda a, b: halo_conv3d(a, b, mesh, engine=engine),
+                       lambda a, b: conv_apply(a, b, engine)):
+                xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+                y = fn(xs, ws)
+                (gx,) = torch.autograd.grad((y * y).sum(), xs, create_graph=True)
+                grads.append(torch.autograd.grad((gx * gx).sum(), [xs, ws]))
+            for a, b in zip(*grads):
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-11)
     with pytest.raises(ValueError, match="odd"):
         halo_conv3d(x.detach(), torch.zeros(2, 3, 3, 3, 4, dtype=torch.float64), mesh)

@@ -252,13 +252,13 @@ class FakeTrial:
 
 
 @pytest.mark.parametrize("change,match", [  # ids as before calc_metrics and profile_dir
-    pytest.param(dict(horovod=True, num_space_shards=2), "item 16", id="change1-mesh"),
+    pytest.param(dict(horovod=True, num_space_shards=2), "item 17", id="change1-mesh"),
     pytest.param(dict(dataset="imagenet"), None, id="change3-ImageNet")])
 def test_unported_options_raise(tmp_path, change, match):
-    """The mesh's spatial axes raise (its data axis is ported since: one process per
-    device, tests/test_torch_multiprocess.py); the ImageNet dataset, ported since, takes
-    the JPEG class folders under the dataset path (tests/test_torch_2d.py holds it to the
-    reference)."""
+    """The mesh's spatial axes run for pgan (tests/test_torch_multiprocess.py) and need a
+    mesh of that layout, else ValueError; the other families raise naming ROADMAP.md's
+    item 17.  The ImageNet dataset, ported since, takes the JPEG class folders under the
+    dataset path (tests/test_torch_2d.py holds it to the reference)."""
     cfg = Config(**base_cfg(tmp_path, **change)).finalize()
     if match is None:
         from PIL import Image
@@ -272,8 +272,15 @@ def test_unported_options_raise(tmp_path, change, match):
         ds = Trainer(cfg, device="cpu", verbose=False)._get_dataset(1)
         assert isinstance(ds, ImageDatasetAdapter) and ds.batch(2).shape == (2, 1, 4, 4)
     else:
-        with pytest.raises(NotImplementedError, match=match):
+        from saragan_tpu_torch.parallel import Mesh
+
+        with pytest.raises(ValueError, match="no mesh"):
             Trainer(cfg, device="cpu")
+        space = Mesh(None, None, torch.device("cpu"), 0, 2, "gloo", num_space=2)
+        assert Trainer(cfg, mesh=space, verbose=False).global_size == 1
+        with pytest.raises(NotImplementedError, match=match):
+            Trainer(Config(**base_cfg(tmp_path, architecture="surfgan", **change)).finalize(),
+                    mesh=space)
     # an HPO trial runs (HPO is ported): without metrics nothing is reported or pruned
     make_data(tmp_path / "data")
     trial = FakeTrial()
