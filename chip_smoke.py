@@ -63,26 +63,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    1e-3 * max|g|; under `flat` every conv (forward, dgrad, wgrad) through the CUDA-core
    kernels; then the f32 gradient computation under `flat` timed (median of 5 after a
    warm-up, CUDA events) on a line of its own;
-8. the trainer through its CLI (``cli.main`` in process): the flagship configuration
-   from phase 5 (batch 16) into phase 6 (batch 8), 32 + 32 images per phase, no
-   --conv_engine (so `flat`, the card's default: events.jsonl must say so), bf16, the
-   fused op on, on a seeded npy dataset written to a temp dir (16 volumes of 16x64x64 and
-   16 of 32x128x128), with the metric passes (--calc_metrics, FID over random features,
-   SWD, SSIM, PSNR; once per phase and at each phase's end).  It must exit normally and
-   write model_5.npz and model_6.npz; phase 6 must hold every phase-5 name of model_5.npz
-   bit for bit through its frozen mixing half (its cadence checkpoint after that half);
-   events.jsonl must hold finite Loss/d_loss, Loss/g_loss and Loss/gp in both phases, a
-   histogram event, and finite fid, fid_EMA, PSNR, ssim, swd_mean and their end-of-phase
-   _validation / _test tags in both phases; kernels #1 (forward and dgrad), #2 and #4 (and
-   its backward) must have run, the convs through the tensor-core route only, and no plain
-   version.  The input pipeline is the native C++ prefetcher, the default: the log and
-   events.jsonl must say so.  Prints ms/step per phase and half (CUDA events, median
-   after the first), img/s, the phase's peak memory, the ms per step without the metric
-   passes and with their host time spread over the steps, and the host's wait for each
-   step's batch (``Timing/input_wait_ms``).  Then phase 5 alone again with
-   --no_native_prefetch (the Python prefetch thread, no metric passes): its model_5.npz
-   must equal the native run's bit for bit; its input wait is printed beside the native
-   run's;
+8. the trainer through its CLI (``cli.main`` in process): the flagship configuration from
+   phase 5 (batch 16) into phase 6 (batch 8), 32 + 32 images per phase, no --conv_engine (so
+   `flat`, the card's default: events.jsonl must say so), bf16, the fused op on, on a seeded
+   npy dataset written to a temp dir (16 volumes of 16x64x64 and 16 of 32x128x128), with the
+   metric passes (--calc_metrics, FID over 512-d random features, ``SMOKE_FID_DIM``, SWD,
+   SSIM, PSNR; once per phase and at each phase's end).  It must exit normally and write
+   model_5.npz and model_6.npz; phase 6 must hold every phase-5 name of model_5.npz bit for
+   bit through its frozen mixing half (its cadence checkpoint after that half); events.jsonl
+   must hold finite Loss/d_loss, Loss/g_loss and Loss/gp in both phases, a histogram event,
+   and finite fid, fid_EMA, PSNR, ssim, swd_mean and their end-of-phase _validation / _test
+   tags in both phases; kernels #1 (forward and dgrad), #2 and #4 (and its backward) must
+   have run, the convs through the tensor-core route only, and no plain version.  The input
+   pipeline is the native C++ prefetcher, the default: the log and events.jsonl must say so.
+   Prints ms/step per phase and half (CUDA events, median after the first), img/s, the
+   phase's peak memory, the ms per step without the metric passes and with their host time
+   spread over the steps, and the host's wait for each step's batch
+   (``Timing/input_wait_ms``).  Then phase 5 alone again with --no_native_prefetch (the
+   Python prefetch thread, no metric passes): its model_5.npz must equal the native run's
+   bit for bit; its input wait is printed beside the native run's;
 9. bitwise resume: the same command in a subprocess with --full_state_checkpoints gets
    a SIGTERM once phase 6 printed its second step line and must exit 75; rerun with
    --auto_resume it must exit 0 with a model_6.npz equal to the uninterrupted run's,
@@ -152,10 +151,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the card against the same update on the CPU from the same state and gradients
    (max|card - CPU| within 1e-6 of max|CPU| per tensor) and its time (CUDA events, median
    of 5) beside Adam's;
-   (b) a 3-trial TPE study through the CLI (``cli.main`` in process, counts set to 0 just
+   (b) a 2-trial TPE study through the CLI (``cli.main`` in process, counts set to 0 just
    before and read just after) on the seeded dataset: phase 6 only, 8 + 8 images a trial,
    the learning rates, their schedules, both optimizers, the betas, rho and momentum
-   drawn by each trial (passed as None), scored by FID over random features (a metric
+   drawn by each trial (passed as None), scored by FID over 512-d random features (a metric
    pass at the first step and the validation split's at the phase's end): every trial
    COMPLETE with a finite value, its params covering the drawn names, the kernels
    launched and no plain version, the device memory allocated at every trial's start and
@@ -255,7 +254,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the ranks bit-equal after one and after 3 more steps, #1 (forward and dgrad), #2 and
    #4 launched on each rank's slab in that step (counts set to 0 just before, read just
    after; printed per rank, no plain version), the ms per step per rank and the
-   exchanges' share of an instrumented step; then four ranks at phase 5, depth and height
+   exchanges' share of an instrumented step; then four ranks at phase 4, depth and height
    each split over two (space 2 x space2 2), f32 only, the same limits; then
    the CLI with ``--horovod
    --num_space_shards 2`` from phase 5 to 6 on two ranks: both exit 0, model_6.npz's
@@ -263,12 +262,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    conv shape of the two-rank bf16 step's slabs (the kernels line's ``[space]`` rows;
    their bounds and TFLOP/s count the work of the cropped output, not the 2 radius
    slices per exchanged axis that a halo conv's extended slab computes and drops);
+   (e) the memory levers under spatial sharding (``--only parallel_space_levers``):
+   ``tools.profile_parallel --single_chip_big_volume --bf16_only --lever_check 6`` on two
+   gloo ranks: first the phase-6 sharded step under remat and under remat_offload bit-equal
+   to the sharded plain step (f32 and bf16, every rank), then the phase-8 batch-2 preset step
+   (128 x 512^2, C = 8 at the top) with depth 64 + 64, bf16, against the one-process preset
+   step (``compare_states(space=True)``, the bf16 margin against the one-process f32 step),
+   the ranks bit-equal, the ms, peak and parked MiB and #1 / #1' / #2 / #4 launches per
+   rank; then #1, #1' and #2 at every 512^2 shape of rank 0's slabs and #4 at the slab's
+   two 64 x 512^2 layers (the kernels line's ``[space,phase8]`` rows);
+   (f) the other families sharded (``--only parallel_space_families``): surfgan at phase 6
+   (depth 16 + 16, f32 with the f64 witness and bf16) and pgan2, pgandeep, stylegan and
+   stylegan2 at phase 5 (depth 8 + 8, f32 with the witness) against one process at the
+   limits of (d), ms per rank, the exchanges' share and launches per rank (#4 is pgan's
+   alone); #1, #1' and #2 at every conv shape of surfgan's bf16 slabs (the
+   ``[space,surfgan]`` rows); (e) and (f) print their seconds;
 18. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone, ``--only
 families`` phase 13, ``--only hpo`` phase 14, ``--only tools`` phase 15, ``--only two_d``
-phase 16, ``--only parallel`` phase 17, ``--only parallel_space`` its part (d) (each
+phase 16, ``--only parallel`` phase 17, ``--only parallel_space`` its part (d),
+``--only parallel_space_levers`` (e) and ``--only parallel_space_families`` (f) (each
 without the result lines), for working on it.  ``--only parallel_cards``, on a machine with two or more cards, runs phase 17 (b) with
 one rank on each card over NCCL (its NVLink collectives and halo exchange) and
 ``--serve_devices`` over every card against one device, and (d)'s two-rank step with one
@@ -1146,6 +1161,35 @@ def _events(logdir: Path):
         return [json.loads(line) for line in f]
 
 
+# the random-feature width of the trainer's and the HPO study's metric passes (2048 until
+# the script neared its time limit: a 2048-d FID's matrix square root takes 12-26 s on the
+# host, and those runs take about 16 of them); the metrics phase keeps 2048
+SMOKE_FID_DIM = 512
+
+
+@contextlib.contextmanager
+def narrow_fid_features():
+    """The metric callbacks built inside (``make_metrics_callback``) on ``SMOKE_FID_DIM``-wide
+    random features where they would take the 2048-wide ones (no Inception weights)."""
+    import importlib
+
+    # the module, not the package's function of the same name
+    sm = importlib.import_module("saragan_tpu_torch.metrics.save_metrics")
+    saved = sm.default_extractor
+
+    def narrow(allow_uncalibrated=False, npz_path=None, device=None):
+        ext = saved(allow_uncalibrated=allow_uncalibrated, npz_path=npz_path, device=device)
+        if isinstance(ext, mfid.RandomConvFeatures):
+            return mfid.RandomConvFeatures(out_dim=SMOKE_FID_DIM, device=device)
+        return ext
+
+    sm.default_extractor = narrow
+    try:
+        yield
+    finally:
+        sm.default_extractor = saved
+
+
 def run_trainer(data: Path, logdir: Path):
     """The trainer through ``cli.main``, in process, with the metric passes
     (``METRIC_ARGS``), counts set to 0 just before and read just after.  Returns (report,
@@ -1153,7 +1197,7 @@ def run_trainer(data: Path, logdir: Path):
     zero_counts()
     tee = _Tee(sys.stdout, re.compile(r"Input pipeline"))
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
+    with contextlib.redirect_stdout(tee), narrow_fid_features():
         cli.main(trainer_args(data, logdir, *METRIC_ARGS))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -1967,7 +2011,7 @@ def family_entries(convs, launches):
 # the hpo phase: every optimizer on the flagship step, and the CLI's HPO run modes on the
 # flagship configuration at phase 6 (batch 8: --base_batch_size 256), 8 + 8 images a
 # trial, the optimizer, its hyperparameters and the learning rates drawn by each trial
-HPO_TRIALS = 3
+HPO_TRIALS = 2  # 3 until the script neared its time limit: a trial costs ~38 s
 HPO_ARGS = [
     "pgan", "<data>", "--start_shape", "(1, 1, 4, 4)", "--final_shape", "(1, 128, 512, 512)",
     "--starting_phase", "6", "--ending_phase", "6", "--latent_dim", "256",
@@ -2134,8 +2178,9 @@ def cli_study(data: Path, tmp: Path):
     tee = _Tee(sys.stdout, re.compile(f"{_TRIAL_LINE.pattern}|{_DONE_LINE.pattern}"))
     sys.stdout = tee
     try:
-        cli.main(_hpo_args(data, tmp / "study", tmp / "s.db", "smoke", *HPO_METRIC_ARGS,
-                           "--optuna_ntrials", str(HPO_TRIALS), "--optuna_sampler", "TPE"))
+        with narrow_fid_features():
+            cli.main(_hpo_args(data, tmp / "study", tmp / "s.db", "smoke", *HPO_METRIC_ARGS,
+                               "--optuna_ntrials", str(HPO_TRIALS), "--optuna_sampler", "TPE"))
     finally:
         sys.stdout = tee.out
     torch.cuda.synchronize()
@@ -2264,7 +2309,7 @@ def generate_config_args(tmp: Path):
 
 
 def hpo():
-    """The hpo phase: (a) every optimizer on the flagship step, (b) a 3-trial CLI study,
+    """The hpo phase: (a) every optimizer on the flagship step, (b) a 2-trial CLI study,
     (c) best-trial replay, (d) two inter-trial workers, (e) generate --config_args."""
     torch.cuda.empty_cache()
     report = dict(optimizers=optimizers_on_the_step())
@@ -3115,10 +3160,12 @@ def parallel_serving(cards: int = 1):
                                                  fused=counts["fused"]))
 
 
-SPACE_PHASE4 = 5  # the four-rank (space 2 x space2 2) run's phase
+# the four-rank (space 2 x space2 2) run's phase: 5 until the script neared its time limit
+SPACE_PHASE4 = 4
+SPACE_FAMILY_PHASE = 5  # (f): pgan2, pgandeep, stylegan and stylegan2 sharded at 16 x 64^2
 
 
-def _space_tool(world: int, out: Path, *extra, device=("--device", "cuda:0")):
+def _space_tool(world: int, out: Path, *extra, device=("--device", "cuda:0"), timeout=400):
     """``tools.profile_parallel`` in its spatial mode on `world` ranks: gloo ranks sharing
     cuda:0, or with `device` () a card each over NCCL; returns (report, seconds)."""
     out.unlink(missing_ok=True)
@@ -3127,23 +3174,25 @@ def _space_tool(world: int, out: Path, *extra, device=("--device", "cuda:0")):
            str(world), "--master_addr", "127.0.0.1", "--master_port", str(_free_port()), "-m",
            "saragan_tpu_torch.tools.profile_parallel", *device, "--out", str(out), *extra]
     t0 = time.perf_counter()
-    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=timeout)
     check(run.returncode == 0 and out.is_file(),
           f"parallel (d): profile_parallel {' '.join(extra)} exited {run.returncode}:\n"
           f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
     return json.loads(out.read_text()), time.perf_counter() - t0
 
 
-def _space_checked(report, label):
-    """Every check of one spatial run, and its lines."""
-    for dt, r in report["steps"].items():
+def _space_checked(steps, label):
+    """Every check of one spatial run's steps ({dtype: report}), and its lines."""
+    for dt, r in steps.items():
         check(r["ranks_bit_equal_first"] and r["ranks_bit_equal_after"],
               f"parallel (d) {label} {dt}: the ranks differ")
         check(r["against_one_process"]["ok"],
               f"parallel (d) {label} {dt}: against the one-process step: "
               f"{r['against_one_process']}")
+        kinds = PARALLEL_KINDS if r.get("needs_fused", True) else PARALLEL_KINDS[:3]
         for rank, c in enumerate(r["launches_by_rank"]):
-            check(min(c[k] for k in PARALLEL_KINDS) > 0 and c["plain"] == 0,
+            check(min(c[k] for k in kinds) > 0 and c["plain"] == 0,
                   f"parallel (d) {label} {dt}: rank {rank} launches {c}")
         ex = r["exchanges"]
         print(f"parallel (d) {label} {dt}: slab {r['slab']}, step "
@@ -3161,11 +3210,11 @@ def parallel_space(tmp: Path, detail):
     two, two_s = _space_tool(2, OUT_DIR / "profile_parallel_space.json", "--space", "2",
                              "--phase", str(PHASE))
     check(two["layout"] == [1, 2, 1], f"parallel (d): layout {two['layout']}")
-    _space_checked(two, "data 1 x space 2")
+    _space_checked(two["steps"], "data 1 x space 2")
     four, four_s = _space_tool(4, OUT_DIR / "profile_parallel_space4.json", "--space", "2",
                                "--space2", "2", "--phase", str(SPACE_PHASE4), "--f32_only")
     check(four["layout"] == [1, 2, 2], f"parallel (d): layout {four['layout']}")
-    _space_checked(four, "data 1 x space 2 x space2 2")
+    _space_checked(four["steps"], "data 1 x space 2 x space2 2")
     cli_report = _cli_ranks(tmp, 2, ["--device", "cuda:0"], ["--num_space_shards", "2"],
                             "parallel (d)")
     # #1, #1' and #2 at every conv shape of the two-rank bf16 step's slabs (rank 0's)
@@ -3184,9 +3233,98 @@ def parallel_space(tmp: Path, detail):
         convs, launches)
 
 
+def _tool_shapes(step_report, keep=lambda xs: True):
+    """(conv shapes, wgrad shapes, halo crops) of a ``profile_parallel`` spatial step report
+    (rank 0's launches of one step), the shapes whose input `keep` takes."""
+    def key(k):
+        return tuple(tuple(v) if isinstance(v, list) else v for v in k)
+
+    shapes = step_report["shapes"]
+    conv = Counter({key(k): n for k, n in shapes["conv"] if keep(k[1])})
+    wgrad = Counter({key(k): n for k, n in shapes["wgrad"] if keep(k[0])})
+    crops = {(tuple(spatial), tuple(kernel)): r for (spatial, kernel), r in shapes["halo_crops"]}
+    return conv, wgrad, crops
+
+
+def _space_memory_line(r):
+    mem = r["memory_by_rank"]
+    return ", ".join(f"rank {i}: peak {m['peak_mib']:.0f} MiB, parked {m['parked_mib']:.0f} MiB"
+                     for i, m in enumerate(mem))
+
+
+def parallel_space_levers(detail):
+    """(e) The phase-8 batch-2 single_chip_big_volume preset step (the flagship's widths,
+    128 x 512^2, C = 8 at the top) with each volume's depth split 64 + 64 over two gloo
+    ranks sharing the card, bf16, against the one-process preset step from the same state
+    and draws (``compare_states(space=True)``: the bf16 margin against the one-process f32
+    step); ms, peak and parked MiB and the kernels' launches per rank; the ranks bit-equal;
+    first, the phase-6 sharded step under remat and under remat_offload bit-equal to the
+    sharded plain step, f32 and bf16.  Then #1, #1' and #2 at every 512^2 conv shape of
+    rank 0's slabs and #4 at the slab's two 64 x 512^2 layers.  Returns (report, kernel
+    entries, launches)."""
+    t0 = time.perf_counter()
+    rep, tool_s = _space_tool(2, OUT_DIR / "profile_parallel_space_levers.json", "--space", "2",
+                              "--phase", str(BIG_PHASE), "--batch", str(BIG_BATCH),
+                              "--single_chip_big_volume", "--bf16_only", "--lever_check",
+                              str(PHASE), timeout=600)
+    check(rep["layout"] == [1, 2, 1] and rep["levers"] == ["single_chip_big_volume"],
+          f"parallel (e): layout {rep['layout']}, levers {rep['levers']}")
+    _space_checked(rep["steps"], "phase 8 preset, data 1 x space 2")
+    r = rep["steps"]["bfloat16"]
+    for i, m in enumerate(r["memory_by_rank"]):
+        check(m["parked_mib"] > 0, f"parallel (e): rank {i} parked nothing: {m}")
+    for c in rep["lever_check"]:
+        check(c["bit_equal_all_ranks"] and c["ranks_equal"] and min(c["parked_mib_by_rank"]) > 0,
+              f"parallel (e): phase-{c['phase']} {c['dtype']} levers not bit-equal: {c}")
+    print(f"parallel (e): phase {BIG_PHASE} preset step, depth 64 + 64: {_space_memory_line(r)} "
+          f"(one process, PR 9: peak 9.2 GiB, 7166 MiB parked); levers at phase {PHASE} "
+          f"bit-equal: {[(c['dtype'], c['bit_equal']) for c in rep['lever_check']]}",
+          flush=True)
+    conv_shapes, wgrad_shapes, crops = _tool_shapes(r, lambda xs: tuple(xs[3:]) ==
+                                                    BIG_SPATIAL[1:])
+    check(conv_shapes and wgrad_shapes, "parallel (e): no 512^2 slab conv shapes")
+    convs = check_train_convs(conv_shapes, wgrad_shapes, 1, detail, dtypes=(torch.bfloat16,),
+                              crops=crops)
+    fs = bench_train_config(BIG_PHASE, BIG_BATCH).resolved_filter_spec()[BIG_PHASE - 1]
+    slab_spatial = (BIG_SPATIAL[0] // 2, *BIG_SPATIAL[1:])
+    fused = check_train_fused([(BIG_BATCH, c, *slab_spatial) for c in fs], detail)
+    rep["seconds"] = time.perf_counter() - t0
+    print(f"parallel (e): {rep['seconds']:.1f} s (the tool {tool_s:.1f} s)", flush=True)
+    return rep, (convs, fused), r["launches_by_rank"][0]
+
+
+def parallel_space_families(detail):
+    """(f) surfgan at phase 6 (the flagship's widths, 32 x 128^2, batch 8) with each
+    volume's depth split 16 + 16 over two gloo ranks, f32 and bf16, and pgan2, pgandeep,
+    stylegan and stylegan2 at phase 5 (16 x 64^2, depth 8 + 8), f32, each against the
+    one-process step within ``compare_states(space=True)``'s limits (f32 with the f64
+    witness); ms per rank, the exchanges' share and launches per rank.  Then #1, #1' and
+    #2 at every conv shape of surfgan's bf16 slabs.  Returns (report, kernel entries,
+    launches)."""
+    t0 = time.perf_counter()
+    sg, sg_s = _space_tool(2, OUT_DIR / "profile_parallel_space_surfgan.json", "--space", "2",
+                           "--phase", str(PHASE), "--architecture", FAMILY)
+    _space_checked(sg["steps"], f"{FAMILY} phase {PHASE}, data 1 x space 2")
+    others, others_s = _space_tool(2, OUT_DIR / "profile_parallel_space_families.json",
+                                   "--space", "2", "--phase", str(SPACE_FAMILY_PHASE),
+                                   "--architecture", ",".join(OTHER_FAMILIES), "--f32_only")
+    for name in OTHER_FAMILIES:
+        _space_checked(others["runs"][name],
+                       f"{name} phase {SPACE_FAMILY_PHASE}, data 1 x space 2")
+    r = sg["steps"]["bfloat16"]
+    conv_shapes, wgrad_shapes, crops = _tool_shapes(r)
+    convs = check_train_convs(conv_shapes, wgrad_shapes, 1, detail, dtypes=(torch.bfloat16,),
+                              crops=crops)
+    report = dict(surfgan=sg, others=others, tool_s=[sg_s, others_s],
+                  seconds=time.perf_counter() - t0)
+    print(f"parallel (f): {report['seconds']:.1f} s (the tools {sg_s:.1f} + {others_s:.1f} s)",
+          flush=True)
+    return report, convs, r["launches_by_rank"][0]
+
+
 def parallel(phase5_per_step=None, detail=None):
     """Phase 17.  Returns (report, the kernel rows' inputs: the halo conv's entry and
-    launches, the spatial step's conv entries and launches)."""
+    launches, the spatial step's conv entries and launches; those of parts (e) and (f))."""
     detail = [] if detail is None else detail
     report = dict(nccl_world_one=parallel_nccl_world_one(phase5_per_step))
     with tempfile.TemporaryDirectory() as tmp:
@@ -3194,8 +3332,10 @@ def parallel(phase5_per_step=None, detail=None):
     report["serving"] = parallel_serving()
     with tempfile.TemporaryDirectory() as tmp:
         report["space"], space = parallel_space(Path(tmp), detail)
+    report["space_levers"], *levers = parallel_space_levers(detail)
+    report["space_families"], *fams = parallel_space_families(detail)
     halo = report["two_ranks"]["tool"]["halo"]
-    return report, (halo["kernel"], halo["launches"], *space)
+    return report, (halo["kernel"], halo["launches"], *space), (levers, fams)
 
 
 def parallel_entries(entry, launches, space_convs, space_launches):
@@ -3219,6 +3359,51 @@ def parallel_entries(entry, launches, space_convs, space_launches):
             ("conv3d_wgrad[bf16,space]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad_tc.cu",
              "saragan_tpu/ops/pallas_conv.py:183", space_convs[("wgrad", "bfloat16")],
              space_launches["wgrad"], "library_ms", per_space, 1)]
+
+
+def space_slice_entries(levers, fams):
+    """The kernels line's rows of parts (e) and (f) (either may be None): #1, #1' and #2 on
+    the phase-8 preset step's slabs and #4 forward and backward there, and #1, #1' and #2
+    on surfgan's phase-6 slabs, each with rank 0's launches of its part's main-path step."""
+    tc_fwd, tc_wgrad = ("saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
+                        "saragan_tpu_torch/csrc/conv3d_wgrad_tc.cu")
+
+    def conv_rows(tag, convs, launches, per):
+        return [(f"conv3d_flat[forward,bf16,space,{tag}]", "cuda", tc_fwd,
+                 "saragan_tpu/ops/pallas_conv.py:124", convs[("forward", "bfloat16")],
+                 launches["forward"], "library_ms", per, 1),
+                (f"conv3d_flat[dgrad,bf16,space,{tag}]", "cuda", tc_fwd,
+                 "saragan_tpu/ops/core.py:386", convs[("dgrad", "bfloat16")],
+                 launches["dgrad"], "library_ms", per, 1),
+                (f"conv3d_wgrad[bf16,space,{tag}]", "cuda", tc_wgrad,
+                 "saragan_tpu/ops/pallas_conv.py:183", convs[("wgrad", "bfloat16")],
+                 launches["wgrad"], "library_ms", per, 1)]
+
+    rows = []
+    if levers is not None:
+        (convs, (fused, fused_grad)), launches = levers
+        per = (f"one phase-{BIG_PHASE} batch-{BIG_BATCH} bf16 step under "
+               f"single_chip_big_volume with each volume's depth split 64 + 64 over two gloo "
+               f"ranks on one card: rank 0's launches at the 512^2 shapes of its extended "
+               f"slabs (sum over them; bound and operations for the cropped outputs; #4 at "
+               f"the slab's two 64 x 512^2 layers); launches counted over that one step on "
+               f"rank 0, every shape")
+        rows += conv_rows("phase8", convs, launches, per)
+        rows += [("fused_bias_act_pixelnorm[space,phase8,bf16]", "cuda", FUSED_SOURCE,
+                  "saragan_tpu/ops/pallas_kernels.py:112", fused, launches["fused"], None,
+                  per, 1),
+                 ("fused_bias_act_pixelnorm_grad[space,phase8,bf16]", "cuda", FUSED_SOURCE,
+                  "saragan_tpu/ops/pallas_kernels.py:123", fused_grad, launches["fused_grad"],
+                  None, per, 1)]
+    if fams is not None:
+        convs, launches = fams
+        per = (f"one phase-{PHASE} batch-{BATCH} bf16 {FAMILY} step under flat with each "
+               f"volume's depth split 16 + 16 over two gloo ranks on one card: rank 0's "
+               f"launches at every conv shape of its extended slabs (sum over them; bound and "
+               f"operations for the cropped outputs); launches counted over that one step "
+               f"on rank 0")
+        rows += conv_rows(FAMILY, convs, launches, per)
+    return rows
 
 
 def kernel_row(name, route, source, replaces, e, launches, library, per_what, unit):
@@ -3330,9 +3515,10 @@ def main(argv=None) -> int:
 
     if args.only == "parallel":  # this phase alone, for working on it: no result line
         par_detail = []
-        par, par_rows = parallel(detail=par_detail)
+        par, par_rows, slice_rows = parallel(detail=par_detail)
         phase_done("parallel")
         rows = [kernel_row(*r) for r in parallel_entries(*par_rows)]
+        rows += [kernel_row(*r) for r in space_slice_entries(*slice_rows)]
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_parallel.json").write_text(json.dumps(dict(
             card=card, parallel=par, kernels=rows, seconds=seconds), indent=1, default=str))
@@ -3351,6 +3537,24 @@ def main(argv=None) -> int:
         print("parallel (d) kernels: " + json.dumps(rows), flush=True)
         return 0
 
+    if args.only in ("parallel_space_levers", "parallel_space_families"):
+        # phase 17 (e) or (f) alone, for working on it: no result line
+        par_detail = []
+        if args.only == "parallel_space_levers":
+            par, *part = parallel_space_levers(par_detail)
+            rows = space_slice_entries(part, None)
+        else:
+            par, *part = parallel_space_families(par_detail)
+            rows = space_slice_entries(None, part)
+        phase_done(f"parallel ({'e' if args.only.endswith('levers') else 'f'})")
+        rows = [kernel_row(*r) for r in rows]
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f"chip_smoke_{args.only}.json").write_text(json.dumps(dict(
+            card=card, space=par, kernels=rows, shapes=par_detail, seconds=seconds), indent=1,
+            default=str))
+        print(f"{args.only} kernels: " + json.dumps(rows), flush=True)
+        return 0
+
     if args.only == "parallel_cards":  # one rank a card over NCCL: no result line
         cards = torch.cuda.device_count()
         check(cards > 1, f"--only parallel_cards needs two or more cards, not {cards}")
@@ -3360,7 +3564,7 @@ def main(argv=None) -> int:
         # (d) over NCCL: each volume's depth over two cards (data cards / 2 x space 2)
         space, _ = _space_tool(cards - cards % 2, OUT_DIR / "profile_parallel_space_cards.json",
                                "--space", "2", "--phase", str(PHASE), device=())
-        _space_checked(space, f"NCCL data {space['layout'][0]} x space 2")
+        _space_checked(space["steps"], f"NCCL data {space['layout'][0]} x space 2")
         par["space"] = space
         phase_done("parallel over the cards")
         OUT_DIR.mkdir(exist_ok=True)
@@ -3482,7 +3686,7 @@ def main(argv=None) -> int:
 
     # data parallelism on the one card: the DP step over NCCL at world size 1, two gloo
     # ranks (the DP step, the halo conv, the CLI 5 -> 6), the row-split sampler
-    par_report, par_rows = parallel(trained["flat"][1]["mixing"]["per_step"], detail)
+    par_report, par_rows, slice_rows = parallel(trained["flat"][1]["mixing"]["per_step"], detail)
     phase_done("parallel")
 
     main_launches = served["flat"][2]
@@ -3552,6 +3756,7 @@ def main(argv=None) -> int:
     kernels += [kernel_row(*r) for r in family_entries(fam_convs, fam_launches)]
     kernels += [kernel_row(*r) for r in two_d_entries(two_d_report, two_d_kernels)]
     kernels += [kernel_row(*r) for r in parallel_entries(*par_rows)]
+    kernels += [kernel_row(*r) for r in space_slice_entries(*slice_rows)]
     f32_train = {f"{kind}[f32]": {x: e[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                     "max_abs_err", "launches_per_step")}
                  for (kind, dt), e in train_convs.items() if dt == "float32"}
@@ -3626,7 +3831,8 @@ def _parse(argv):
 
     p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
     p.add_argument("--only", choices=["big_volume", "families", "hpo", "tools", "two_d",
-                                       "parallel", "parallel_space", "parallel_cards"],
+                                       "parallel", "parallel_space", "parallel_space_levers",
+                                       "parallel_space_families", "parallel_cards"],
                    default=None,
                    help="build, then run this phase alone (no result line)")
     return p.parse_args(argv)

@@ -29,8 +29,8 @@ cards, ``gloo`` with ``--device cpu`` and where a host's ranks share the one car
 runs in lockstep over the ranks.  Each rank takes ``cuda:LOCAL_RANK`` unless ``--device`` names
 one.  ``--num_data_shards`` x ``--num_space_shards`` x ``--num_space2_shards`` must be the
 world size (``--num_data_shards`` None: the rest): the space axes split each volume's
-depth and height over the ranks (pgan; other families raise naming ROADMAP.md queue 1
-item 17).  ``--use_adasum``,
+depth and height over the ranks (every family, with or without ``--remat`` /
+``--remat_offload``).  ``--use_adasum``,
 ``--gpu`` and ``--num_inter_ops`` are accepted and do nothing, as in the reference.
 """
 
@@ -263,9 +263,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the data axis under --horovod: None (the world over the space "
                         "axes) or that")
     p.add_argument("--num_space_shards", default=1, type=int,
-                   help="depth shards of each volume under --horovod (pgan)")
+                   help="depth shards of each volume under --horovod")
     p.add_argument("--num_space2_shards", default=1, type=int,
-                   help="height shards of each volume under --horovod (pgan)")
+                   help="height shards of each volume under --horovod")
     return p
 
 

@@ -8,8 +8,8 @@ cuDNN, the reference's choice off the TPU; or "flat", the hand-written kernels),
 down to every conv, never a process-wide gate.  Left "unset", the trainer resolves it
 for its device (``resolve_conv_engine``), as the reference's ``apply_runtime_opts`` picks
 an engine by backend.  ``num_space_shards`` / ``num_space2_shards`` above 1 (a volume's
-depth and height split across the ranks of a mesh) run for pgan; the trainer raises for
-the other families, naming ROADMAP.md.  ``g_annealing``, ``d_annealing`` and ``use_adasum`` are fields only, in the reference too.
+depth and height split across the ranks of a mesh) run for every family, with or without
+the memory levers.  ``g_annealing``, ``d_annealing`` and ``use_adasum`` are fields only, in the reference too.
 
 ``single_chip_big_volume`` is the reference's preset for phases 7 and 8 (64x256x256 and
 128x512x512 volumes) on one device (``saragan_tpu/config.py:448-456``): ``finalize``

@@ -22,17 +22,16 @@ the train step relies on.
 
 Spatial sharding (``space``, a ``parallel.Mesh`` with a space axis; an explicit argument
 like ``conv_engine``): x and the generator's output are this rank's depth/height slab of
-each volume.  ``space_plan`` decides per resolution whether it runs sharded (its volume
-splits by ``parallel.halo.space_splits`` under the radii of its convs and of the fused
-transition out of it, and so does every finer resolution) or replicated (the same values
-on every rank of the space group).  Sharded: every SAME conv through
-``parallel.halo_conv3d``, a fused transition out of a sharded resolution through
-``halo_upscale_conv``; the upscale, the pool, the 1x1x1 RGB heads, the bias, the
-activations and the fused op are local.  The crossings: a generator block whose input is
-replicated upscales it, takes this rank's slab (``take_slab``) and convolves with halos
-(so its fused transition becomes upscale + halo conv); the discriminator gathers its
-slabs (``gather_slabs``) before the pool into a replicated resolution, and before its
-dense head.  A replicated layer reads its parameters through ``halo.lead_only``.
+each volume, laid out by ``space_plan`` (``models/common.py``: a resolution sharded where
+it and every finer one split under the radii of its convs and of the fused transition out
+of it).  Sharded: every SAME conv through ``parallel.halo_conv3d``, a fused transition out
+of a sharded resolution through ``halo_upscale_conv``; the upscale, the pool, the 1x1x1 RGB
+heads, the bias, the activations and the fused op are local.  The crossings: a generator
+block whose input is replicated upscales it, enters this rank's slab (``enter_slab``) and
+convolves with halos (so its fused transition becomes upscale + halo conv); the
+discriminator gathers its slabs (``gather_slabs``) before the pool into a replicated
+resolution, and before its dense head, whose replicated layers read their parameters
+through ``halo.lead_only``.
 
 Each network is written as a chain of recompute regions between its block boundaries
 (``models/common.py``: ``segment`` and ``block_tap``, at the reference's tap names), which
@@ -50,13 +49,14 @@ import numpy as np
 import torch
 
 from saragan_tpu_torch.core import Params, Scope, zeros_initializer
-from saragan_tpu_torch.models.common import (block_tap, init_from_shape_passes, segment,
-                                              spectral_iters, static_alpha_zero)
+from saragan_tpu_torch.models.common import (SpacePlan, block_tap, conv_layer, d_scope,
+                                              init_from_shape_passes, kernel_radii,
+                                              plan_from_radii, segment, space_plan_for,
+                                              spectral_iters, static_alpha_zero, to_slab,
+                                              to_whole, up_conv_at)
 from saragan_tpu_torch.models.registry import Architecture, register
 from saragan_tpu_torch.ops import core as ops
 from saragan_tpu_torch.ops.fused_bias_act import bias_act_pixelnorm
-from saragan_tpu_torch.parallel.halo import (gather_slabs, halo_conv3d, halo_upscale_conv,
-                                             lead_only, space_axes, space_splits, take_slab)
 
 
 def _get_spec(spec, phase_i, layer_i, what):
@@ -75,70 +75,27 @@ def get_kernels(kernel_spec, phase_i, layer_i):
     return _get_spec(kernel_spec, phase_i, layer_i, "kernel shape")
 
 
-class _Plan:
-    """One call's spatial sharding: the mesh and, per resolution 1..phase, whether it runs
-    sharded."""
-
-    def __init__(self, mesh, sharded):
-        self.mesh = mesh
-        self.sharded = tuple(sharded)
-
-    def at(self, res: int) -> bool:
-        return self.sharded[res - 1]
-
-    def scope(self, scope, res: Optional[int]):
-        """`scope` for a layer at resolution `res` (None: a dense layer, replicated)."""
-        if res is not None and self.at(res):
-            return scope
-        return scope.hooked(lead_only(self.mesh))
-
-    def cross(self, x, src: bool, dst: bool):
-        """`x` from a sharded (`src`) or replicated layout to the `dst` one."""
-        if src == dst:
-            return x
-        return take_slab(x, self.mesh) if dst else gather_slabs(x, self.mesh)
-
-
-def _radii(kernel):
-    return [int(k) // 2 for k in kernel[:2]]
-
-
 def space_plan(cfg, phase: int, mesh) -> tuple:
-    """Per resolution 1..`phase`: True where it runs sharded on `mesh`'s space axes.  A
-    resolution is sharded where its volume and every finer one's split over the axes
-    (``space_splits``) under the depth/height radii of the convs at it (G's and D's) and
-    of the fused transition out of it (``halo_upscale_conv``'s coarse halo)."""
+    """Per resolution 1..`phase`: True where it runs sharded on `mesh`'s space axes
+    (``common.plan_from_radii``), under the depth/height radii of the convs at it (G's
+    and D's, from the kernel spec) and of the fused transition out of it
+    (``halo_upscale_conv``'s coarse halo)."""
     ks = cfg.resolved_kernel_spec()
-    ok = []
-    for res in range(1, phase + 1):
+
+    def radii(res):
         kernels = [get_kernels(ks, 0, 1)] if res == 1 else [get_kernels(ks, res - 1, 0),
                                                             get_kernels(ks, res - 1, 1)]
-        radii = [max(r) for r in zip(*[_radii(k) for k in kernels])]
+        r = kernel_radii(*kernels)
         if res < phase and cfg.fused_transitions:
-            coarse = [(r + 1) // 2 for r in _radii(get_kernels(ks, res, 0))]
-            radii = [max(a, b) for a, b in zip(radii, coarse)]
-        ok.append(space_splits(mesh, cfg.current_shape(res, 1)[2:], radii))
-    sharded = [all(ok[r:]) for r in range(phase)]
-    return tuple(sharded)
+            coarse = [(c + 1) // 2 for c in kernel_radii(get_kernels(ks, res, 0))]
+            r = [max(a, b) for a, b in zip(r, coarse)]
+        return r
+
+    return plan_from_radii(cfg, phase, mesh, radii)
 
 
-def _plan(space, phase: int, cfg) -> Optional[_Plan]:
-    if not space_axes(space):
-        return None
-    return _Plan(space, space_plan(cfg, phase, space))
-
-
-def _scope(sp: Optional[_Plan], scope, res: Optional[int]):
-    return scope if sp is None else sp.scope(scope, res)
-
-
-def _conv(c, x, fmaps, kernel, activation, param, engine, sp=None, res=None):
-    """A layer's SAME conv: ``ops.conv``, or the halo conv where `res` runs sharded."""
-    if sp is None or not sp.at(res):
-        return ops.conv(c, x, fmaps, kernel, activation, param=param, engine=engine)
-    kernel = tuple(int(k) for k in kernel)
-    w = ops.get_weight(c, (*kernel, x.shape[1], fmaps), activation, param=param)
-    return halo_conv3d(x, w.to(x.dtype), sp.mesh, engine=engine)
+def _plan(space, phase: int, cfg) -> Optional[SpacePlan]:
+    return space_plan_for(space, phase, cfg, space_plan)
 
 
 def _bias_act_pn(scope, x, activation, param, fused: bool):
@@ -154,23 +111,21 @@ def _bias_act_pn(scope, x, activation, param, fused: bool):
 
 def _generator_in(scope, x, shape, activation, kernel_spec, filter_spec, param, fused, engine,
                   sp=None):
-    d = _scope(sp, scope.sub("dense"), None)
+    d = scope.sub("dense")
     f0 = get_filters(filter_spec, 0, 0)
     x = ops.dense(d, x, int(np.prod(shape)) * f0, activation, param=param)
     x = ops.apply_bias(d, x)
     x = ops.act(x, activation, param=param)
-    x = x.reshape((-1, f0, *shape))
-    c = _scope(sp, scope.sub("conv"), 1)
-    if sp is not None:
-        x = sp.cross(x, False, sp.at(1))
-    x = _conv(c, x, get_filters(filter_spec, 0, 1), get_kernels(kernel_spec, 0, 1),
+    x = to_slab(sp, x.reshape((-1, f0, *shape)), None, 1)
+    c = scope.sub("conv")
+    x = conv_layer(c, x, get_filters(filter_spec, 0, 1), get_kernels(kernel_spec, 0, 1),
               activation, param, engine, sp, 1)
     return _bias_act_pn(c, x, activation, param, fused)
 
 
 def _conv_bias_act_pn(c, x, fmaps, kernel, activation, param, fused, engine, sp=None,
                       res=None):
-    x = _conv(c, x, fmaps, kernel, activation, param, engine, sp, res)
+    x = conv_layer(c, x, fmaps, kernel, activation, param, engine, sp, res)
     return _bias_act_pn(c, x, activation, param, fused)
 
 
@@ -178,26 +133,16 @@ def _generator_block(scope, x, activation, kernel_spec, filter_spec, i, param, f
                      fused_transitions, engine, cfg, sp=None):
     """Block i from the previous block's output, as two recompute regions (``segment``):
     the transition up to the ``gen_block_{i}_mid`` tap, then conv_2."""
-    c1, c2 = _scope(sp, scope.sub("conv_1"), i), _scope(sp, scope.sub("conv_2"), i)
-    # a replicated input to a sharded block: upscale, this rank's slab, the halo conv
-    entering = sp is not None and sp.at(i) and not sp.at(i - 1)
+    c1, c2 = scope.sub("conv_1"), scope.sub("conv_2")
 
     def first(t):
-        if fused_transitions and not entering:
-            kernel = tuple(int(k) for k in get_kernels(kernel_spec, i - 1, 0))
-            w = ops.get_weight(c1, (*kernel, t.shape[1], get_filters(filter_spec, i - 1, 0)),
-                               activation, param=param)
-            if sp is not None and sp.at(i):
-                y = halo_upscale_conv(t, w.to(t.dtype), sp.mesh)
-            else:
-                y = ops.upscale_conv(t, w.to(t.dtype))
-            return _bias_act_pn(c1, y, activation, param, fused)
-        t = ops.upscale(t)
-        if entering:
-            t = sp.cross(t, False, True)
-        return _conv_bias_act_pn(c1, t, get_filters(filter_spec, i - 1, 0),
-                                 get_kernels(kernel_spec, i - 1, 0), activation, param, fused,
-                                 engine, sp, i)
+        # ``up_conv_at``: fused, or upscale + conv; a replicated input to a sharded block
+        # is upscaled, enters this rank's slab and takes the halo conv
+        kernel = tuple(int(k) for k in get_kernels(kernel_spec, i - 1, 0))
+        w = ops.get_weight(c1, (*kernel, t.shape[1], get_filters(filter_spec, i - 1, 0)),
+                           activation, param=param)
+        y = up_conv_at(t, w, engine, sp, i, fused_transitions)
+        return _bias_act_pn(c1, y, activation, param, fused)
 
     def second(t):
         return _conv_bias_act_pn(c2, t, get_filters(filter_spec, i - 1, 1),
@@ -232,15 +177,12 @@ def _generator(scope, z, alpha, phase, cfg, param, engine, space=None):
         x = block_tap(x, f"gen_block_{i}", cfg)
 
     def out(t, t_prev):
-        x_out = ops.to_rgb(_scope(sp, g.sub(f"to_rgb_{phase}"), phase), t,
-                           channels=base_shape[0], engine=engine)
+        x_out = ops.to_rgb(g.sub(f"to_rgb_{phase}"), t, channels=base_shape[0], engine=engine)
         if t_prev is None:
             return x_out
-        x_upsample = ops.upscale(ops.to_rgb(_scope(sp, g.sub(f"to_rgb_{phase - 1}"),
-                                                   phase - 1), t_prev,
+        x_upsample = ops.upscale(ops.to_rgb(g.sub(f"to_rgb_{phase - 1}"), t_prev,
                                             channels=base_shape[0], engine=engine))
-        if sp is not None:
-            x_upsample = sp.cross(x_upsample, sp.at(phase - 1), sp.at(phase))
+        x_upsample = to_slab(sp, x_upsample, phase - 1, phase)
         a = torch.as_tensor(alpha, dtype=x_out.dtype)
         return a * x_upsample + (1 - a) * x_out
 
@@ -259,30 +201,27 @@ def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
 
 
 def _conv_bias_act(c, x, fmaps, kernel, activation, param, engine, sp=None, res=None):
-    x = _conv(c, x, fmaps, kernel, activation, param, engine, sp, res)
+    x = conv_layer(c, x, fmaps, kernel, activation, param, engine, sp, res)
     return ops.act(ops.apply_bias(c, x), activation, param=param)
 
 
 def _discriminator_out(scope, x, latent_dim, activation, kernel_spec, filter_spec, param,
                        engine, sp=None):
     o = scope.sub("discriminator_out")
-    x = _conv_bias_act(_scope(sp, o, 1), x, get_filters(filter_spec, 0, 0),
+    x = _conv_bias_act(d_scope(sp, o, 1), x, get_filters(filter_spec, 0, 0),
                        get_kernels(kernel_spec, 0, 1), activation, param, engine, sp, 1)
-    if sp is not None:
-        x = sp.cross(x, sp.at(1), False)
-    d1 = _scope(sp, o.sub("dense_1"), None)
+    x = to_whole(sp, x, 1, None)
+    d1 = d_scope(sp, o.sub("dense_1"), None)
     x = ops.act(ops.apply_bias(d1, ops.dense(d1, x, latent_dim, activation, param=param)),
                 activation, param=param)
-    d2 = _scope(sp, o.sub("dense_2"), None)
+    d2 = d_scope(sp, o.sub("dense_2"), None)
     return ops.apply_bias(d2, ops.dense(d2, x, 1, activation="linear"))
 
 
-def _downscale(x, sp: Optional[_Plan], res: int):
+def _downscale(x, sp: Optional[SpacePlan], res: int):
     """The pool from resolution `res` into `res` - 1; gathered first where `res` runs
     sharded and `res` - 1 replicated."""
-    if sp is not None:
-        x = sp.cross(x, sp.at(res), sp.at(res - 1))
-    return ops.downscale(x)
+    return ops.downscale(to_whole(sp, x, res, res - 1))
 
 
 def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
@@ -300,14 +239,14 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
     sp = _plan(space, phase, cfg)
 
     def transition(t, img):
-        prev = ops.from_rgb(_scope(sp, d.sub(f"from_rgb_{phase - 1}"), phase - 1),
+        prev = ops.from_rgb(d_scope(sp, d.sub(f"from_rgb_{phase - 1}"), phase - 1),
                             _downscale(img, sp, phase),
                             get_filters(filter_spec, phase - 2, 1), activation, param=param,
                             engine=engine)
         a = torch.as_tensor(alpha, dtype=t.dtype)
         return a * prev + (1 - a) * t
 
-    x = segment(lambda img: ops.from_rgb(_scope(sp, d.sub(f"from_rgb_{phase}"), phase), img,
+    x = segment(lambda img: ops.from_rgb(d_scope(sp, d.sub(f"from_rgb_{phase}"), phase), img,
                                          get_filters(filter_spec, phase - 1, 1), activation,
                                          param=param, engine=engine), cfg, image)
     x = block_tap(x, "disc_in", cfg)
@@ -318,13 +257,13 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
         def first(t, img, b=b, i=i, pending=pending):
             if pending is not None:
                 t = pending(t, img)
-            return _conv_bias_act(_scope(sp, b.sub("conv_1"), i), t,
+            return _conv_bias_act(d_scope(sp, b.sub("conv_1"), i), t,
                                   get_filters(filter_spec, i - 1, 0),
                                   get_kernels(kernel_spec, i - 1, 1), activation, param, engine,
                                   sp, i)
 
         def second(t, b=b, i=i):
-            t = _conv_bias_act(_scope(sp, b.sub("conv_2"), i), t,
+            t = _conv_bias_act(d_scope(sp, b.sub("conv_2"), i), t,
                                get_filters(filter_spec, i - 2, 1),
                                get_kernels(kernel_spec, i - 1, 0), activation, param, engine,
                                sp, i)
@@ -368,4 +307,4 @@ def init(rng: torch.Generator, *, phase: int, cfg, device) -> Params:
         rng, phase=phase, cfg=cfg, device=device)
 
 
-register(Architecture("pgan", init, generator, discriminator, space_plan=space_plan))
+register(Architecture("pgan", init, generator, discriminator, space_plan))

@@ -2,11 +2,11 @@
 
     init(rng, *, phase, cfg, device)                            -> flat G+D Params dict
     generator(params, z, alpha, *, phase, cfg, conv_engine, noise=None, mix=None,
-              train=True)                                       -> images
-    discriminator(params, x, alpha, *, phase, cfg, conv_engine, passes=1, mesh=None)
-                                                                -> (N, 1) scores
-    refresh_state(g_params, z, *, phase, cfg)                   -> g_params
+              train=True, space=None)                           -> images
+    discriminator(params, x, alpha, *, phase, cfg, conv_engine, passes=1, mesh=None,
+                  space=None)                                   -> (N, 1) scores
     space_plan(cfg, phase, mesh)                                -> per-resolution sharded
+    refresh_state(g_params, z, *, phase, cfg)                   -> g_params
 
 All six families of the reference are registered (``saragan_tpu/models/registry.py``).
 ``noise`` (a noise source, ``ops.core.LayerNoise`` / ``NoiseByName``) and ``mix`` (a
@@ -20,10 +20,10 @@ apart, the others ignore it.  ``mesh`` (a data-parallel ``parallel.Mesh``) says 
 this rank's rows of a global batch: surfgan's head forms its groups over the global
 batch, the others ignore it.  ``refresh_state`` is the
 style families' per-step w-average update (``d_z_avg``) from a batch of latents `z`;
-None for the families without that state.  ``space_plan`` is set for the families that
-run spatially sharded (pgan): their generator and discriminator then take ``space=``, a
-mesh with a space axis, and run on this rank's slab of each volume; None for the others,
-which raise under spatial sharding (ROADMAP.md queue 1 item 17).
+None for the families without that state.  Every family runs spatially sharded: its
+generator and discriminator take ``space=``, a mesh with a space axis, and run on this
+rank's slab of each volume as its ``space_plan`` lays the resolutions out
+(``models/common.py``).
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ class Architecture(NamedTuple):
     init: Callable
     generator: Callable
     discriminator: Callable
+    space_plan: Callable
     refresh_state: Optional[Callable] = None
-    space_plan: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, Architecture] = {}

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from saragan_tpu_torch.core import Scope, zeros_initializer
+from saragan_tpu_torch.models.common import conv_at, up_conv_at
 from saragan_tpu_torch.ops import core as ops
 
 
@@ -70,11 +71,13 @@ def g_mapping(scope: Scope, z: torch.Tensor, num_styles: int, *, mapping_layers:
 
 def modulate(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, *, up: bool = False,
              demodulate: bool = True, fused_transitions: bool = False,
-             engine: str = "direct") -> torch.Tensor:
+             engine: str = "direct", sp=None, res=None) -> torch.Tensor:
     """The modulated conv given the weight w (*kernel, C, F) and the style s (N, C):
     conv(x * s, w) * d (with a nearest 2x upscale before the conv when `up`, fused into
     ``ops.upscale_conv`` under `fused_transitions`), d = rsqrt(sum over the kernel and C
-    of (w s)^2 + 1e-8) in f32."""
+    of (w s)^2 + 1e-8) in f32.  Under a spatial plan `sp` (``models/common.py``) the conv
+    of the output's resolution `res` is the halo conv where `res` runs sharded; s and d
+    are per (N, C) and (N, F), the same on every slab."""
     r = x.ndim - 2
     d = None
     if demodulate:
@@ -82,21 +85,20 @@ def modulate(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, *, up: bool = Fa
         d = torch.rsqrt(torch.sum(torch.square(ww), dim=tuple(range(1, r + 2))) + 1e-8)
         d = d.reshape(d.shape + (1,) * r)
     x = x * s.reshape(s.shape + (1,) * r).to(x.dtype)
-    if up and fused_transitions:
-        x = ops.upscale_conv(x, w.to(x.dtype))
+    if up:
+        x = up_conv_at(x, w, engine, sp, res, fused_transitions)
     else:
-        if up:
-            x = ops.upscale(x)
-        x = ops.conv_apply(x, w.to(x.dtype), engine)
+        x = conv_at(x, w, engine, sp, res)
     return x if d is None else x * d.to(x.dtype)
 
 
 def modulated_conv(scope: Scope, x: torch.Tensor, z: torch.Tensor, fmaps: int, kernel,
                    activation: str, up: bool = False, demodulate: bool = True, param=None,
                    lrmul: float = 1.0, fused_transitions: bool = False,
-                   engine: str = "direct") -> torch.Tensor:
+                   engine: str = "direct", sp=None, res=None) -> torch.Tensor:
     """The reference's modulated conv (``style_ops.py:82-126``), rank-generic: the style
-    is dense(z) + bias + 1 through the activation, under ``<scope>/modulate``."""
+    is dense(z) + bias + 1 through the activation, under ``<scope>/modulate``; `sp` and
+    `res` as for ``modulate``."""
     kernel = tuple(int(k) for k in kernel)
     w = ops.get_weight(scope, (*kernel, x.shape[1], fmaps), activation, param=param,
                        lrmul=lrmul)
@@ -104,7 +106,7 @@ def modulated_conv(scope: Scope, x: torch.Tensor, z: torch.Tensor, fmaps: int, k
     s = ops.dense(mod, z, fmaps=x.shape[1], activation=activation, param=param)
     s = ops.act(ops.apply_bias(mod, s) + 1, activation, param)
     return modulate(x, w, s, up=up, demodulate=demodulate,
-                    fused_transitions=fused_transitions, engine=engine)
+                    fused_transitions=fused_transitions, engine=engine, sp=sp, res=res)
 
 
 def to_rgb_mod(scope: Scope, x: torch.Tensor, z: torch.Tensor, channels: int = 1,

@@ -351,16 +351,29 @@ def mean_keepdim(t: torch.Tensor, dims) -> torch.Tensor:
     return t.mean(dim=dims, keepdim=True, dtype=torch.float32).to(t.dtype)
 
 
-def instance_norm(x: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, epsilon: float = 1e-8, space=None) -> torch.Tensor:
     """Per-sample, per-channel normalization over the spatial axes, in x's dtype (the
     means accumulated in f32), as the reference rounds it (``saragan_tpu/ops/core.py:
-    869-876``)."""
+    869-876``).  With `space` (a mesh with a space group; x this rank's slab of each
+    volume) each mean is the sum over the slab, summed over the space group
+    (``parallel.halo.space_allreduce``, whose adjoint sums the slabs' cotangents), over
+    the whole volume's voxel count."""
     if x.ndim < 4:
         raise ValueError(f"instance_norm needs a spatial input; got {tuple(x.shape)}")
     dims = tuple(range(2, x.ndim))
-    x = x - mean_keepdim(x, dims)
-    return x * torch.rsqrt(mean_keepdim(torch.square(x), dims)
-                           + in_dtype(epsilon, x.dtype))
+    if space is None:
+        mean = lambda t: mean_keepdim(t, dims)  # noqa: E731
+    else:
+        from saragan_tpu_torch.parallel.halo import space_allreduce
+
+        count = int(np.prod(x.shape[2:])) * space.space_size
+        acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+
+        def mean(t):
+            s = space_allreduce(t.sum(dim=dims, keepdim=True, dtype=acc), space)
+            return (s / count).to(t.dtype)
+    x = x - mean(x)
+    return x * torch.rsqrt(mean(torch.square(x)) + in_dtype(epsilon, x.dtype))
 
 
 def minibatch_stddev_layer(x: torch.Tensor, group_size: int = 4, passes: int = 1,

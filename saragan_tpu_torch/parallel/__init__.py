@@ -3,15 +3,17 @@
 process group."""
 
 from saragan_tpu_torch.parallel.halo import (  # noqa: F401
+    SlabNoise,
+    enter_slab,
     gather_slabs,
     halo_conv3d,
     halo_exchange,
     halo_upscale_conv,
+    space_allreduce,
     space_sum,
     take_slab,
 )
 from saragan_tpu_torch.parallel.mesh import (  # noqa: F401
-    SPACE_NOT_PORTED,
     Mesh,
     allreduce_mean_,
     allreduce_min,
@@ -20,7 +22,6 @@ from saragan_tpu_torch.parallel.mesh import (  # noqa: F401
     init_mesh,
     rank,
     shard_rows,
-    space_not_ported,
     world_size,
 )
 from saragan_tpu_torch.parallel.multihost import (  # noqa: F401

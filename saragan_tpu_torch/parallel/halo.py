@@ -29,13 +29,27 @@ another such Function, so gradients of any order re-enter the exchanges:
   replicated tensor's cotangent is the same on every rank of the space group, so the
   gather's adjoint keeps this rank's slab without communication, and the slab's adjoint
   gathers every rank's slab cotangents;
+* ``enter_slab``: this rank's slab of a replicated tensor whose cotangents upstream are
+  *partial* (the generator's crossing): its adjoint places this rank's slab cotangent in
+  a zero volume without communication, so each rank's cotangent of every replicated
+  tensor upstream is its slab's part, and the parts sum over the space group to the whole
+  (the step's all-reduce sums them).  Every replicated tensor of a generator (the dense
+  input, the styles, a replicated low resolution) then carries one convention, whether it
+  feeds a sharded layer directly (a style scales the slab) or through the crossing;
 * ``space_sum``: the sum over the space group of per-slab partial sums (the penalty's
   gradient norm); its adjoint on a replicated downstream is the identity;
-* ``lead_only``: a replicated layer's parameter as read on this rank: its gradient kept
-  on the lead rank of the space group, zero elsewhere, so that every parameter's gradient
-  counts each voxel of each sample once across the space group (a sharded layer's on
-  the rank of the slab, a replicated layer's on the lead) and the step sums the space
-  group's gradients (``mesh.allreduce_mean_(..., space_sum=True)``).
+* ``space_allreduce``: the same sum where the downstream is sharded (instance norm's
+  moments at a sharded resolution): its adjoint all-reduces the slabs' partial
+  cotangents, and is itself, to any order;
+* ``SlabNoise``: a noise source's draw over the whole volume, cut to this rank's slab, so
+  a sharded layer's noise is its slab of the one-device draw;
+* ``lead_only``: the parameter of a replicated layer whose cotangent is the same on every
+  rank (the discriminator's, downstream of a gather) as read on this rank: its gradient
+  kept on the lead rank of the space group, zero elsewhere, so that every parameter's
+  gradient counts each voxel of each sample once across the space group (a sharded
+  layer's on the rank of the slab, such a replicated layer's on the lead, the
+  generator's as its slabs' parts, ``enter_slab``) and the step sums the space group's
+  gradients (``mesh.allreduce_mean_(..., space_sum=True)``).
 
 ``space_splits`` is the rule of a model's per-resolution plan: a resolution runs sharded
 where each sharded axis splits evenly with at least max(1, radius) slices a rank.
@@ -252,6 +266,44 @@ def gather_slabs(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return x
 
 
+class _EnterSlab(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis, x.shape[axis])
+        return _slab_axis(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _PadSlab.apply(g, *ctx.args), None, None
+
+
+class _PadSlab(torch.autograd.Function):
+    """This rank's slab placed in a zero volume of `full` slices along `axis`."""
+
+    @staticmethod
+    def forward(ctx, g, mesh, axis, full):
+        ctx.args = (mesh, axis)
+        shape = list(g.shape)
+        shape[axis] = full
+        out = g.new_zeros(shape)
+        n = g.shape[axis]
+        out.narrow(axis, mesh.axis_index(axis) * n, n).copy_(g)
+        return out
+
+    @staticmethod
+    def backward(ctx, u):
+        return _EnterSlab.apply(u, *ctx.args), None, None, None
+
+
+def enter_slab(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """This rank's slab of the replicated volume `x`, whose adjoint zero-pads this rank's
+    slab cotangent back to the volume (no communication): upstream of it each rank holds
+    its slab's part of every cotangent.  `x` itself without a space axis."""
+    for axis in space_axes(mesh):
+        x = _EnterSlab.apply(x, mesh, axis)
+    return x
+
+
 class _SpaceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -273,6 +325,48 @@ def space_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     if mesh is None or mesh.space_group is None:
         return x
     return _SpaceSum.apply(x, mesh)
+
+
+class _SpaceAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        import torch.distributed as dist
+
+        ctx.mesh = mesh
+        wire = _wire(mesh, x).clone()
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=mesh.space_group)
+        return _unwire(wire, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SpaceAllReduce.apply(g, ctx.mesh), None
+
+
+def space_allreduce(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The sum over the space group of each rank's partial `x`, for a sharded downstream:
+    its adjoint sums the ranks' partial cotangents (the same all-reduce, whose own
+    adjoint it is, so gradients of any order go through).  `x` itself without a space
+    group; f32 or f64 (gloo sums no bf16)."""
+    if mesh is None or mesh.space_group is None:
+        return x
+    return _SpaceAllReduce.apply(x, mesh)
+
+
+class SlabNoise:
+    """This rank's slab of another noise source's draw over the whole volume: a layer at
+    a sharded resolution asking for (n, 1, d, h, W) gets its slab of the source's (n, 1,
+    d S, h S2, W) draw, so that its noise is the one-device draw's (rows first, where the
+    source is a ``RankRowsNoise``, then the slab).  A recompute draws it again alike."""
+
+    def __init__(self, source, mesh: Mesh):
+        self.source = source
+        self.mesh = mesh
+
+    def __call__(self, name: str, shape, dtype: torch.dtype, device) -> torch.Tensor:
+        full = list(shape)
+        for a in space_axes(self.mesh):
+            full[a] *= self.mesh.axis_size(a)
+        return take_slab(self.source(name, tuple(full), dtype, device), self.mesh)
 
 
 class _LeadOnly(torch.autograd.Function):

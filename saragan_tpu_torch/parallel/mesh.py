@@ -61,15 +61,6 @@ import torch
 
 from saragan_tpu_torch._device import resolve_device
 
-SPACE_NOT_PORTED = ("spatial sharding (num_space_shards / num_space2_shards > 1) is ported "
-                    "for pgan only: {what} is not ported yet (ROADMAP.md queue 1 item 17)")
-
-
-def space_not_ported(what: str) -> str:
-    """The message of what still raises under spatial sharding, naming ROADMAP.md."""
-    return SPACE_NOT_PORTED.format(what=what)
-
-
 @dataclass
 class Mesh:
     """The process group this process joined: its device, rank and world size, and the

@@ -37,14 +37,19 @@ Memory levers, as the reference wraps its model closures (``step.py:189-220``):
 * ``gradient_accumulation`` K > 1: K micro-batches, gradients and reported scalars
   averaged in f32 (``optim/accumulate.py``), one optimizer apply.
 
-Recompute runs the same deterministic kernels on the same inputs, and the style
-families' noise source redraws each layer's noise from its own seeded generator, so a
-step under either lever is bit-equal to the plain step.  After the updates, in the
-reference's order (``step.py:367-385``): the style families' ``refresh_state`` moves
-``generator/d_z_avg`` from the draws' 64 refresh latents (its gradient is exactly 0, so
-only a weight decay moves it in the update; the EMA averages it); under
-``use_spectral_norm`` every ``*_u`` vector of D is power-iterated against its new
-weight (``ops.core.refresh_spectral_u``); then the EMA.
+Recompute runs the same deterministic kernels on the same inputs, and the style families'
+noise source redraws each layer's noise from its own seeded generator, so a step under
+either lever is bit-equal to the plain step.  Under spatial sharding a recompute region
+re-runs its halo exchanges, crossings and space sums inside the backward (and inside the
+penalty's double backward): every rank builds the same autograd graph, so every rank
+recomputes the same regions in the same order and its collectives meet their peers'; the
+parked taps are this rank's slabs, and a parked copy and its return ride the device's
+stream in order, while the exchanges stage through buffers of their own.  After the
+updates, in the reference's order (``step.py:367-385``): the style families'
+``refresh_state`` moves ``generator/d_z_avg`` from the draws' 64 refresh latents (its
+gradient is exactly 0, so only a weight decay moves it in the update; the EMA averages
+it); under ``use_spectral_norm`` every ``*_u`` vector of D is power-iterated against its
+new weight (``ops.core.refresh_spectral_u``); then the EMA.
 
 The step builds its graph eagerly and makes no host synchronisation: losses and metrics
 come back as device tensors.
@@ -70,7 +75,7 @@ from saragan_tpu_torch.optim.factory import Optimizer, make_optimizers_from_conf
 from saragan_tpu_torch.optim.freeze import freeze_select
 from saragan_tpu_torch.parallel.halo import space_axes, take_slab
 from saragan_tpu_torch.parallel.mesh import (allreduce_mean_, allreduce_min, gather_rows,
-                                             shard_rows, space_not_ported)
+                                             shard_rows)
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64}
 
@@ -199,16 +204,9 @@ def space_of(arch, cfg, phase: int, mesh):
     """The mesh the models run spatially sharded on (``space=``), or None: `mesh` where it
     has a space axis, the volumes are 3-D (2-D batches run unsharded, each space rank
     repeating its data group's rows, as the JAX package's ``space_axis=None``) and the
-    finest resolution splits over it (``arch.space_plan``).  Raises where the family or
-    an option does not run sharded yet."""
-    if not space_axes(mesh):
-        return None
-    if arch.space_plan is None:
-        raise NotImplementedError(space_not_ported(f"the {arch.name} family"))
-    if cfg.remat or cfg.remat_offload:
-        raise NotImplementedError(space_not_ported("remat / remat_offload (the recompute "
-                                                   "would re-run the halo exchanges)"))
-    if cfg.ndim != 3 or not arch.space_plan(cfg, phase, mesh)[-1]:
+    finest resolution splits over it (``arch.space_plan``), for every family and either
+    memory lever, as the JAX package's trainer sets ``space_axis`` for any 3-D family."""
+    if not space_axes(mesh) or cfg.ndim != 3 or not arch.space_plan(cfg, phase, mesh)[-1]:
         return None
     return mesh
 
@@ -392,7 +390,7 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
     its hooks follow ``backward()``, and the step takes its gradients with
     ``torch.autograd.grad``.
 
-    A mesh with a space axis (``space_of``: pgan's 3-D volumes): `real` is this rank's
+    A mesh with a space axis (``space_of``: 3-D volumes, any family): `real` is this rank's
     rows, by its data index, and its depth/height slab of them (``slab``, the
     ``space_plan`` layout of the finest resolution); the draws are cut to the rows and
     the instance noise to the slab.  The models run sharded, the penalty's norm sums over

@@ -76,14 +76,14 @@ every rank after the same step: whether one arrived on any rank is agreed after 
 summaries run on rank 0's batch alone.
 
 Spatial sharding (``num_space_shards`` S / ``num_space2_shards`` S2 above 1, with a mesh of
-that layout, pgan only): the global size is the mesh's data axis; the ranks of one data
-index load the same rows and each trains on its depth/height slab of them
-(``train.step.slab``, for 3-D volumes; 2-D batches run unsharded, every space rank
+that layout; every family, with or without ``remat`` / ``remat_offload``, the lazy
+penalty's steps and the histogram steps alike): the global size is the mesh's data axis;
+the ranks of one data index load the same rows and each trains on its depth/height slab of
+them (``train.step.slab``, for 3-D volumes; 2-D batches run unsharded, every space rank
 repeating its data group's rows, as the reference's ``space_axis=None``,
-``saragan_tpu/train/trainer.py:556-563``).  Summaries, metrics, samples and checkpoints
-run on the replicated parameters through the unsharded models, as without a mesh.  Other
-families raise ``NotImplementedError`` naming ROADMAP.md queue 1 item 17; a layout other
-than the mesh's raises ``ValueError``.
+``saragan_tpu/train/trainer.py:556-563``).  Summaries, metrics, samples and checkpoints run
+on the replicated parameters through the unsharded models, as without a mesh.  A layout
+other than the mesh's raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ from saragan_tpu_torch.ops.core import LayerNoise, generator_seed
 from saragan_tpu_torch.optim.ema import fold_ema
 from saragan_tpu_torch.optim.freeze import apply_freeze_names
 from saragan_tpu_torch.optim.schedules import lr_schedule, scale_lr
-from saragan_tpu_torch.parallel import any_rank, broadcast_params_, space_not_ported
+from saragan_tpu_torch.parallel import any_rank, broadcast_params_
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train import summaries as summ
 from saragan_tpu_torch.train.step import (TrainState, _train_numerics, compute_dtype,
@@ -188,16 +188,13 @@ def _sampler(sample, g_params, alpha: float):
 
 
 def _check_space(cfg, mesh):
-    """The spatial axes of `cfg` against the mesh's (ValueError where they differ) and the
-    family (``NotImplementedError`` where it does not run sharded)."""
+    """The spatial axes of `cfg` against the mesh's (ValueError where they differ)."""
     want = (int(cfg.num_space_shards), int(cfg.num_space2_shards))
     have = (1, 1) if mesh is None else (mesh.num_space, mesh.num_space2)
     if want != have:
         raise ValueError(f"--num_space_shards {want[0]} / --num_space2_shards {want[1]} but the "
                          f"mesh's space axes are {have[0]} x {have[1]}"
                          + ("" if mesh is not None else " (no mesh: run under --horovod)"))
-    if want != (1, 1) and get_architecture(cfg.architecture).space_plan is None:
-        raise NotImplementedError(space_not_ported(f"the {cfg.architecture} family"))
 
 
 class _OnDevice:

@@ -2,8 +2,9 @@
 ``tests/test_torch_multiprocess.py``): the mesh of one rank, whose collectives are
 identities, the data-parallel step and trainer at world size 1 bit-equal to the plain
 ones, each rank's rows of the global draws, the row-split keyed sampler, the spatial
-layout's coordinates and what still raises under it (ROADMAP.md queue 1 item 17), the
-CLI's parity flags, the checkpoint writer's
+layout's coordinates and what still raises under it, every family's spatial plan, the
+space group's all-reduce and the generator's slab crossing to second order, the CLI's
+parity flags, the checkpoint writer's
 per-process temporary names, and ``batch_sharded`` against the JAX package's.
 
 Small shapes (latent 16, 8 filters, phase <= 2) with ``torch.set_num_threads(1)``."""
@@ -19,10 +20,14 @@ from saragan_tpu_torch import cli, losses
 from saragan_tpu_torch.config import Config
 from saragan_tpu_torch.data.dataset import NumpyPathDataset
 from saragan_tpu_torch.models import get_architecture
-from saragan_tpu_torch.ops.core import NoiseByName, RankRowsNoise, conv_apply
-from saragan_tpu_torch.parallel import (Mesh, allreduce_mean_, allreduce_min, any_rank,
-                                        broadcast_json, broadcast_params_, broadcast_scalar,
-                                        gather_rows, halo_conv3d, init_mesh, shard_rows,
+from saragan_tpu_torch.models.common import (SpacePlan, adaptive_kernel, noise_at,
+                                              spatial_at)
+from saragan_tpu_torch.ops.core import (LayerNoise, NoiseByName, RankRowsNoise, conv_apply,
+                                        instance_norm)
+from saragan_tpu_torch.parallel import (Mesh, SlabNoise, allreduce_mean_, allreduce_min,
+                                        any_rank, broadcast_json, broadcast_params_,
+                                        broadcast_scalar, enter_slab, gather_rows, halo_conv3d,
+                                        init_mesh, shard_rows, space_allreduce,
                                         synchronized_trial)
 from saragan_tpu_torch.tools.generate import make_keyed_sampler
 from saragan_tpu_torch.tools.serve import serve_devices
@@ -164,11 +169,12 @@ def test_trainer_over_a_mesh_of_one_equals_the_plain_trainer(tmp_path, mesh, nat
 
 
 def test_spatial_sharding_raises_naming_item_16(tmp_path, mesh):
-    """Spatial sharding is ported for pgan (ROADMAP.md queue 1 item 16; the sharded step
-    itself runs in ``tests/test_torch_multiprocess.py``): a pgan Trainer and step accept a
-    mesh with space axes.  What raises: a layout whose product is not the world (before
-    joining the group), space axes without the mesh or other than the mesh's, and, naming
-    the new item 17, the other families and the recompute levers."""
+    """Spatial sharding runs for every family, with or without ``remat`` /
+    ``remat_offload`` (ROADMAP.md queue 1 items 16 and 17, both done; the sharded steps run
+    in ``tests/test_torch_multiprocess.py``): a Trainer and a step of any family accept a
+    mesh with space axes, and so does a step under either lever.  What still raises: a
+    layout whose product is not the world (before joining the group), space axes without
+    the mesh or other than the mesh's."""
     make_data(tmp_path / "data", sizes=(4,))
     argv = ["pgan", str(tmp_path / "data"), "--start_shape", "(1, 4, 4, 4)",
             "--final_shape", "(1, 8, 8, 8)", "--starting_phase", "1", "--ending_phase", "1",
@@ -199,14 +205,13 @@ def test_spatial_sharding_raises_naming_item_16(tmp_path, mesh):
     assert make_train_step(a, cfg, 2, *opts, mesh=space).space is space
     assert a.space_plan(cfg, 2, space) == (True, True)
     for arch in ("surfgan", "stylegan"):
-        with pytest.raises(NotImplementedError, match=f"the {arch} family.*item 17"):
-            Trainer(_trainer_cfg(tmp_path, "x", num_space_shards=2, num_space2_shards=2,
-                                 architecture=arch), mesh=space)
+        tr = Trainer(_trainer_cfg(tmp_path, "x", num_space_shards=2, num_space2_shards=2,
+                                  architecture=arch), mesh=space, verbose=False)
+        assert tr.global_size == 1 and tr.arch.name == arch
     for lever in ("remat", "remat_offload"):
         c = Config(**SMALL, architecture="pgan", starting_phase=2, ending_phase=2,
                    **{lever: True}).finalize()
-        with pytest.raises(NotImplementedError, match="remat.*item 17"):
-            make_train_step(a, c, 2, *opts, mesh=space)
+        assert make_train_step(a, c, 2, *opts, mesh=space).space is space
 
 
 def test_parity_flags_and_data_parallel_options_parse():
@@ -329,3 +334,98 @@ def test_halo_conv_at_world_one(mesh):
                 torch.testing.assert_close(a, b, rtol=0, atol=1e-11)
     with pytest.raises(ValueError, match="odd"):
         halo_conv3d(x.detach(), torch.zeros(2, 3, 3, 3, 4, dtype=torch.float64), mesh)
+
+
+# every family's spatial plan on a flagship-shaped pyramid (1 x 4^2 doubling to
+# 16 x 64^2 at phase 5): per layout (space, space2), the resolutions 1..5 that run sharded,
+# worked out by hand from the rule (each sharded axis splits evenly with at least
+# max(1, radius) slices a rank, here and at every finer resolution): depths 1, 2, 4, 8, 16,
+# heights 4 .. 64; adaptive kernels and pgan's resolved spec have radius <= 1 (depth 1 and
+# 2 take kernel 1); the K7 spec needs 2 slices at resolution 2 and 3 at 3
+PLAN_CFG = dict(start_shape="(1, 1, 4, 4)", final_shape="(1, 32, 128, 128)", latent_dim=16,
+                network_size="xxs", loss_fn="wgan", noise_stddev=0.0, starting_phase=5,
+                ending_phase=5)
+K7 = [[[], [3, 3, 3]], [[5, 5, 5], [3, 3, 3]], [[7, 7, 7], [5, 5, 5]], [[3, 3, 3], [3, 3, 3]],
+      [[3, 3, 3], [3, 3, 3]]]
+F, T = False, True
+PLAN_TABLES = {
+    "default": {(2, 1): (F, T, T, T, T), (2, 2): (F, T, T, T, T), (4, 1): (F, F, T, T, T),
+                (1, 2): (T, T, T, T, T)},
+    "k7": {(2, 1): (F, F, F, T, T), (2, 2): (F, F, F, T, T), (4, 1): (F, F, F, T, T),
+           (1, 2): (T, T, T, T, T)}}
+
+
+@pytest.mark.parametrize("arch", ["pgan", "pgan2", "pgandeep", "stylegan", "stylegan2",
+                                  "surfgan"])
+def test_space_plan_tables(arch):
+    """Each family's ``space_plan`` against the hand-written tables: over depth 2, depth 2 x
+    height 2, depth 4 and height 2, with fused transitions and without (pgan's plan takes
+    the fused transition's coarse halo, whose radius never exceeds a finer sharded
+    resolution's slices, so both branches give one table), and for the families whose
+    kernels come from the spec (pgan, pgandeep) with kernels 5 and 7."""
+    a = get_architecture(arch)
+    specs = {"default": {}}
+    if arch in ("pgan", "pgandeep"):
+        specs["k7"] = {"kernel_spec": K7}
+    for name, spec in specs.items():
+        for fused in (True, False):
+            cfg = Config(**PLAN_CFG, architecture=arch, fused_transitions=fused,
+                         **spec).finalize()
+            for (s1, s2), want in PLAN_TABLES[name].items():
+                m = Mesh(None, None, torch.device("cpu"), 0, s1 * s2, "gloo", num_space=s1,
+                         num_space2=s2)
+                assert a.space_plan(cfg, 5, m) == want, (name, fused, s1, s2)
+
+
+def test_space_allreduce_and_instance_norm_to_second_order(mesh):
+    """The space group's all-reduce whose adjoint is itself: at world 1 (a space group of
+    the one rank) it is the identity to every order (gradcheck and gradgradcheck in f64),
+    and instance norm summing its moments through it equals the one-process norm, its
+    first and second derivatives too."""
+    import dataclasses
+
+    m = dataclasses.replace(mesh, num_space=1, space_group=mesh.group)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 4, 3, 2, generator=g, dtype=torch.float64, requires_grad=True)
+    torch.autograd.gradcheck(lambda t: space_allreduce(t, m) ** 2, (x,))
+    torch.autograd.gradgradcheck(lambda t: space_allreduce(t, m) ** 2, (x,))
+    assert space_allreduce(x, fake_mesh(0, 1)) is x  # no space group: x itself
+    ref = instance_norm(x)
+    torch.testing.assert_close(instance_norm(x, space=m), ref, rtol=0, atol=1e-14)
+    torch.autograd.gradgradcheck(lambda t: instance_norm(t, space=m) ** 3, (x,))
+    w = torch.randn(ref.shape, generator=g, dtype=torch.float64)
+    firsts = [torch.autograd.grad((f(x) * w).sum(), x, create_graph=True)[0]
+              for f in (instance_norm, lambda t: instance_norm(t, space=m))]
+    torch.testing.assert_close(firsts[1], firsts[0], rtol=0, atol=1e-12)
+    seconds = [torch.autograd.grad((f1 * f1).sum(), x)[0] for f1 in firsts]
+    torch.testing.assert_close(seconds[1], seconds[0], rtol=0, atol=1e-11)
+
+
+def test_slab_helpers_take_the_global_shape():
+    """Without collectives (rank 1 of depth 2 x height 1): an adaptive kernel comes from the
+    global shape at a sharded resolution (a 2-slice slab of a 4-deep volume takes kernel 3,
+    as the one-device model; its own shape would give 1); a layer's noise is its slab of
+    the whole volume's draw (rows first, then the slab); ``enter_slab``'s adjoint places the
+    slab's cotangent in a zero volume, to second order (gradgradcheck)."""
+    m = Mesh(None, None, torch.device("cpu"), 1, 2, "gloo", num_space=2)
+    sp = SpacePlan(m, (False, True))
+    x = torch.zeros(2, 3, 2, 16, 16)
+    assert adaptive_kernel(x.shape[2:]) == [1, 3, 3]
+    assert spatial_at(x, sp, 2) == [4, 16, 16]
+    assert adaptive_kernel(spatial_at(x, sp, 2)) == [3, 3, 3]
+    assert spatial_at(x, sp, 1) == [2, 16, 16] and spatial_at(x, None, 2) == [2, 16, 16]
+    source = LayerNoise(7)
+    assert noise_at(source, sp, 1) is source and noise_at(None, sp, 2) is None
+    whole = source("a/noise", (2, 1, 4, 8, 8), torch.float32, "cpu")
+    assert torch.equal(noise_at(source, sp, 2)("a/noise", (2, 1, 2, 8, 8), torch.float32, "cpu"),
+                       whole[:, :, 2:])
+    rows = RankRowsNoise(source, 1, 2)
+    assert torch.equal(SlabNoise(rows, m)("a/noise", (1, 1, 2, 8, 8), torch.float32, "cpu"),
+                       source("a/noise", (2, 1, 4, 8, 8), torch.float32, "cpu")[1:, :, 2:])
+    v = torch.randn(2, 3, 4, 2, 2, dtype=torch.float64, requires_grad=True)
+    y = enter_slab(v, m)
+    assert torch.equal(y, v[:, :, 2:].detach())
+    (gv,) = torch.autograd.grad(y.sum(), v)
+    assert not gv[:, :, :2].any() and bool((gv[:, :, 2:] == 1).all())
+    torch.autograd.gradcheck(lambda t: enter_slab(t, m) ** 2, (v,))
+    torch.autograd.gradgradcheck(lambda t: enter_slab(t, m) ** 2, (v,))

@@ -252,13 +252,13 @@ class FakeTrial:
 
 
 @pytest.mark.parametrize("change,match", [  # ids as before calc_metrics and profile_dir
-    pytest.param(dict(horovod=True, num_space_shards=2), "item 17", id="change1-mesh"),
+    pytest.param(dict(horovod=True, num_space_shards=2), "surfgan", id="change1-mesh"),
     pytest.param(dict(dataset="imagenet"), None, id="change3-ImageNet")])
 def test_unported_options_raise(tmp_path, change, match):
-    """The mesh's spatial axes run for pgan (tests/test_torch_multiprocess.py) and need a
-    mesh of that layout, else ValueError; the other families raise naming ROADMAP.md's
-    item 17.  The ImageNet dataset, ported since, takes the JPEG class folders under the
-    dataset path (tests/test_torch_2d.py holds it to the reference)."""
+    """The mesh's spatial axes run for every family (tests/test_torch_multiprocess.py) and
+    need a mesh of that layout, else ValueError: a pgan and a surfgan Trainer take a mesh
+    of that layout.  The ImageNet dataset, ported since, takes the JPEG class folders under
+    the dataset path (tests/test_torch_2d.py holds it to the reference)."""
     cfg = Config(**base_cfg(tmp_path, **change)).finalize()
     if match is None:
         from PIL import Image
@@ -278,9 +278,9 @@ def test_unported_options_raise(tmp_path, change, match):
             Trainer(cfg, device="cpu")
         space = Mesh(None, None, torch.device("cpu"), 0, 2, "gloo", num_space=2)
         assert Trainer(cfg, mesh=space, verbose=False).global_size == 1
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(Config(**base_cfg(tmp_path, architecture="surfgan", **change)).finalize(),
-                    mesh=space)
+        tr = Trainer(Config(**base_cfg(tmp_path, architecture=match, **change)).finalize(),
+                     mesh=space, verbose=False)
+        assert tr.global_size == 1 and tr.arch.name == match
     # an HPO trial runs (HPO is ported): without metrics nothing is reported or pruned
     make_data(tmp_path / "data")
     trial = FakeTrial()
