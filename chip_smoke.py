@@ -93,12 +93,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    at most 1e-2 of FID(real, fake), the fused kernel and no plain version run; Inception
    features of 8 slices on the card within 1e-3 * max|CPU| of the CPU's; seconds of
    extraction (card) against the numpy/scipy arithmetic (host);
-10. kernel #3 (conv3d_flat_v2, CUDA C++, standalone as in the reference) at every
-   serving-forward shape in f32 (CUDA cores) and every forward and dgrad shape of the bf16
-   train step (tensor cores): max|kernel - plain| <= 1e-4 (f32) or 1e-2 (bf16) *
-   max|plain|, within the same limit of kernel #1, bit-identical on a rerun, through the
-   route of its dtype; with its plan, its time, kernel #1's, F.conv3d's, the bound, its
-   TFLOP/s and share of the bound;
+10. kernel #3 (conv3d_flat_v2, CUDA C++) at every serving-forward shape in f32 (CUDA
+   cores): max|kernel - plain| <= 1e-4 * max|plain|, within the same limit of kernel #1,
+   bit-identical on a rerun, through the route of its dtype; with its plan, its time,
+   kernel #1's, F.conv3d's, the bound, its TFLOP/s and share of the bound;
+10b. engines (``--only engines``): the flagship step (phase 6, batch 8, bf16, the mixing
+   half) under each conv formulation of the JAX package's SARAGAN_CONV3D besides direct
+   and flat (``ENGINES``: flat_v2, the reference's pallas2; gemm; gemm_custom with the
+   library's wgrad and with einsum; hybrid; s2d), from one seeded state: a warm-up and 3
+   steps with the counts set to 0 just before (ms, median; peak MiB), finite losses, no
+   plain version, #1 and #2 never launched, under flat_v2 kernel #3 launched as often a
+   step as #1 under flat (28 forward, 39 dgrad) through the tensor-core route; each
+   engine's f32 gradient computation from the same state and pre-drawn z and gamma within
+   1e-3 * max|g| of direct's, losses within 1e-3 relative, and whether a rerun is
+   bit-equal (printed, not a gate); #3 against its plain version at every shape of the
+   flat_v2 bf16 step (forward and dgrad) and of its f32 gradient computation (the limits
+   of phase 10, bf16 1e-2); the phase-8 batch-2 single_chip_big_volume step under the
+   preset's formulation and with the window pool and compute-dtype statistics (ms, peak
+   MiB); one phase-6 batch-8 f32 serving forward under direct, s2d and gemm (within 1e-4 *
+   max|direct|, ms);
 11. kernel #5 (minibatch_stddev_stat, CUDA C++, csrc/minibatch_stddev.cu, standalone)
    with group 4 at N 8 and 16, at the per-sample feature counts of the largest and
    smallest phase-6 D activation, f32 and bf16 input, and group 3 (not a template size)
@@ -273,15 +286,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    two 64 x 512^2 layers (the kernels line's ``[space,phase8]`` rows);
    (f) the other families sharded (``--only parallel_space_families``): surfgan at phase 6
    (depth 16 + 16, f32 with the f64 witness and bf16) and pgan2, pgandeep, stylegan and
-   stylegan2 at phase 5 (depth 8 + 8, f32 with the witness) against one process at the
+   stylegan2 at phase 4 (depth 4 + 4, f32 with the witness) against one process at the
    limits of (d), ms per rank, the exchanges' share and launches per rank (#4 is pgan's
    alone); #1, #1' and #2 at every conv shape of surfgan's bf16 slabs (the
    ``[space,surfgan]`` rows); (e) and (f) print their seconds;
 18. one JSON line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
-``python3 chip_smoke.py --only big_volume`` builds and runs phase 12 alone, ``--only
-families`` phase 13, ``--only hpo`` phase 14, ``--only tools`` phase 15, ``--only two_d``
+``python3 chip_smoke.py --only engines`` builds and runs phase 10b alone, ``--only
+big_volume`` phase 12, ``--only families`` phase 13, ``--only hpo`` phase 14, ``--only tools`` phase 15, ``--only two_d``
 phase 16, ``--only parallel`` phase 17, ``--only parallel_space`` its part (d),
 ``--only parallel_space_levers`` (e) and ``--only parallel_space_families`` (f) (each
 without the result lines), for working on it.  ``--only parallel_cards``, on a machine with two or more cards, runs phase 17 (b) with
@@ -294,6 +307,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -323,6 +337,7 @@ from saragan_tpu_torch.ops import _build
 from saragan_tpu_torch.ops import conv3d_flat as cf
 from saragan_tpu_torch.ops import fused_bias_act as fba
 from saragan_tpu_torch.ops import minibatch_stddev as mb
+from saragan_tpu_torch.ops.core import Ops
 from saragan_tpu_torch.data import (NumpyPathDataset, get_numpy_dataset, imagenet, native,
                                     normalize_numpy, stdnormal_to_8bit_numpy)
 from saragan_tpu_torch.data.imagenet import decoder_name, jpeg_decoder
@@ -430,7 +445,6 @@ TWO_D_LAST_START = 2 * TWO_D_NIMG  # global image count at which phase 7 begins
 TWO_D_REQUESTS = [(1, 301), (3, 302), (8, 303), (8, 304)]  # (num_samples, seed)
 FUSED_SOURCE = "saragan_tpu_torch/csrc/fused_bias_act.cu"
 MBSTD_SOURCE = "saragan_tpu_torch/csrc/minibatch_stddev.cu"
-STANDALONE_3 = "standalone: no path of the JAX package runs it (saragan_tpu/ops/core.py:553)"
 STANDALONE_5 = ("standalone: no path of the JAX package runs it (the D's minibatch_stddev_layer "
                 "is plain jnp, saragan_tpu/ops/pallas_kernels.py:163-168)")
 
@@ -3162,7 +3176,9 @@ def parallel_serving(cards: int = 1):
 
 # the four-rank (space 2 x space2 2) run's phase: 5 until the script neared its time limit
 SPACE_PHASE4 = 4
-SPACE_FAMILY_PHASE = 5  # (f): pgan2, pgandeep, stylegan and stylegan2 sharded at 16 x 64^2
+# (f): pgan2, pgandeep, stylegan and stylegan2 sharded at 8 x 32^2 (phase 5, 16 x 64^2,
+# until the engines phase needed the time)
+SPACE_FAMILY_PHASE = 4
 
 
 def _space_tool(world: int, out: Path, *extra, device=("--device", "cuda:0"), timeout=400):
@@ -3296,7 +3312,7 @@ def parallel_space_levers(detail):
 def parallel_space_families(detail):
     """(f) surfgan at phase 6 (the flagship's widths, 32 x 128^2, batch 8) with each
     volume's depth split 16 + 16 over two gloo ranks, f32 and bf16, and pgan2, pgandeep,
-    stylegan and stylegan2 at phase 5 (16 x 64^2, depth 8 + 8), f32, each against the
+    stylegan and stylegan2 at phase 4 (8 x 32^2, depth 4 + 4), f32, each against the
     one-process step within ``compare_states(space=True)``'s limits (f32 with the f64
     witness); ms per rank, the exchanges' share and launches per rank.  Then #1, #1' and
     #2 at every conv shape of surfgan's bf16 slabs.  Returns (report, kernel entries,
@@ -3406,6 +3422,238 @@ def space_slice_entries(levers, fams):
     return rows
 
 
+# the engines phase: the flagship step under each conv formulation of the JAX package's
+# SARAGAN_CONV3D besides direct and flat (gemm_custom under both of its wgrads)
+ENGINES = {"flat_v2": Ops("flat_v2"), "gemm": Ops("gemm"), "gemm_custom": Ops("gemm_custom"),
+           "gemm_custom_einsum": Ops("gemm_custom", wgrad="einsum"), "hybrid": Ops("hybrid"),
+           "s2d": Ops("s2d")}
+ENGINE_STEPS = 3
+# kernel #1's launches a flagship step under flat (PERF.md section 4), which #3's under
+# flat_v2 must equal
+FLAT_PER_STEP = {"forward": 28, "dgrad": 39}
+SERVE_ENGINES = ("direct", "s2d", "gemm")
+PRESET_OPS = {"preset": Ops("flat"), "window_compute": Ops("flat", pool="window",
+                                                            stats="compute")}
+
+
+def _v2_by_role(by_shape, per):
+    """#3's launches of `by_shape` (since the counts were set to 0) as check_conv_v2's
+    items, {role: [(role, x shape, w shape, launches / per)]}, and {role: launches}."""
+    items, launches = {}, Counter()
+    for (role, xs, ws, _), n in sorted(by_shape.items(), key=str):
+        items.setdefault(role, []).append((role, xs, ws, n / per))
+        launches[role] += n
+    return items, launches
+
+
+def engine_step(cfg, name, state0, opts, real):
+    """The flagship step's mixing half (alpha 0.5 traced) under ENGINES[name] from
+    `state0`: a warm-up step, then ENGINE_STEPS steps with the counts set to 0 just before
+    and read just after.  Every loss finite, no plain version; under flat_v2 kernel #3 as
+    often as #1 under flat (forward and dgrad, through the tensor-core route), #1 and #2
+    never; under the others no hand-written conv kernel.  Returns (row, counts, #3's
+    launches by shape)."""
+    step = make_train_step(get_architecture("pgan"), cfg, PHASE, *opts, static_alpha=None,
+                           conv_engine=ENGINES[name])
+    rng = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, _, _ = run_steps(step, state0, real, rng, 0.5, 1)  # warm-up
+    zero_counts()  # the main path: counts set to 0 just before, read just after
+    state, ms, metrics = run_steps(step, state, real, rng, 0.5, ENGINE_STEPS)
+    counts = read_counts()
+    v2_shapes = Counter(cf.conv3d_flat_v2_cuda.by_shape)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses_ = [[float(m.gen_loss), float(m.disc_loss), float(m.gp_loss)] for m in metrics]
+    check(all(math.isfinite(v) for row in losses_ for v in row),
+          f"engines [{name}]: non-finite losses {losses_}")
+    check(counts["plain"] == 0, f"engines [{name}]: {counts['plain']} plain-version calls")
+    check(counts["forward"] == counts["dgrad"] == counts["wgrad"] == 0,
+          f"engines [{name}]: kernel #1 or #2 launched: {counts}")
+    check(counts["fused"] == counts["fused_grad"] == 11 * ENGINE_STEPS,
+          f"engines [{name}]: fused launches {counts}")
+    _, v2 = _v2_by_role(v2_shapes, ENGINE_STEPS)
+    if name == "flat_v2":
+        check({r: v2[r] for r in FLAT_PER_STEP} == {r: n * ENGINE_STEPS
+                                                     for r, n in FLAT_PER_STEP.items()}
+              and cf.launches_by_route(cf.conv3d_flat_v2_cuda)["tc"] == counts["v2"],
+              f"engines [flat_v2]: #3 launches {dict(v2)} in {ENGINE_STEPS} steps, #1's "
+              f"under flat {FLAT_PER_STEP} a step, all through the tensor cores")
+    else:
+        check(counts["v2"] == 0, f"engines [{name}]: kernel #3 launched {counts['v2']}")
+    for part in ("g_params", "d_params", "ema"):
+        check(_moved(getattr(state, part), getattr(state0, part)),
+              f"engines [{name}]: {part} did not move")
+    row = dict(step_ms=statistics.median(ms), step_ms_all=ms, peak_mib=peak_mib,
+               losses=losses_[-1], v2_per_step={r: n / ENGINE_STEPS for r, n in v2.items()})
+    print(f"engines [{name}]: bf16 step {row['step_ms']:.2f} ms (median of {ENGINE_STEPS}, "
+          f"CUDA events; all {[round(v, 2) for v in ms]}), peak {peak_mib:.0f} MiB, losses "
+          f"{losses_[-1]}, #3 per step {row['v2_per_step']}", flush=True)
+    return row, counts, v2_shapes
+
+
+def engine_grads_f32(name, state0, real, draws, ref):
+    """One f32 gradient computation of the step under ENGINES[name] (the counts set to 0
+    just before, read just after), twice: every gradient within 1e-3 * max|g| of `ref`
+    (direct's), the losses within 1e-3 relative; whether the rerun is bit-equal (a
+    reading).  Returns (row, counts, #3's launches by shape)."""
+    cfg = bench_train_config(PHASE, BATCH, compute_dtype="float32")
+    grads_fn = make_grads_fn(get_architecture("pgan"), cfg, PHASE, static_alpha=None,
+                             conv_engine=ENGINES[name])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    (gg, dg), out = grads_fn(state0.g_params, state0.d_params, real, draws, 0.5)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    v2_shapes = Counter(cf.conv3d_flat_v2_cuda.by_shape)
+    check(counts["plain"] == 0 and counts["forward"] == counts["dgrad"] == counts["wgrad"] == 0,
+          f"engines [{name}] f32: plain versions or #1 / #2 ran: {counts}")
+    if name == "flat_v2":
+        check(counts["v2"] > 0 and cf.launches_by_route(cf.conv3d_flat_v2_cuda)["simt"]
+              == counts["v2"], f"engines [flat_v2] f32: #3 launches {counts}")
+    (gg2, dg2), _ = grads_fn(state0.g_params, state0.d_params, real, draws, 0.5)
+    grads, again = {**gg, **dg}, {**gg2, **dg2}
+    rerun_equal = all(torch.equal(grads[k], again[k]) for k in grads)
+    (rg, rout) = ref
+    loss_rel = {}
+    for k in ("gen_loss", "disc_loss", "gp_loss"):
+        a, b = getattr(out, k).item(), getattr(rout, k).item()
+        loss_rel[k] = abs(a - b) / max(abs(b), 1e-30)
+        check(abs(a - b) <= 1e-3 * abs(b) + 1e-6, f"engines [{name}] f32 {k}: {a} vs {b}")
+    worst = (0.0, None)
+    for k, b in rg.items():
+        scale = b.abs().max().item()
+        err = (grads[k] - b).abs().max().item()
+        check(err <= 1e-3 * scale, f"engines [{name}] f32 gradient {k}: {err} > 1e-3 * {scale}")
+        if scale > 0:
+            worst = max(worst, (err / scale, k))
+    row = dict(loss_rel=loss_rel, worst_grad_rel=worst[0], worst_grad=worst[1],
+               rerun_bit_equal=rerun_equal, peak_mib=peak_mib)
+    print(f"engines [{name}]: f32 gradients against direct's {row}", flush=True)
+    return row, counts, v2_shapes
+
+
+def preset_pool_stats():
+    """The phase-8 batch-2 single_chip_big_volume step (bf16, the mixing half) under the
+    preset's formulation and with the reference preset's window pool and compute-dtype
+    statistics: a warm-up and ENGINE_STEPS steps each, ms (median) and peak MiB, finite
+    losses."""
+    arch = get_architecture("pgan")
+    cfg = bench_train_config(BIG_PHASE, BIG_BATCH, single_chip_big_volume=True)
+    state0, opts = init_train_state(arch, torch.Generator().manual_seed(0), phase=BIG_PHASE,
+                                    cfg=cfg, device="cuda")
+    real = torch.randn(cfg.current_shape(BIG_PHASE, BIG_BATCH),
+                       generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    rows = {}
+    for name, ops in PRESET_OPS.items():
+        step = make_train_step(arch, cfg, BIG_PHASE, *opts, static_alpha=None, conv_engine=ops)
+        rng = torch.Generator(device="cuda").manual_seed(6)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, _, _ = run_steps(step, state0, real, rng, 0.5, 1)
+        state, ms, metrics = run_steps(step, state, real, rng, 0.5, ENGINE_STEPS)
+        losses_ = [[float(m.gen_loss), float(m.disc_loss), float(m.gp_loss)] for m in metrics]
+        check(all(math.isfinite(v) for row in losses_ for v in row),
+              f"engines preset [{name}]: non-finite losses {losses_}")
+        rows[name] = dict(step_ms=statistics.median(ms), step_ms_all=ms,
+                          peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                          losses=losses_[-1])
+        print(f"engines: phase-{BIG_PHASE} batch-{BIG_BATCH} preset step [{name}, pool "
+              f"{ops.pool}, stats {ops.stats}]: {rows[name]['step_ms']:.2f} ms (median of "
+              f"{ENGINE_STEPS}), peak {rows[name]['peak_mib']:.0f} MiB", flush=True)
+        del state
+    return rows
+
+
+def serve_engines():
+    """One phase-6 batch-8 serving forward (the keyed sampler, f32) under SERVE_ENGINES:
+    volumes finite, s2d and gemm within 1e-4 * max|direct| of direct, ms per forward (CUDA
+    events, median of 5 after a warm-up)."""
+    cfg = Config(**BENCH_CFG, starting_phase=PHASE, ending_phase=PHASE).finalize()
+    params = get_architecture("pgan").init(torch.Generator().manual_seed(0), phase=PHASE,
+                                           cfg=cfg, device="cuda")
+    seeds, idxs = np.arange(BATCH) + 401, np.zeros(BATCH, np.int64)
+    rows, outs = {}, {}
+    for engine in SERVE_ENGINES:
+        sampler = make_keyed_sampler(cfg, PHASE, BATCH, device="cuda", conv_engine=engine)
+        outs[engine] = sampler(params, seeds, idxs).float()
+        check(torch.isfinite(outs[engine]).all().item(), f"engines serve [{engine}]: not finite")
+        rows[engine] = dict(forward_ms=time_ms(lambda: sampler(params, seeds, idxs), reps=5,
+                                               warmup=1))
+    ref = outs["direct"]
+    for engine in SERVE_ENGINES[1:]:
+        err = (outs[engine] - ref).abs().max().item()
+        rows[engine]["max_rel_diff"] = err / ref.abs().max().item()
+        check(err <= 1e-4 * ref.abs().max().item(),
+              f"engines serve [{engine}]: {err} from direct's")
+    print(f"engines: phase-{PHASE} batch-{BATCH} serving forward {rows}", flush=True)
+    return rows
+
+
+def engines(detail):
+    """The engines phase: the flagship step under every engine of ENGINES in bf16 (timed)
+    and f32 (gradients against direct's), #3 against its plain version at every shape the
+    flat_v2 steps gave it, the phase-8 preset step with the window pool and compute-dtype
+    statistics, and a serving forward under s2d and gemm.  Returns (report, the kernels
+    line's #3 entries and launches)."""
+    t0 = time.perf_counter()
+    gc.collect()  # what earlier phases left: the GEMM engines take tens of GiB
+    torch.cuda.empty_cache()
+    arch = get_architecture("pgan")
+    cfg = bench_train_config(PHASE, BATCH)
+    state0, opts = init_train_state(arch, torch.Generator().manual_seed(0), phase=PHASE,
+                                    cfg=cfg, device="cuda")
+    real = real_batch(cfg, PHASE, BATCH, "cuda")
+    draws = losses.draw_inputs(torch.Generator(device="cuda").manual_seed(4), BATCH,
+                               cfg.latent_dim, real.shape[1:], torch.float32, "cuda")
+    ref_fn = make_grads_fn(arch, bench_train_config(PHASE, BATCH, compute_dtype="float32"),
+                           PHASE, static_alpha=None, conv_engine="direct")
+    (rg, rd), rout = ref_fn(state0.g_params, state0.d_params, real, draws, 0.5)
+    ref = ({**rg, **rd}, rout)
+    report, v2 = dict(steps={}, f32={}), {}
+    for name in ENGINES:
+        report["steps"][name], counts, shapes = engine_step(cfg, name, state0, opts, real)
+        report["f32"][name], counts32, shapes32 = engine_grads_f32(name, state0, real, draws,
+                                                                   ref)
+        if name == "flat_v2":
+            v2 = dict(bf16=(shapes, counts), f32=(shapes32, counts32))
+    del state0, ref, rg, rd
+    torch.cuda.empty_cache()
+    items, launches = _v2_by_role(v2["bf16"][0], ENGINE_STEPS)
+    items32, launches32 = _v2_by_role(v2["f32"][0], 1)
+    entries = {role: check_conv_v2(items[role], torch.bfloat16, detail)
+               for role in ("forward", "dgrad")}
+    entries["f32"] = check_conv_v2(items32["forward"] + items32["dgrad"], torch.float32, detail)
+    launches = {"forward": launches["forward"], "dgrad": launches["dgrad"],
+                "f32": launches32["forward"] + launches32["dgrad"]}
+    report["preset"] = preset_pool_stats()
+    report["serve"] = serve_engines()
+    report["seconds"] = time.perf_counter() - t0
+    print(f"engines: {report['seconds']:.1f} s", flush=True)
+    return report, (entries, launches)
+
+
+def engine_entries(entries, launches):
+    """The kernels line's rows of #3 on the flat_v2 path."""
+    per = (f"kernel #3 under the flat_v2 engine (the JAX package's pallas2): one "
+           f"phase-{PHASE} batch-{BATCH} bf16 train step's mixing half (sum over its launches "
+           f"at that step's shapes); launches counted over {ENGINE_STEPS} steps")
+    per32 = (f"kernel #3 under flat_v2 in one phase-{PHASE} batch-{BATCH} f32 gradient "
+             f"computation of the train step, forward and dgrad (sum over its launches); "
+             f"launches counted over that one computation")
+    src, src32 = ("saragan_tpu_torch/csrc/conv3d_fwd_v2_tc.cu",
+                  "saragan_tpu_torch/csrc/conv3d_fwd_v2.cu")
+    return (("conv3d_flat_v2[forward,bf16]", "cuda", src, "saragan_tpu/ops/pallas_conv.py:288",
+             entries["forward"], launches["forward"], "library_ms", per, ENGINE_STEPS),
+            ("conv3d_flat_v2[dgrad,bf16]", "cuda", src, "saragan_tpu/ops/pallas_conv.py:288",
+             entries["dgrad"], launches["dgrad"], "library_ms", per, ENGINE_STEPS),
+            ("conv3d_flat_v2[forward+dgrad,f32,train]", "cuda", src32,
+             "saragan_tpu/ops/pallas_conv.py:288", entries["f32"], launches["f32"],
+             "library_ms", per32, 1))
+
+
 def kernel_row(name, route, source, replaces, e, launches, library, per_what, unit):
     """One entry of the kernels line."""
     check(launches > 0, f"{name}: not launched")
@@ -3476,6 +3724,18 @@ def main(argv=None) -> int:
             card=card, big_volume=big, kernels=rows, shapes=detail, seconds=seconds),
             indent=1, default=str))
         print("big volume kernels: " + json.dumps(rows), flush=True)
+        return 0
+
+    if args.only == "engines":  # this phase alone, for working on it: no result line
+        detail = []
+        report, (entries, launches) = engines(detail)
+        phase_done("engines")
+        rows = [kernel_row(*r) for r in engine_entries(entries, launches)]
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_engines.json").write_text(json.dumps(dict(
+            card=card, engines=report, kernels=rows, shapes=detail, seconds=seconds),
+            indent=1, default=str))
+        print("engines kernels: " + json.dumps(rows), flush=True)
         return 0
 
     if args.only == "hpo":  # this phase alone, for working on it: no result line
@@ -3641,23 +3901,21 @@ def main(argv=None) -> int:
         metrics = check_metrics(tmp / "data", params, cfg, tmp)
         phase_done("metrics")
 
-    # kernel #3 (standalone) at the serving shapes (f32) and the train step's forward and
-    # dgrad shapes (bf16), and kernel #5 (standalone)
+    # kernel #3 at the serving shapes (f32; its step's shapes are the engines phase's), and
+    # kernel #5 (standalone)
     zero_counts()
-    by_role = {}
-    for (role, xs, ws, _), count in sorted(conv_shapes.items(), key=str):
-        by_role.setdefault(role, []).append((role, xs, ws, count / train_steps))
-    v2, v2_launches = {}, {}
-    for key, shapes, dtype in (
-            ("f32", [("forward", xs, ws, 1) for xs, ws in serve_convs], torch.float32),
-            ("forward", by_role["forward"], torch.bfloat16),
-            ("dgrad", by_role["dgrad"], torch.bfloat16)):
-        before = cf.conv3d_flat_v2_cuda.launches
-        v2[key] = check_conv_v2(shapes, dtype, detail)
-        v2_launches[key] = cf.conv3d_flat_v2_cuda.launches - before
+    v2_serving = check_conv_v2([("forward", xs, ws, 1) for xs, ws in serve_convs],
+                               torch.float32, detail)
     mbstd = check_mbstd(detail)
     mbstd_launches = mb.minibatch_stddev_stat_cuda.launches
     phase_done("standalone kernels")
+
+    # the flagship step under every other conv formulation, #3 on the flat_v2 path
+    engines_report, (v2_entries, v2_launches) = engines(detail)
+    for role, n in FLAT_PER_STEP.items():
+        check(trained["flat"][1]["mixing"]["per_step"][role] == n,
+              f"flat's #1 {role} launches a step {trained['flat'][1]['mixing']['per_step']}")
+    phase_done("engines")
 
     # the flagship at phase 8 (128x512x512) under single_chip_big_volume: the step, its
     # kernels at the phase-8 shapes, the trainer through the CLI
@@ -3706,9 +3964,6 @@ def main(argv=None) -> int:
                                                   "t_bytes", "t_ops", "t_flop")}
     conv32["max_abs_err"] = max(fwd32["max_abs_err"], dgrad32["max_abs_err"])
     f32_launches = engines_f32["flat_launches"]
-    per_v2 = (f"{STANDALONE_3}; ms per phase-6 batch-8 f32 serving forward / bf16 train step "
-              f"(sum over the shapes kernel #1 runs at); launches of this entry's own standalone "
-              f"check, its timing repeats included")
     per_mbstd = (f"{STANDALONE_5}; ms, device_ms and host_us summed over 8 inputs (group 4, "
                  f"N 8 and 16, the largest and smallest phase-6 D activation, f32 and bf16); "
                  f"launches of this standalone check (a ninth input of group 3 included)")
@@ -3740,18 +3995,10 @@ def main(argv=None) -> int:
             ("conv3d_wgrad[bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad_tc.cu",
              "saragan_tpu/ops/pallas_conv.py:183", train_convs[("wgrad", "bfloat16")],
              train_launches["wgrad"], "library_ms", per_step, train_steps),
-            ("conv3d_flat_v2[f32]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2.cu",
-             "saragan_tpu/ops/pallas_conv.py:288", v2["f32"], v2_launches["f32"], "library_ms",
-             per_v2, None),
-            ("conv3d_flat_v2[forward,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2_tc.cu",
-             "saragan_tpu/ops/pallas_conv.py:288", v2["forward"], v2_launches["forward"],
-             "library_ms", per_v2, None),
-            ("conv3d_flat_v2[dgrad,bf16]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_v2_tc.cu",
-             "saragan_tpu/ops/pallas_conv.py:288", v2["dgrad"], v2_launches["dgrad"],
-             "library_ms", per_v2, None),
             ("minibatch_stddev_stat", "cuda", MBSTD_SOURCE,
              "saragan_tpu/ops/pallas_kernels.py:159", mbstd, mbstd_launches, None, per_mbstd,
              None))]
+    kernels += [kernel_row(*r) for r in engine_entries(v2_entries, v2_launches)]
     kernels += [kernel_row(*r) for r in big_volume_entries(big_kernels, big_launches)]
     kernels += [kernel_row(*r) for r in family_entries(fam_convs, fam_launches)]
     kernels += [kernel_row(*r) for r in two_d_entries(two_d_report, two_d_kernels)]
@@ -3765,7 +4012,8 @@ def main(argv=None) -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, kernels=kernels, shapes=detail, f32_train_kernels=f32_train, ptxas=ptxas,
         serving={e: served[e][1] for e in served}, training=training,
-        engines_f32=engines_f32, trainer=trainer, bitwise_resume=resume, metrics=metrics,
+        engines_f32=engines_f32, engines=engines_report, v2_serving=v2_serving,
+        trainer=trainer, bitwise_resume=resume, metrics=metrics,
         big_volume=big, families=fam, hpo=hpo_report, tools=tools_report, two_d=two_d_report,
         parallel=par_report, seconds=seconds),
         indent=1, default=str))
@@ -3782,6 +4030,14 @@ def main(argv=None) -> int:
         python_thread_phase5_input_wait_ms=trainer["python_thread"]["input_wait_ms"])),
         flush=True)
     print("metrics: " + json.dumps({k: v for k, v in metrics.items()}), flush=True)
+    print("engines: " + json.dumps(dict(
+        step={n: {k: r[k] for k in ("step_ms", "peak_mib")}
+              for n, r in engines_report["steps"].items()},
+        f32={n: {k: r[k] for k in ("worst_grad_rel", "rerun_bit_equal", "peak_mib")}
+             for n, r in engines_report["f32"].items()},
+        preset={n: {k: r[k] for k in ("step_ms", "peak_mib")}
+                for n, r in engines_report["preset"].items()},
+        serve=engines_report["serve"], v2_serving_ms=v2_serving["ms"])), flush=True)
     print("big volume: " + json.dumps({k: big[k] for k in ("step_ms", "vol_s", "peak_mib",
                                                            "host_mib", "first_step")}),
           flush=True)
@@ -3830,8 +4086,8 @@ def _parse(argv):
     import argparse
 
     p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
-    p.add_argument("--only", choices=["big_volume", "families", "hpo", "tools", "two_d",
-                                       "parallel", "parallel_space", "parallel_space_levers",
+    p.add_argument("--only", choices=["engines", "big_volume", "families", "hpo", "tools",
+                                       "two_d", "parallel", "parallel_space", "parallel_space_levers",
                                        "parallel_space_families", "parallel_cards"],
                    default=None,
                    help="build, then run this phase alone (no result line)")

@@ -4,9 +4,13 @@ limited to the fields the port has):
     python -m saragan_tpu_torch <architecture> <dataset_path> --start_shape ... --flags
 
 The flag names, defaults and None-able types are the reference's.  Added:
-``--conv_engine {direct,flat}`` (cuDNN, or the hand-written kernels; without it the
-trainer takes ``flat`` on a CUDA device and ``direct`` on the CPU) and ``--device`` (CUDA
-unless named; ``--device cpu`` trains on the CPU).  ``main`` goes through
+the op formulation, the reference's environment variables as flags: ``--conv_engine``
+(``SARAGAN_CONV3D``: ``direct``, cuDNN; ``flat``, the hand-written kernels #1 and #2, its
+``pallas``; ``flat_v2``, kernel #3, its ``pallas2``; ``gemm``, ``gemm_custom``, ``hybrid``,
+``s2d``; without it the trainer takes ``flat`` on a CUDA device and ``direct`` on the CPU),
+``--conv_wgrad`` (``SARAGAN_CONV3D_WGRAD``), ``--pool`` (``SARAGAN_POOL``),
+``--stats_dtype`` (``SARAGAN_STATS_DTYPE``) and ``--s2d_max_cin`` (``SARAGAN_S2D_MAX_CIN``);
+and ``--device`` (CUDA unless named; ``--device cpu`` trains on the CPU).  ``main`` goes through
 ``hpo.harness.run`` as the reference's does: one training run, or an HPO study with
 ``--optuna_ntrials`` / ``--optuna_walltime`` / ``--optuna_storage`` (each trial a
 ``Trainer`` run, scored with ``make_metrics_callback``), a best-trial replay
@@ -42,6 +46,7 @@ import functools
 import json
 
 from saragan_tpu_torch.config import Config
+from saragan_tpu_torch.ops.core import CONV_ENGINES, POOLS, STATS_DTYPES, WGRAD_ENGINES
 
 
 def none_or_str(value):
@@ -252,9 +257,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host->device batch dtype; auto = bfloat16 under bfloat16 compute")
     p.add_argument("--profile_dir", default=None, type=str,
                    help="write a torch.profiler trace of steps 5-10 of the first phase here")
-    p.add_argument("--conv_engine", default="unset", choices=["direct", "flat"],
-                   help="every 3-D conv through cuDNN (direct) or the hand-written "
-                        "kernels (flat); unset: flat on a CUDA device, direct on the CPU")
+    p.add_argument("--conv_engine", default="unset", choices=list(CONV_ENGINES),
+                   help="the 3-D conv formulation (the JAX package's SARAGAN_CONV3D): direct "
+                        "(cuDNN), flat (kernels #1 and #2, its pallas), flat_v2 (kernel #3, "
+                        "its pallas2), gemm, gemm_custom, hybrid, s2d; unset: flat on a "
+                        "CUDA device, direct on the CPU")
+    p.add_argument("--conv_wgrad", default="library", choices=list(WGRAD_ENGINES),
+                   help="the weight gradient of flat_v2 and gemm_custom "
+                        "(SARAGAN_CONV3D_WGRAD; library is its xla)")
+    p.add_argument("--pool", default="reshape", choices=list(POOLS),
+                   help="average pooling as a reshape and mean or a windowed sum "
+                        "(SARAGAN_POOL)")
+    p.add_argument("--stats_dtype", default="f32", choices=list(STATS_DTYPES),
+                   help="pixel norm, pooling and skinny 1x1x1 sums in f32 or in the compute "
+                        "dtype (SARAGAN_STATS_DTYPE)")
+    p.add_argument("--s2d_max_cin", default=16, type=int,
+                   help="the most input channels s2d folds (SARAGAN_S2D_MAX_CIN)")
     p.add_argument("--device", default=None, type=str,
                    help="torch device; CUDA unless named (e.g. 'cpu'); under --horovod "
                         "cuda:LOCAL_RANK unless named")

@@ -2,24 +2,30 @@
 the CLI and the serving tools read.
 
 The port keeps its own copy of ``saragan_tpu/config.py``'s ``Config`` (same field
-names, defaults and derived properties), trimmed to what the port runs.  There is no
-``apply_runtime_opts``: the conv engine is the explicit field ``conv_engine`` ("direct",
-cuDNN, the reference's choice off the TPU; or "flat", the hand-written kernels), handed
-down to every conv, never a process-wide gate.  Left "unset", the trainer resolves it
-for its device (``resolve_conv_engine``), as the reference's ``apply_runtime_opts`` picks
-an engine by backend.  ``num_space_shards`` / ``num_space2_shards`` above 1 (a volume's
-depth and height split across the ranks of a mesh) run for every family, with or without
-the memory levers.  ``g_annealing``, ``d_annealing`` and ``use_adasum`` are fields only, in the reference too.
+names, defaults and derived properties), trimmed to what the port runs.  The
+reference's ``apply_runtime_opts`` sets process-wide op gates; the port's counterpart,
+``resolve_ops``, returns the op formulation as a value (``ops.core.Ops``: the conv
+engine, the wgrad, the pool, the statistics' dtype, the widest input of ``s2d``), which
+the trainer and the tools hand down to every conv, pool and pixel norm.  The fields
+``conv_engine``, ``conv_wgrad``, ``pool``, ``stats_dtype`` and ``s2d_max_cin`` stand
+for the reference's environment variables ``SARAGAN_CONV3D``, ``SARAGAN_CONV3D_WGRAD``,
+``SARAGAN_POOL``, ``SARAGAN_STATS_DTYPE`` and ``SARAGAN_S2D_MAX_CIN``.  ``conv_engine``
+left "unset" is resolved for the device (``resolve_ops``).  ``num_space_shards`` /
+``num_space2_shards`` above 1 (a volume's depth and height split across the ranks of a
+mesh) run for every family and engine, with or without the memory levers.
+``g_annealing``, ``d_annealing`` and ``use_adasum`` are fields only, in the reference too.
 
 ``single_chip_big_volume`` is the reference's preset for phases 7 and 8 (64x256x256 and
 128x512x512 volumes) on one device (``saragan_tpu/config.py:448-456``): ``finalize``
 turns on ``remat_offload`` (the block-boundary activations parked in pinned host memory,
 everything else recomputed) and turns off ``batched_passes`` and ``fused_transitions``;
-``resolve_conv_engine`` then picks ``flat`` on every device, as the reference's preset
-picks ``pallas`` (``:502-503``).  The reference's preset also sets TPU layout workarounds
-(``scoped_vmem_kib``, the window pool, statistics in the compute dtype;
-``saragan_tpu/config.py:274-295``, ``saragan_tpu/ops/core.py:167-173``).  They are not
-copied: statistics stay f32 (ROADMAP.md queue 1 item 14 keeps them for later as options).
+``resolve_ops`` then picks ``flat`` on every device, as the reference's preset picks
+``pallas`` (``:502-503``).  The reference's preset also sets its window pool and
+statistics in the compute dtype (``saragan_tpu/ops/core.py:167-173``), layout
+workarounds for the TPU's 128-lane tiles, and ``scoped_vmem_kib``, a TPU compiler
+option.  The port's preset leaves ``pool`` and ``stats_dtype`` at "reshape" and "f32":
+it matches the reference's preset numerically only when ``pool="window"`` and
+``stats_dtype="compute"`` are passed explicitly.
 """
 
 from __future__ import annotations
@@ -36,18 +42,35 @@ from saragan_tpu_torch.ops import core
 CONV_ENGINES = ("unset", *core.CONV_ENGINES)
 
 
-def resolve_conv_engine(engine: str, device_type: str, big_volume: bool = False) -> str:
-    """The trainer's conv engine on a device of `device_type` ("cuda", "cpu", ...): an
-    explicit "direct" or "flat" as given; "unset" as the reference's
-    ``apply_runtime_opts`` picks one for training (``saragan_tpu/config.py:495-512``):
-    under the ``single_chip_big_volume`` preset (`big_volume`) "flat" on every device, as
-    the reference's preset picks ``pallas``; otherwise the engine measured fastest on the
-    device, "flat" (the hand-written kernels) on a CUDA device and "direct" elsewhere.  On
-    the CPU "flat" runs the kernels' plain versions.  The samplers and serving do not ask:
-    they keep "direct", as the reference's do (``inference=True``)."""
+def _resolve_conv(engine: str, device_type: str, big_volume: bool, inference: bool) -> str:
     if engine != "unset":
         return engine
-    return "flat" if big_volume or device_type == "cuda" else "direct"
+    if big_volume:
+        return "flat"
+    return "flat" if device_type == "cuda" and not inference else "direct"
+
+
+def resolve_ops(cfg, device_type: str, inference: bool = False,
+                spatial: bool = False) -> core.Ops:
+    """The op formulation of `cfg` on a device of `device_type` ("cuda", "cpu", ...), the
+    counterpart of the reference's ``apply_runtime_opts(spatial, inference)``
+    (``saragan_tpu/config.py:460-512``).  An explicit ``conv_engine`` wins; "unset"
+    resolves, as there: ``flat`` under the ``single_chip_big_volume`` preset on every
+    device and for inference too (the reference's preset picks ``pallas``); otherwise
+    ``direct`` for `inference` (the samplers) and on the CPU, and ``flat`` for training on
+    a CUDA device, the engine measured fastest there (the reference's TPU default is
+    ``s2d``, which it keeps off a sharded mesh, `spatial`, as a default only: the port's
+    default is never ``s2d``, so `spatial` changes nothing here).  ``pool`` and
+    ``stats_dtype`` are the config's, which the preset does not change (module
+    docstring)."""
+    conv = _resolve_conv(cfg.conv_engine, device_type, cfg.single_chip_big_volume, inference)
+    return core.Ops(conv, cfg.conv_wgrad, cfg.pool, cfg.stats_dtype, cfg.s2d_max_cin)
+
+
+def resolve_conv_engine(engine: str, device_type: str, big_volume: bool = False) -> str:
+    """The trainer's conv engine name on a device of `device_type` (``resolve_ops``'s
+    ``conv`` for training)."""
+    return _resolve_conv(engine, device_type, big_volume, False)
 
 
 def parse_tuple(value) -> Tuple[int, ...]:
@@ -232,9 +255,17 @@ class Config:
     abort_on_nonfinite: bool = False  # raise TrainingDiverged on a non-finite summary loss
     # phases 7-8 on one device: remat_offload, unstacked critic, unfused transitions, flat
     single_chip_big_volume: bool = False
-    # "direct" (cuDNN) or "flat" (the hand-written kernels), the explicit SARAGAN_CONV3D;
-    # "unset": the trainer picks one for its device (resolve_conv_engine)
+    # the op formulation (ops.core.Ops; resolve_ops): the conv engine, one of
+    # ops.core.CONV_ENGINES (SARAGAN_CONV3D), "unset" for the trainer to pick one for its
+    # device; the wgrad of flat_v2 and gemm_custom, "library" or "einsum"
+    # (SARAGAN_CONV3D_WGRAD, "library" being its "xla"); the pool, "reshape" or "window"
+    # (SARAGAN_POOL); the statistics' dtype, "f32" or "compute" (SARAGAN_STATS_DTYPE);
+    # the widest input s2d folds (SARAGAN_S2D_MAX_CIN)
     conv_engine: str = "unset"
+    conv_wgrad: str = "library"
+    pool: str = "reshape"
+    stats_dtype: str = "f32"
+    s2d_max_cin: int = 16
 
     @property
     def start_shape_t(self) -> Tuple[int, ...]:
@@ -308,6 +339,8 @@ class Config:
             c.d_lr_decay_niter = c.stabilizing_nimg // 2
         if c.conv_engine not in CONV_ENGINES:
             raise ValueError(f"conv_engine must be one of {CONV_ENGINES}; got {c.conv_engine!r}")
+        core.Ops(wgrad=c.conv_wgrad, pool=c.pool, stats=c.stats_dtype,
+                 s2d_max_cin=c.s2d_max_cin)  # raises ValueError on a bad choice
         if not c.d_use_different_optimizer:
             c.d_optimizer = c.optimizer
         if not c.d_use_different_beta1:

@@ -265,7 +265,7 @@ def to_whole(sp: Optional[SpacePlan], x, src: int, dst: Optional[int]):
 
 
 def conv_layer(scope: Scope, x, fmaps: int, kernel, activation: str, param=None,
-               engine: str = "direct", sp: Optional[SpacePlan] = None,
+               engine: ops.Engine = "direct", sp: Optional[SpacePlan] = None,
                res: Optional[int] = None):
     """``ops.conv`` (the layer's weight (*kernel, C, fmaps) under `scope`, its SAME conv)
     as ``conv_at`` at resolution `res`."""
@@ -274,7 +274,7 @@ def conv_layer(scope: Scope, x, fmaps: int, kernel, activation: str, param=None,
     return conv_at(x, w, engine, sp, res)
 
 
-def conv_at(x, w, engine: str, sp: Optional[SpacePlan] = None, res: Optional[int] = None):
+def conv_at(x, w, engine: ops.Engine, sp: Optional[SpacePlan] = None, res: Optional[int] = None):
     """The SAME conv of `x` at resolution `res` with the weight w (*kernel, C, F): the halo
     conv where `res` runs sharded."""
     if sharded(sp, res):
@@ -282,7 +282,7 @@ def conv_at(x, w, engine: str, sp: Optional[SpacePlan] = None, res: Optional[int
     return ops.conv_apply(x, w.to(x.dtype), engine)
 
 
-def up_conv_at(x, w, engine: str, sp: Optional[SpacePlan] = None,
+def up_conv_at(x, w, engine: ops.Engine, sp: Optional[SpacePlan] = None,
                res: Optional[int] = None, fused: bool = False):
     """conv(upscale(x), w) from resolution `res` - 1 into `res`: ``ops.upscale_conv`` under
     `fused`, else the upscale and ``conv_at``; where `res` is sharded, fused from a

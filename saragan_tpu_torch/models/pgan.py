@@ -98,7 +98,7 @@ def _plan(space, phase: int, cfg) -> Optional[SpacePlan]:
     return space_plan_for(space, phase, cfg, space_plan)
 
 
-def _bias_act_pn(scope, x, activation, param, fused: bool):
+def _bias_act_pn(scope, x, activation, param, fused: bool, engine):
     """bias -> act -> pixel_norm; one fused kernel when enabled and the activation is
     leaky_relu."""
     if fused and activation == "leaky_relu":
@@ -106,7 +106,7 @@ def _bias_act_pn(scope, x, activation, param, fused: bool):
         return bias_act_pixelnorm(x, b, alpha_lr=param, pixelnorm=True)
     x = ops.apply_bias(scope, x)
     x = ops.act(x, activation, param=param)
-    return ops.pixel_norm(x)
+    return ops.pixel_norm(x, engine=engine)
 
 
 def _generator_in(scope, x, shape, activation, kernel_spec, filter_spec, param, fused, engine,
@@ -120,13 +120,13 @@ def _generator_in(scope, x, shape, activation, kernel_spec, filter_spec, param, 
     c = scope.sub("conv")
     x = conv_layer(c, x, get_filters(filter_spec, 0, 1), get_kernels(kernel_spec, 0, 1),
               activation, param, engine, sp, 1)
-    return _bias_act_pn(c, x, activation, param, fused)
+    return _bias_act_pn(c, x, activation, param, fused, engine)
 
 
 def _conv_bias_act_pn(c, x, fmaps, kernel, activation, param, fused, engine, sp=None,
                       res=None):
     x = conv_layer(c, x, fmaps, kernel, activation, param, engine, sp, res)
-    return _bias_act_pn(c, x, activation, param, fused)
+    return _bias_act_pn(c, x, activation, param, fused, engine)
 
 
 def _generator_block(scope, x, activation, kernel_spec, filter_spec, i, param, fused,
@@ -142,7 +142,7 @@ def _generator_block(scope, x, activation, kernel_spec, filter_spec, i, param, f
         w = ops.get_weight(c1, (*kernel, t.shape[1], get_filters(filter_spec, i - 1, 0)),
                            activation, param=param)
         y = up_conv_at(t, w, engine, sp, i, fused_transitions)
-        return _bias_act_pn(c1, y, activation, param, fused)
+        return _bias_act_pn(c1, y, activation, param, fused, engine)
 
     def second(t):
         return _conv_bias_act_pn(c2, t, get_filters(filter_spec, i - 1, 1),
@@ -190,7 +190,7 @@ def _generator(scope, z, alpha, phase, cfg, param, engine, space=None):
 
 
 def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
-              conv_engine: str = "direct", noise=None, mix=None,
+              conv_engine: ops.Engine = "direct", noise=None, mix=None,
               train: bool = True, space=None) -> torch.Tensor:
     """G(z) at `phase`: (N, latent_dim) -> (N, C, *spatial).  `alpha` is a Python float
     (0 skips the transition branch) or a 0-dim tensor (the branch always runs).  pgan
@@ -218,10 +218,10 @@ def _discriminator_out(scope, x, latent_dim, activation, kernel_spec, filter_spe
     return ops.apply_bias(d2, ops.dense(d2, x, 1, activation="linear"))
 
 
-def _downscale(x, sp: Optional[SpacePlan], res: int):
+def _downscale(x, sp: Optional[SpacePlan], res: int, engine):
     """The pool from resolution `res` into `res` - 1; gathered first where `res` runs
     sharded and `res` - 1 replicated."""
-    return ops.downscale(to_whole(sp, x, res, res - 1))
+    return ops.downscale(to_whole(sp, x, res, res - 1), engine=engine)
 
 
 def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
@@ -240,7 +240,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
 
     def transition(t, img):
         prev = ops.from_rgb(d_scope(sp, d.sub(f"from_rgb_{phase - 1}"), phase - 1),
-                            _downscale(img, sp, phase),
+                            _downscale(img, sp, phase, engine),
                             get_filters(filter_spec, phase - 2, 1), activation, param=param,
                             engine=engine)
         a = torch.as_tensor(alpha, dtype=t.dtype)
@@ -267,7 +267,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
                                get_filters(filter_spec, i - 2, 1),
                                get_kernels(kernel_spec, i - 1, 0), activation, param, engine,
                                sp, i)
-            return _downscale(t, sp, i)
+            return _downscale(t, sp, i, engine)
 
         x = block_tap(segment(first, cfg, x, image), f"disc_block_{i}_mid", cfg)
         x = block_tap(segment(second, cfg, x), f"disc_block_{i}", cfg)
@@ -283,7 +283,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
-                  conv_engine: str = "direct", passes: int = 1,
+                  conv_engine: ops.Engine = "direct", passes: int = 1,
                   mesh=None, space=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1) scores.  `alpha` as for the
     generator.  No op mixes samples, so stacked passes (`passes`) and a

@@ -50,7 +50,7 @@ def _generator_in(scope, x, filters, shape, activation, param, engine, sp=None):
     x = to_slab(sp, x, None, 1)
     c = scope.sub("conv")
     x = conv_layer(c, x, filters, kernel, activation, param, engine, sp, 1)
-    return ops.pixel_norm(_bias_act(c, x, activation, param))
+    return ops.pixel_norm(_bias_act(c, x, activation, param), engine=engine)
 
 
 def _generator_block(scope, x, filters_out, activation, param, fused_transitions, engine,
@@ -65,7 +65,7 @@ def _generator_block(scope, x, filters_out, activation, param, fused_transitions
         kernel = adaptive_kernel([s * 2 for s in spatial_at(x, sp, i - 1)])
         w = ops.get_weight(c, (*kernel, x.shape[1], filters_out), activation, param=param)
         x = ops.pixel_norm(_bias_act(c, up_conv_at(x, w, engine, sp, i, True), activation,
-                                     param))
+                                     param), engine=engine)
         names = ("conv_2",)
     else:
         x = to_slab(sp, ops.upscale(x), i - 1, i)
@@ -74,7 +74,7 @@ def _generator_block(scope, x, filters_out, activation, param, fused_transitions
         c = scope.sub(name)
         x = conv_layer(c, x, filters_out, adaptive_kernel(spatial_at(x, sp, i)), activation, param,
                   engine, sp, i)
-        x = ops.pixel_norm(_bias_act(c, x, activation, param))
+        x = ops.pixel_norm(_bias_act(c, x, activation, param), engine=engine)
     return _residual_sum(x, t, activation, param)
 
 
@@ -100,7 +100,7 @@ def _generator(scope, z, alpha, phase, cfg, param, engine, space=None):
 
 
 def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
-              conv_engine: str = "direct", noise=None, mix=None,
+              conv_engine: ops.Engine = "direct", noise=None, mix=None,
               train: bool = True, space=None) -> torch.Tensor:
     """G(z) at `phase`.  pgan2 draws no noise and mixes no styles: `noise`, `mix` and
     `train` change nothing.  `space`: the output is this rank's slab of each volume."""
@@ -112,7 +112,7 @@ def _discriminator_block(scope, x, filters_in, filters_out, activation, param, e
                          sp=None, i=None):
     """Block at resolution `i` (its residual pooled into `i` - 1 first)."""
     r = d_scope(sp, scope.sub("residual"), i - 1)
-    t = ops.conv(r, ops.downscale(to_whole(sp, x, i, i - 1)), filters_out,
+    t = ops.conv(r, ops.downscale(to_whole(sp, x, i, i - 1), engine=engine), filters_out,
                  (1,) * (x.ndim - 2), activation, param=param, engine=engine)
     kernel = adaptive_kernel(spatial_at(x, sp, i))
     c1 = d_scope(sp, scope.sub("conv_1"), i)
@@ -121,7 +121,7 @@ def _discriminator_block(scope, x, filters_in, filters_out, activation, param, e
     c2 = d_scope(sp, scope.sub("conv_2"), i)
     x = _bias_act(c2, conv_layer(c2, x, filters_out, kernel, activation, param, engine, sp, i),
                   activation, param)
-    x = ops.downscale(to_whole(sp, x, i, i - 1))
+    x = ops.downscale(to_whole(sp, x, i, i - 1), engine=engine)
     return _residual_sum(x, t, activation, param)
 
 
@@ -151,7 +151,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
                                  filters_out, activation, param, engine, sp, i)
         if i == phase and not static_alpha_zero(alpha):
             prev = ops.from_rgb(d_scope(sp, d.sub(f"from_rgb_{phase - 1}"), phase - 1),
-                                ops.downscale(to_whole(sp, image, phase, phase - 1)),
+                                ops.downscale(to_whole(sp, image, phase, phase - 1), engine=engine),
                                 filters_out, activation, param=param, engine=engine)
             a = torch.as_tensor(alpha, dtype=x.dtype)
             x = a * prev + (1 - a) * x
@@ -160,7 +160,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
-                  conv_engine: str = "direct", passes: int = 1,
+                  conv_engine: ops.Engine = "direct", passes: int = 1,
                   mesh=None, space=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1).  No op mixes samples (`passes`
     and `mesh` change nothing).  `space`: x is this rank's slab of each volume."""

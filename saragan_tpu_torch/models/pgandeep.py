@@ -56,7 +56,7 @@ def _generator_in(scope, x, shape, activation, kernel_spec, filter_spec, param, 
     for layer_i in range(1, len(kernel_spec[0])):
         x = ops.pixel_norm(_conv_bias_act(
             scope.sub(f"conv_{layer_i}"), x, get_filters(filter_spec, 0, layer_i),
-            get_kernels(kernel_spec, 0, layer_i), activation, param, engine, sp, 1))
+            get_kernels(kernel_spec, 0, layer_i), activation, param, engine, sp, 1), engine=engine)
     return x
 
 
@@ -66,7 +66,8 @@ def _generator_block(scope, x, activation, kernel_spec, filter_spec, i, param, e
     for layer_i in range(1, len(kernel_spec[i - 1]) + 1):
         x = ops.pixel_norm(_conv_bias_act(
             scope.sub(f"conv_{layer_i}"), x, get_filters(filter_spec, i - 1, layer_i - 1),
-            get_kernels(kernel_spec, i - 1, layer_i - 1), activation, param, engine, sp, i))
+            get_kernels(kernel_spec, i - 1, layer_i - 1), activation, param, engine, sp, i),
+            engine=engine)
     return x
 
 
@@ -93,7 +94,7 @@ def _generator(scope, z, alpha, phase, cfg, param, engine, space=None):
 
 
 def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
-              conv_engine: str = "direct", noise=None, mix=None,
+              conv_engine: ops.Engine = "direct", noise=None, mix=None,
               train: bool = True, space=None) -> torch.Tensor:
     """G(z) at `phase`.  pgandeep draws no noise and mixes no styles: `noise`, `mix` and
     `train` change nothing.  `space`: the output is this rank's slab of each volume."""
@@ -112,7 +113,7 @@ def _discriminator_block(scope, x, activation, kernel_spec, filter_spec, i, para
         x = _conv_bias_act(d_scope(sp, scope.sub(f"conv_{layer_i}"), i), x, filters,
                            get_kernels(kernel_spec, i - 1, 1), activation, param, engine,
                            sp, i)
-    return ops.downscale(to_whole(sp, x, i, i - 1))
+    return ops.downscale(to_whole(sp, x, i, i - 1), engine=engine)
 
 
 def _discriminator_out(scope, x, latent_dim, activation, kernel_spec, filter_spec, param,
@@ -147,7 +148,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
                                  kernel_spec, filter_spec, i, param, engine, sp)
         if i == phase and not static_alpha_zero(alpha):
             prev = ops.from_rgb(d_scope(sp, d.sub(f"from_rgb_{phase - 1}"), phase - 1),
-                                ops.downscale(to_whole(sp, image, phase, phase - 1)),
+                                ops.downscale(to_whole(sp, image, phase, phase - 1), engine=engine),
                                 get_filters(filter_spec, phase - 2, 1), activation,
                                 param=param, engine=engine)
             a = torch.as_tensor(alpha, dtype=x.dtype)
@@ -157,7 +158,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
-                  conv_engine: str = "direct", passes: int = 1,
+                  conv_engine: ops.Engine = "direct", passes: int = 1,
                   mesh=None, space=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1).  No op mixes samples (`passes`
     and `mesh` change nothing).  `space`: x is this rank's slab of each volume."""

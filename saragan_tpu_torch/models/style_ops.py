@@ -71,7 +71,7 @@ def g_mapping(scope: Scope, z: torch.Tensor, num_styles: int, *, mapping_layers:
 
 def modulate(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, *, up: bool = False,
              demodulate: bool = True, fused_transitions: bool = False,
-             engine: str = "direct", sp=None, res=None) -> torch.Tensor:
+             engine: ops.Engine = "direct", sp=None, res=None) -> torch.Tensor:
     """The modulated conv given the weight w (*kernel, C, F) and the style s (N, C):
     conv(x * s, w) * d (with a nearest 2x upscale before the conv when `up`, fused into
     ``ops.upscale_conv`` under `fused_transitions`), d = rsqrt(sum over the kernel and C
@@ -95,7 +95,7 @@ def modulate(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, *, up: bool = Fa
 def modulated_conv(scope: Scope, x: torch.Tensor, z: torch.Tensor, fmaps: int, kernel,
                    activation: str, up: bool = False, demodulate: bool = True, param=None,
                    lrmul: float = 1.0, fused_transitions: bool = False,
-                   engine: str = "direct", sp=None, res=None) -> torch.Tensor:
+                   engine: ops.Engine = "direct", sp=None, res=None) -> torch.Tensor:
     """The reference's modulated conv (``style_ops.py:82-126``), rank-generic: the style
     is dense(z) + bias + 1 through the activation, under ``<scope>/modulate``; `sp` and
     `res` as for ``modulate``."""
@@ -110,7 +110,7 @@ def modulated_conv(scope: Scope, x: torch.Tensor, z: torch.Tensor, fmaps: int, k
 
 
 def to_rgb_mod(scope: Scope, x: torch.Tensor, z: torch.Tensor, channels: int = 1,
-               engine: str = "direct") -> torch.Tensor:
+               engine: ops.Engine = "direct") -> torch.Tensor:
     """Modulated 1x1 to_rgb without demodulation, plus bias."""
     x = modulated_conv(scope, x, z, channels, (1,) * (x.ndim - 2), activation="linear",
                        demodulate=False, engine=engine)

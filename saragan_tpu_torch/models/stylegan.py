@@ -127,7 +127,7 @@ def _generator(scope, z, alpha, phase, cfg, param, noise, mix, train, engine, sp
 
 
 def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
-              conv_engine: str = "direct", noise=None, mix=None,
+              conv_engine: ops.Engine = "direct", noise=None, mix=None,
               train: bool = True, space=None) -> torch.Tensor:
     """G(z) at `phase` with per-layer noise from the source `noise` and, in training from
     phase 2 on, style mixing from `mix` (a ``style_ops.StyleMix``); either None leaves it
@@ -157,10 +157,10 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
                            activation, param, engine, sp, i)
         x = _conv_bias_act(d_scope(sp, b.sub("conv_2"), i), x, filters_out, activation, param,
                            engine, sp, i)
-        x = ops.downscale(to_whole(sp, x, i, i - 1))
+        x = ops.downscale(to_whole(sp, x, i, i - 1), engine=engine)
         if i == phase and not static_alpha_zero(alpha):
             prev = ops.from_rgb(d_scope(sp, d.sub(f"from_rgb_{phase - 1}"), phase - 1),
-                                ops.downscale(to_whole(sp, image, phase, phase - 1)),
+                                ops.downscale(to_whole(sp, image, phase, phase - 1), engine=engine),
                                 filters_out, activation, param=param, engine=engine)
             a = torch.as_tensor(alpha, dtype=x.dtype)
             x = a * prev + (1 - a) * x
@@ -175,7 +175,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, engine, space=None):
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
-                  conv_engine: str = "direct", passes: int = 1,
+                  conv_engine: ops.Engine = "direct", passes: int = 1,
                   mesh=None, space=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1).  No op mixes samples (`passes`
     and `mesh` change nothing).  `space`: x is this rank's slab of each volume."""

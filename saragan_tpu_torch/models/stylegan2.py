@@ -116,7 +116,7 @@ def _generator(scope, z, phase, cfg, param, noise, mix, train, truncation_psi, e
 
 
 def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
-              conv_engine: str = "direct", noise=None, mix=None, train: bool = True,
+              conv_engine: ops.Engine = "direct", noise=None, mix=None, train: bool = True,
               truncation_psi=None, space=None) -> torch.Tensor:
     """G(z) at `phase` (alpha is not read: no progressive growing), with per-layer noise
     from `noise` and, in training, style mixing from `mix`; `truncation_psi` applies
@@ -138,12 +138,12 @@ def _discriminator_block(scope, x, filters_in, filters_out, activation, param, e
     is replicated)."""
     t = ops.conv(d_scope(sp, scope.sub("residual"), i), x, filters_out, (1,) * (x.ndim - 2),
                  activation, param=param, engine=engine)
-    t = ops.downscale(to_whole(sp, t, i, i - 1))
+    t = ops.downscale(to_whole(sp, t, i, i - 1), engine=engine)
     x = _conv_bias_act(d_scope(sp, scope.sub("conv_1"), i), x, filters_in, activation, param,
                        engine, sp, i)
     x = _conv_bias_act(d_scope(sp, scope.sub("conv_2"), i), x, filters_out, activation, param,
                        engine, sp, i)
-    x = ops.downscale(to_whole(sp, x, i, i - 1))
+    x = ops.downscale(to_whole(sp, x, i, i - 1), engine=engine)
     gain = ops.calculate_gain(activation, param)
     return (x + t) * ops.in_dtype(1.0 / gain, x.dtype)
 
@@ -171,7 +171,7 @@ def _discriminator(scope, x, phase, cfg, param, engine, space=None):
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
-                  conv_engine: str = "direct", passes: int = 1,
+                  conv_engine: ops.Engine = "direct", passes: int = 1,
                   mesh=None, space=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1); alpha is not read.  No op mixes
     samples (`passes` and `mesh` change nothing).  `space`: x is this rank's slab of each

@@ -215,7 +215,7 @@ def _generator(scope, z, alpha, phase, cfg, param, noise, mix, train, conditioni
 
 
 def generator(params: Params, z: torch.Tensor, alpha, *, phase: int, cfg,
-              conv_engine: str = "direct", noise=None, mix=None, train: bool = True,
+              conv_engine: ops.Engine = "direct", noise=None, mix=None, train: bool = True,
               conditioning=None, truncation_psi=None, space=None) -> torch.Tensor:
     """G(z) at `phase` with per-layer noise from `noise`, style mixing in training from
     `mix`, the projection `conditioning` (N, num_labels) concatenated in the mapping, and
@@ -230,7 +230,7 @@ def _discriminator_block(scope, x, filters_in, filters_out, activation, param, e
                          sp=None, i=None):
     """Block at resolution `i` (its residual pooled into `i` - 1 first)."""
     t, _ = _conv_rc(d_scope(sp, scope.sub("residual"), i - 1),
-                    ops.downscale(to_whole(sp, x, i, i - 1)), filters_out,
+                    ops.downscale(to_whole(sp, x, i, i - 1), engine=engine), filters_out,
                     (1,) * (x.ndim - 2), activation, param, engine)
     c1 = d_scope(sp, scope.sub("conv_1"), i)
     kernel = adaptive_kernel(spatial_at(x, sp, i))
@@ -239,7 +239,7 @@ def _discriminator_block(scope, x, filters_in, filters_out, activation, param, e
     c2 = d_scope(sp, scope.sub("conv_2"), i)
     x, rc = _conv_rc(c2, x, filters_out, kernel, activation, param, engine, sp, i)
     x = ops.act(_apply_bias_rc(c2, x, rc), activation, param=param)
-    x = ops.downscale(to_whole(sp, x, i, i - 1))
+    x = ops.downscale(to_whole(sp, x, i, i - 1), engine=engine)
     return (x + t) * ops.in_dtype(1.0 / ops.calculate_gain(activation, param), x.dtype)
 
 
@@ -278,7 +278,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, conditioning, passes, eng
                                  filters_out, activation, param, engine, sp, i)
         if i == phase and not static_alpha_zero(alpha):
             prev = _from_rgb(d_scope(sp, d.sub(f"from_rgb_{phase - 1}"), phase - 1),
-                             ops.downscale(to_whole(sp, image, phase, phase - 1)),
+                             ops.downscale(to_whole(sp, image, phase, phase - 1), engine=engine),
                              filters_out, activation, param, engine)
             a = torch.as_tensor(alpha, dtype=x.dtype)
             x = a * prev + (1 - a) * x
@@ -287,7 +287,7 @@ def _discriminator(scope, x, alpha, phase, cfg, param, conditioning, passes, eng
 
 
 def discriminator(params: Params, x: torch.Tensor, alpha, *, phase: int, cfg,
-                  conv_engine: str = "direct", passes: int = 1,
+                  conv_engine: ops.Engine = "direct", passes: int = 1,
                   conditioning=None, mesh=None, space=None) -> torch.Tensor:
     """D(x) at `phase`: (N, C, *spatial) -> (N, 1), the minibatch-stddev groups formed
     inside each of the `passes` batches x stacks (over each pass's global batch under a

@@ -17,11 +17,11 @@ Every kernel's tiling plan is plain Python here (``conv_tc_plan``, ``wgrad_tc_pl
 ``conv_simt_plan``, ``wgrad_simt_plan``, ``conv_v2_tc_plan``, ``conv_v2_simt_plan``), so
 the CPU tests reach them; the C side re-checks a plan and refuses one it cannot run.
 
-v2 is standalone, as in the reference, where no conv engine reaches it
-(``saragan_tpu/ops/core.py:553``); the port's engines use kernels #1 and #2.  Each source
-note says what bounds the kernel on the H100 and how its design differs from the TPU
-kernel's flat-padded window.  The derivative algebra that uses them as forward, dgrad and
-wgrad is ``ops/conv3d_grad.py``.
+v2 is the forward and dgrad of the ``flat_v2`` engine (the reference's ``pallas2``, whose
+``conv_apply`` never reaches it, ``saragan_tpu/ops/core.py:553``); ``flat`` uses kernels
+#1 and #2.  Each source note says what bounds the kernel on the H100 and how its design
+differs from the TPU kernel's flat-padded window.  The derivative algebra that uses them
+as forward, dgrad and wgrad is ``ops/conv3d_grad.py``.
 
 Layouts are the reference's: x and dy are NCDHW, w is ``(kd, kh, kw, C, F)``.  Kernel
 sizes must be odd: SAME padding is then ``k // 2`` on both sides, which is also what the
@@ -984,8 +984,8 @@ def conv3d_flat(x: torch.Tensor, w: torch.Tensor, role: str = "forward") -> torc
 
 def conv3d_flat_v2(x: torch.Tensor, w: torch.Tensor, role: str = "forward") -> torch.Tensor:
     """The pipelined variant of ``conv3d_flat``, the same function: the v2 CUDA kernel for
-    CUDA tensors, its plain version for CPU (and meta) tensors.  Standalone, as in the
-    reference: no conv engine of the port routes through it."""
+    CUDA tensors, its plain version for CPU (and meta) tensors: C of the ``flat_v2``
+    engine (``ops/conv3d_grad.py``)."""
     if _device_path("conv3d_flat_v2", x) == "cuda":
         return conv3d_flat_v2_cuda(x, w, role)
     return conv3d_flat_v2_plain(x, w)

@@ -5,15 +5,32 @@ and conv weights keep the reference's ``(*kernel, in, out)`` layout; they are pe
 PyTorch's ``(out, in, *kernel)`` only at use.  Ops are rank-generic: the spatial rank
 comes from ``x.ndim``.
 
-The conv engine is an explicit argument, never a module global:
+The conv formulation is an explicit argument, never a module global: ``Ops`` (or the name
+of its conv engine, ``Ops(conv=name)``), handed down to every conv, pool and pixel norm.
+Its fields, the reference's process-wide gates (``saragan_tpu/ops/core.py:152-173``,
+``saragan_tpu/config.py:460-512``) made a value:
 
-* ``direct``: ``F.conv3d`` / ``F.conv2d`` with SAME padding (the reference's serving
-  default, a library conv outside any kernel of ours);
-* ``flat``: the hand-written CUDA kernels of ``ops/conv3d_flat.py`` for every 3-D kernel
-  that is not 1x1x1 (the reference's ``pallas`` engine), through the derivative algebra
-  of ``ops/conv3d_grad.py``, so forward, dgrad and wgrad (and the penalty's second-order
-  terms) all run on them; for 1x1x1 the mul-sum / channel-GEMM path of the reference's
-  ``_conv3d_shifted_gemm``, differentiated by autograd.
+* ``conv`` (the reference's ``SARAGAN_CONV3D``), for 3-D convs (2-D ones are ``direct``):
+  - ``direct``: ``F.conv3d`` / ``F.conv2d`` with SAME padding (cuDNN on the card);
+  - ``flat`` (the reference's ``pallas``): the hand-written kernels #1 and #2 of
+    ``ops/conv3d_flat.py`` for every kernel that is not 1x1x1, through the derivative
+    algebra of ``ops/conv3d_grad.py``, so forward, dgrad and wgrad (and the penalty's
+    second-order terms) all run on them; 1x1x1 as the GEMM formulation's ``conv_1x1``,
+    differentiated by autograd;
+  - ``flat_v2`` (``pallas2``): the same with kernel #3 for forward and dgrad and the
+    ``wgrad`` choice for the weight gradient;
+  - ``gemm``: ``conv3d_gemm.shifted_gemm`` (per-offset channel GEMMs into one f32
+    accumulator) for every kernel, differentiated by autograd;
+  - ``gemm_custom``: the derivative algebra over the scan GEMM, W the ``wgrad`` choice;
+  - ``hybrid``: the GEMM forward with the direct conv's gradients (``Conv3dHybrid``);
+    1x1x1 takes ``direct``;
+  - ``s2d``: space-to-depth packing (``ops/conv3d_s2d.py``) where applicable, else
+    ``direct``;
+* ``wgrad`` (``SARAGAN_CONV3D_WGRAD``): "library" (the reference's ``xla``) or "einsum";
+* ``pool`` (``SARAGAN_POOL``): ``avg_pool`` as a reshape and mean, or a windowed sum;
+* ``stats`` (``SARAGAN_STATS_DTYPE``): "f32" or "compute", the dtype ``pixel_norm``,
+  ``avg_pool`` and the skinny 1x1x1 sums are taken in (``conv3d_gemm``);
+* ``s2d_max_cin`` (``SARAGAN_S2D_MAX_CIN``): the most input channels ``s2d`` folds.
 
 bf16: an op rounds where the reference's rounds.  A Python constant that meets an
 activation (a leaky-ReLU slope, an epsilon, a blend factor) is first rounded to the
@@ -29,6 +46,7 @@ name (the parity tests feed the reference's own noise).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import math
@@ -40,9 +58,55 @@ import torch
 import torch.nn.functional as F
 
 from saragan_tpu_torch.core import Scope, _name_seed, normal_initializer, zeros_initializer
-from saragan_tpu_torch.ops.conv3d_grad import conv3d_c
+from saragan_tpu_torch.ops.conv3d_gemm import conv_1x1, shifted_gemm, stats_dtype
+from saragan_tpu_torch.ops.conv3d_grad import _grad_needed, conv3d_c
+from saragan_tpu_torch.ops.conv3d_s2d import conv3d_s2d, s2d_applicable
 
-CONV_ENGINES = ("direct", "flat")
+CONV_ENGINES = ("direct", "flat", "flat_v2", "gemm", "gemm_custom", "hybrid", "s2d")
+WGRAD_ENGINES = ("library", "einsum")
+POOLS = ("reshape", "window")
+STATS_DTYPES = ("f32", "compute")
+
+
+@dataclasses.dataclass(frozen=True)
+class Ops:
+    """The op formulation of a model's calls (module docstring): the conv engine, the
+    wgrad of ``flat_v2`` / ``gemm_custom``, the pool, the statistics' dtype and the widest
+    input ``s2d`` folds.  Frozen and hashable."""
+
+    conv: str = "direct"
+    wgrad: str = "library"
+    pool: str = "reshape"
+    stats: str = "f32"
+    s2d_max_cin: int = 16
+
+    def __post_init__(self):
+        for value, choices, what in ((self.conv, CONV_ENGINES, "conv engine"),
+                                     (self.wgrad, WGRAD_ENGINES, "wgrad engine"),
+                                     (self.pool, POOLS, "pool"),
+                                     (self.stats, STATS_DTYPES, "stats dtype")):
+            if value not in choices:
+                raise ValueError(f"{what} {value!r} not in {choices}")
+        if self.s2d_max_cin < 1:
+            raise ValueError(f"s2d_max_cin must be at least 1; got {self.s2d_max_cin}")
+
+
+# an ``Ops`` or the name of its conv engine
+Engine = Union[str, Ops]
+
+
+@functools.lru_cache(maxsize=None)
+def _named(conv: str) -> Ops:
+    return Ops(conv=conv)
+
+
+def as_ops(engine: Engine) -> Ops:
+    """`engine` as an ``Ops``: an engine name means that engine with the other defaults."""
+    if isinstance(engine, Ops):
+        return engine
+    if not isinstance(engine, str):
+        raise TypeError(f"a conv engine is a name or an Ops, not {engine!r}")
+    return _named(engine)
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,38 +210,59 @@ def _conv_direct(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return conv(x, _torch_weight(w).to(x.dtype), padding="same")
 
 
-def _conv3d_1x1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """1x1x1 conv of the flat engine (reference ``_conv3d_shifted_gemm``): skinny
-    channel counts as a broadcast multiply plus an f32 channel sum, else a channel GEMM
-    accumulated in f32."""
-    n, c, d, h, wd = x.shape
-    f = w.shape[-1]
-    t = d * h * wd
-    w2 = w.reshape(c, f).to(x.dtype)
-    if c <= 32 and f <= 32:
-        if c == 1:
-            y = x.reshape(n, 1, t) * w2.reshape(1, f, 1)
-            return y.reshape(n, f, d, h, wd)
-        y = torch.sum(x.reshape(n, c, 1, t) * w2.reshape(1, c, f, 1), dim=1,
-                      dtype=torch.float32)
-        return y.to(x.dtype).reshape(n, f, d, h, wd)
-    y = torch.einsum("nct,cf->nft", x.reshape(n, c, t).float(), w2.float())
-    return y.to(x.dtype).reshape(n, f, d, h, wd)
+def _check_odd(w: torch.Tensor, conv: str):
+    if any(int(k) % 2 == 0 for k in w.shape[:3]):
+        raise ValueError(f"conv engine {conv!r} takes odd kernels, got {tuple(w.shape[:3])}")
 
 
-def conv_apply(x: torch.Tensor, w: torch.Tensor, engine: str = "direct") -> torch.Tensor:
-    """SAME stride-1 conv on explicit (*kernel, in, out) weights."""
-    if engine not in CONV_ENGINES:
-        raise ValueError(f"conv engine {engine!r} not in {CONV_ENGINES}")
-    if engine == "flat" and x.ndim == 5:
-        if w.shape[0] * w.shape[1] * w.shape[2] == 1:
-            return _conv3d_1x1(x, w)
-        return conv3d_c(x, w.to(x.dtype))
-    return _conv_direct(x, w)
+class Conv3dHybrid(torch.autograd.Function):
+    """The ``hybrid`` conv (the reference's ``_conv3d_hybrid``, ``core.py:281-296``): the
+    GEMM formulation's forward, and the direct conv's gradients, ``aten.convolution_
+    backward`` recorded by autograd under ``create_graph``, so reverse over reverse (the
+    penalty's second order) differentiates the library conv's backward, as the
+    reference's JVP of direct convs transposes to its native conv backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, stats="f32"):
+        ctx.save_for_backward(x, w)
+        return shifted_gemm(x, w, stats)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        pads = [int(k) // 2 for k in w.shape[:3]]
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            dy, x, _torch_weight(w), None, [1, 1, 1], pads, [1, 1, 1], False, [0, 0, 0], 1,
+            [_grad_needed(ctx, 0), _grad_needed(ctx, 1), False])
+        return gx, None if gw is None else gw.permute(2, 3, 4, 1, 0), None
+
+
+def conv_apply(x: torch.Tensor, w: torch.Tensor,
+               engine: Engine = "direct") -> torch.Tensor:
+    """SAME stride-1 conv on explicit (*kernel, in, out) weights under `engine` (an
+    ``Ops`` or an engine name; module docstring)."""
+    ops = as_ops(engine)
+    conv = ops.conv
+    if x.ndim != 5 or conv == "direct":
+        return _conv_direct(x, w)
+    w = w.to(x.dtype)
+    one = math.prod(w.shape[:3]) == 1
+    if conv == "s2d":
+        return conv3d_s2d(x, w) if s2d_applicable(x, w, ops.s2d_max_cin) else _conv_direct(x, w)
+    if conv == "hybrid" and one:
+        return _conv_direct(x, w)
+    if conv in ("flat", "flat_v2") and one:
+        return conv_1x1(x, w, ops.stats)
+    _check_odd(w, conv)
+    if conv == "gemm":
+        return shifted_gemm(x, w, ops.stats)
+    if conv == "hybrid":
+        return Conv3dHybrid.apply(x, w, ops.stats)
+    return conv3d_c(x, w, (conv, ops.wgrad, ops.stats))  # flat, flat_v2, gemm_custom
 
 
 def conv(scope: Scope, x: torch.Tensor, fmaps: int, kernel: Sequence[int], activation: str,
-         param=None, lrmul: float = 1.0, engine: str = "direct") -> torch.Tensor:
+         param=None, lrmul: float = 1.0, engine: Engine = "direct") -> torch.Tensor:
     """SAME conv over NC(D)HW with (*kernel, in, out) weights."""
     kernel = tuple(int(k) for k in kernel)
     if len(kernel) != x.ndim - 2:
@@ -310,37 +395,48 @@ def conv_downscale(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return conv(x, _torch_weight(wp).to(x.dtype), stride=2, padding=pads)
 
 
-def avg_pool(x: torch.Tensor, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
-    """Average pooling of all spatial axes (stride = window = factor), as reshape + mean;
-    the mean accumulates in f32 and rounds once to x.dtype, as the reference's jnp.mean
-    does for bf16."""
+def avg_pool(x: torch.Tensor, factor: int = 2, gain: float = 1.0,
+             engine: Engine = "direct") -> torch.Tensor:
+    """Average pooling of all spatial axes (stride = window = factor) under `engine`'s
+    ``pool`` and ``stats``: "reshape", a reshape and a mean accumulated in f32 and rounded
+    once to x.dtype, as the reference's jnp.mean does for bf16; "window", the window's
+    strided slices summed one after another in f32 and divided by the window's size, as
+    the reference's ``reduce_window`` form (``saragan_tpu/ops/core.py:694-709``).  Under
+    ``stats="compute"`` both take x.dtype instead of f32 (f64 stays f64)."""
     if gain != 1:
         x = x * gain
     if factor == 1:
         return x
+    ops = as_ops(engine)
     spatial = x.shape[2:]
     if any(s % factor for s in spatial):
         raise ValueError(f"avg_pool factor {factor} does not divide {tuple(x.shape)}")
+    acc = stats_dtype(x.dtype, ops.stats)
+    if ops.pool == "window":
+        summed = None
+        for offsets in itertools.product(range(factor), repeat=len(spatial)):
+            part = x[(slice(None), slice(None), *(slice(o, None, factor) for o in offsets))]
+            summed = part.to(acc) if summed is None else summed + part.to(acc)
+        return (summed / factor ** len(spatial)).to(x.dtype)
     split = [v for s in spatial for v in (s // factor, factor)]
     axes = tuple(3 + 2 * i for i in range(len(spatial)))
-    y = x.reshape(*x.shape[:2], *split)
-    if x.dtype == torch.float64:
-        return y.mean(dim=axes)
-    return y.mean(dim=axes, dtype=torch.float32).to(x.dtype)
+    return x.reshape(*x.shape[:2], *split).mean(dim=axes, dtype=acc).to(x.dtype)
 
 
-def downscale(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    return avg_pool(x, factor)
+def downscale(x: torch.Tensor, factor: int = 2,
+              engine: Engine = "direct") -> torch.Tensor:
+    return avg_pool(x, factor, engine=engine)
 
 
-def pixel_norm(x: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
+def pixel_norm(x: torch.Tensor, epsilon: float = 1e-8,
+               engine: Engine = "direct") -> torch.Tensor:
     """Per-voxel channel normalization, rounded where the reference rounds
     (``saragan_tpu/ops/core.py:842-844``): x² in x.dtype, the channel mean accumulated in
-    f32 and returned in x.dtype, epsilon added in x.dtype, the rsqrt taken in x.dtype."""
-    sq = torch.square(x)
-    m = sq.mean(dim=1, keepdim=True) if x.dtype == torch.float64 else \
-        sq.mean(dim=1, keepdim=True, dtype=torch.float32).to(x.dtype)
-    return x * torch.rsqrt(m + in_dtype(epsilon, x.dtype))
+    f32 (in x.dtype under `engine`'s ``stats="compute"``) and returned in x.dtype, epsilon
+    added in x.dtype, the rsqrt taken in x.dtype."""
+    acc = stats_dtype(x.dtype, as_ops(engine).stats)
+    m = torch.square(x).mean(dim=1, keepdim=True, dtype=acc)
+    return x * torch.rsqrt(m.to(x.dtype) + in_dtype(epsilon, x.dtype))
 
 
 def mean_keepdim(t: torch.Tensor, dims) -> torch.Tensor:
@@ -516,7 +612,7 @@ def style_mod(scope: Scope, x: torch.Tensor, dlatent: torch.Tensor, activation: 
 
 
 def to_rgb(scope: Scope, x: torch.Tensor, channels: int = 1,
-           engine: str = "direct") -> torch.Tensor:
+           engine: Engine = "direct") -> torch.Tensor:
     """1x1(x1) linear projection to image channels."""
     kernel = (1,) * (x.ndim - 2)
     return apply_bias(scope, conv(scope, x, channels, kernel, activation="linear",
@@ -524,7 +620,7 @@ def to_rgb(scope: Scope, x: torch.Tensor, channels: int = 1,
 
 
 def from_rgb(scope: Scope, x: torch.Tensor, filters_out: int, activation: str, param=None,
-             engine: str = "direct") -> torch.Tensor:
+             engine: Engine = "direct") -> torch.Tensor:
     """1x1(x1) lift from image channels, then bias and activation."""
     kernel = (1,) * (x.ndim - 2)
     x = conv(scope, x, filters_out, kernel, activation, param, engine=engine)

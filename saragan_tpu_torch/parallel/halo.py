@@ -14,11 +14,13 @@ another such Function, so gradients of any order re-enter the exchanges:
   depth goes first and the height is exchanged on the depth-extended slab, so the
   corner voxels arrive;
 * ``halo_conv3d``: a SAME conv of the sharded volume.  The conv of the extended slab is
-  VALID on the exchanged axes and SAME on the others.  Under the ``flat`` engine it is
-  kernel #1 itself through ``ops/conv3d_grad.py`` (#1, #1' and #2 in the backward): the
-  SAME conv of the extended slab with `radius` slices cropped at each end, exact
-  because the interior outputs of a SAME conv are the VALID ones.  It computes 2 radius
-  slices per exchanged axis that it then drops;
+  VALID on the exchanged axes and SAME on the others.  Under every engine but
+  ``direct`` it is the engine's own SAME conv of the extended slab (``ops.conv_apply``:
+  under ``flat`` kernel #1 through ``ops/conv3d_grad.py``, #1, #1' and #2 in the
+  backward) with `radius` slices cropped at each end, exact because the interior outputs
+  of a SAME conv are the VALID ones.  It computes 2 radius slices per exchanged axis that
+  it then drops; ``s2d`` judges its applicability on the extended slab (an odd extent
+  takes the direct conv);
 * ``halo_upscale_conv``: the fused nearest-2x upscale and conv (``ops.upscale_conv``'s
   polyphase convs) of a sharded coarse input: a halo of ceil(k // 2 / 2) coarse slices,
   the polyphase conv of the extended slab, 2 such fine slices cropped at each end.
@@ -62,7 +64,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from saragan_tpu_torch.ops.core import CONV_ENGINES, conv_apply, upscale_conv
+from saragan_tpu_torch.ops.core import Engine, as_ops, conv_apply, upscale_conv
 from saragan_tpu_torch.parallel.mesh import Mesh, _bits, _unbits, _unwire, _wire
 
 _AXIS_NAMES = {2: "depth", 3: "height"}
@@ -175,15 +177,14 @@ def _crop(y: torch.Tensor, radii) -> torch.Tensor:
 
 
 def halo_conv3d(x_local: torch.Tensor, w: torch.Tensor, mesh: Mesh, *,
-                engine: str = "direct") -> torch.Tensor:
+                engine: Engine = "direct") -> torch.Tensor:
     """SAME stride-1 NCDHW conv of the sharded volume whose rank-local slab is `x_local`
     (N, C, d, h, W); w: (kd, kh, kw, C, F), odd kd and kh.  Returns this rank's slab of
-    the output, (N, F, d, h, W), differentiable to any order.  `engine`: "flat" (kernel #1
-    on the extended slab, cropped) or "direct" (the library conv, VALID on the exchanged
-    axes).  Without a space axis it is the SAME conv of `x_local`.  Every rank of the
-    space group calls it together."""
-    if engine not in CONV_ENGINES:
-        raise ValueError(f"conv engine {engine!r} not in {CONV_ENGINES}")
+    the output, (N, F, d, h, W), differentiable to any order.  `engine` (``ops.core.Ops``
+    or an engine name): "direct" is the library conv, VALID on the exchanged axes; any
+    other engine its SAME conv of the extended slab, cropped.  Without a space axis it is
+    the SAME conv of `x_local`.  Every rank of the space group calls it together."""
+    engine = as_ops(engine)
     kernel = tuple(int(k) for k in w.shape[:3])
     if kernel[0] % 2 == 0 or kernel[1] % 2 == 0:
         raise ValueError(f"the halo conv needs odd depth and height kernels, got {kernel}")
@@ -191,8 +192,8 @@ def halo_conv3d(x_local: torch.Tensor, w: torch.Tensor, mesh: Mesh, *,
     x_ext = x_local
     for axis, r in radii.items():  # depth first, then height on the extended slab
         x_ext = halo_exchange(x_ext, r, mesh, axis)
-    if engine == "flat":
-        return _crop(conv_apply(x_ext, w, "flat"), radii)
+    if engine.conv != "direct":
+        return _crop(conv_apply(x_ext, w, engine), radii)
     pad = tuple(0 if (a + 2) in radii else k // 2 for a, k in enumerate(kernel))
     wt = w.permute(4, 3, 0, 1, 2).to(x_ext.dtype)
     return F.conv3d(x_ext, wt, padding=pad)

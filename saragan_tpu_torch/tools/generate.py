@@ -39,7 +39,8 @@ from saragan_tpu_torch.metrics import (calculate_fid_given_batch_volumes, get_me
 from saragan_tpu_torch.metrics.fid import default_extractor
 from saragan_tpu_torch.metrics.save_metrics import metric_flags
 from saragan_tpu_torch.models import get_architecture
-from saragan_tpu_torch.ops.core import CONV_ENGINES, LayerNoise, generator_seed
+from saragan_tpu_torch.ops.core import (CONV_ENGINES, Engine, LayerNoise, as_ops,
+                                         generator_seed)
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train.summaries import grid_to_uint8, image_grid, png_bytes
 
@@ -65,18 +66,13 @@ def _serving_cfg(cfg: Config, fast_inference: bool) -> Config:
     return cfg
 
 
-def _check_engine(conv_engine: str):
-    if conv_engine not in CONV_ENGINES:
-        raise ValueError(f"conv engine {conv_engine!r} not in {CONV_ENGINES}")
-
-
 def make_volume_sampler(cfg: Config, phase: int, batch_size: int = 4, alpha: float = 0.0,
                         fast_inference: bool = True, device=None,
-                        conv_engine: str = "direct"):
+                        conv_engine: Engine = "direct"):
     """`gen(g_params, generator: torch.Generator) -> (batch_size, C, ...)` on `device`;
     the latent batch is drawn from the given generator."""
     dev = resolve_device(device)
-    _check_engine(conv_engine)
+    as_ops(conv_engine)  # raises ValueError on an unknown engine
     cfg = _serving_cfg(cfg, fast_inference)
     arch = get_architecture(cfg.architecture)
 
@@ -92,7 +88,7 @@ def make_volume_sampler(cfg: Config, phase: int, batch_size: int = 4, alpha: flo
 
 def make_keyed_sampler(cfg: Config, phase: int, batch_size: int = 4, alpha: float = 0.0,
                        fast_inference: bool = True, fetch_dtype=None, device=None,
-                       conv_engine: str = "direct"):
+                       conv_engine: Engine = "direct"):
     """`gen(g_params, seeds (B,), idxs (B,)) -> (B, C, ...)` tensor on `device`.
 
     Row j depends ONLY on (seeds[j], idxs[j]): its latent comes from its own
@@ -116,7 +112,7 @@ def make_keyed_sampler(cfg: Config, phase: int, batch_size: int = 4, alpha: floa
     devs = [resolve_device(d) for d in devices]
     if batch_size % len(devs):
         raise ValueError(f"batch size {batch_size} does not split over {len(devs)} devices")
-    _check_engine(conv_engine)
+    as_ops(conv_engine)  # raises ValueError on an unknown engine
     cfg = _serving_cfg(cfg, fast_inference)
     arch = get_architecture(cfg.architecture)
     out_dtype = _FETCH_DTYPES[fetch_dtype] if isinstance(fetch_dtype, str) else fetch_dtype
@@ -157,7 +153,7 @@ def make_keyed_sampler(cfg: Config, phase: int, batch_size: int = 4, alpha: floa
 
 def sample_volumes(cfg: Config, phase: int, g_params, num_samples: int, seed: int = 0,
                    batch_size: int = 4, alpha: float = 0.0, fast_inference: bool = True,
-                   device=None, conv_engine: str = "direct", _sampler=None) -> np.ndarray:
+                   device=None, conv_engine: Engine = "direct", _sampler=None) -> np.ndarray:
     """`num_samples` volumes as float32 numpy, batch by batch from one seeded stream."""
     dev = resolve_device(device)
     gen = _sampler if _sampler is not None else make_volume_sampler(
@@ -172,7 +168,7 @@ def sample_volumes(cfg: Config, phase: int, g_params, num_samples: int, seed: in
 def generate_minimal(architecture: str, model_path: str, output_dir: str, *, cfg: Config,
                      phase: Optional[int] = None, num_samples: int = 8, seed: int = 0,
                      data_mean: Optional[float] = None, data_stddev: Optional[float] = None,
-                     use_ema: bool = True, device=None, conv_engine: str = "direct") -> list:
+                     use_ema: bool = True, device=None, conv_engine: Engine = "direct") -> list:
     """Restore G, sample, un-normalize, write one ``fake_XXXX.npy`` per volume."""
     dev = resolve_device(device)
     phase = phase or cfg.ending_phase
@@ -199,7 +195,7 @@ def generate(architecture: str, dataset_path: str, model_path: str, output_dir: 
              cfg: Config, phase: Optional[int] = None, num_samples: int = 16,
              batch_size: int = 4, seed: int = 0,
              compute_metrics: Optional[Dict[str, bool]] = None, use_ema: bool = True,
-             device=None, conv_engine: str = "direct", extractor=None) -> Dict[str, float]:
+             device=None, conv_engine: Engine = "direct", extractor=None) -> Dict[str, float]:
     """The inference report (the reference's generate.py:20-221): per batch of
     `batch_size` real volumes of the phase's dataset and as many fakes, PNG mosaics
     ``real_XXXX.png`` / ``fake_XXXX.png``, the fakes un-normalized as
@@ -271,7 +267,10 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--no_ema", action="store_true")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     p.add_argument("--conv_engine", default="direct", choices=CONV_ENGINES,
-                   help="direct: cuDNN conv; flat: the hand-written CUDA conv kernel")
+                   help="the 3-D conv formulation (ops.core.CONV_ENGINES; the JAX package's "
+                        "SARAGAN_CONV3D): direct (cuDNN, the samplers' default, as the JAX "
+                        "package's inference), flat (kernel #1), flat_v2 (kernel #3), gemm, "
+                        "gemm_custom, hybrid or s2d")
 
 
 def config_from_args(args) -> Config:

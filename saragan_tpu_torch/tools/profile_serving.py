@@ -1,11 +1,13 @@
 """Where the time of one serving forward goes, on the card.
 
     python -m saragan_tpu_torch.tools.profile_serving [--phase 6] [--batch 8]
+        [--conv_engine direct flat ...]
 
 For the pgan 'xs' generator with random weights (the bench configuration), under each
-conv engine: the device time of one keyed-sampler forward (CUDA events, median of 20)
-and a torch.profiler breakdown of its device time by kernel, grouped into the port's
-two kernels, cuDNN convolutions and everything else.  Then the fused upscale+conv of
+conv engine of ``--conv_engine`` (``direct`` and ``flat`` by default): the device time
+of one keyed-sampler forward (CUDA events, median of 20) and a torch.profiler breakdown
+of its device time by kernel, grouped into the port's two kernels, cuDNN convolutions
+and everything else.  Then the fused upscale+conv of
 every generator block in its polyphase form (what ``ops.core.upscale_conv`` runs)
 against the same product as one stride-2 transposed conv, both through cuDNN with
 deterministic algorithms and TF32 off.  Prints JSON lines and writes
@@ -115,6 +117,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phase", type=int, default=6)
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--conv_engine", nargs="+", default=["direct", "flat"],
+                   choices=ops.CONV_ENGINES,
+                   help="the engines to trace, in turn (the JAX package's SARAGAN_CONV3D)")
     args = p.parse_args(argv)
     dev = resolve_device(None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -123,7 +128,7 @@ def main(argv=None):
     params = get_architecture("pgan").init(torch.Generator().manual_seed(0), phase=args.phase,
                                            cfg=cfg, device=dev)
     report = dict(card=card, phase=args.phase, batch=args.batch, engines={})
-    for engine in ("direct", "flat"):
+    for engine in args.conv_engine:
         sampler = make_keyed_sampler(cfg, args.phase, args.batch, device=dev, conv_engine=engine)
         report["engines"][engine] = profile_forward(sampler, params, args.batch)
         print(json.dumps({engine: report["engines"][engine]}), flush=True)

@@ -3,6 +3,7 @@ levers buy at the big-volume phases.
 
     python -m saragan_tpu_torch.tools.profile_training [--phase 6] [--batch 8] [--steps 5]
         [--compute_dtype bfloat16|float32] [--architecture pgan|surfgan|...]
+        [--conv_engine flat direct ...]
     python -m saragan_tpu_torch.tools.profile_training --probe --phase 8 --batch 2
         [--single_chip_big_volume] [--remat] [--remat_offload] [--gradient_accumulation K]
         [--preset_model]
@@ -22,7 +23,8 @@ The step is driven as ``bench.py:122-164`` (``measure_step``) drives it:
 ``make_train_step`` for the stabilizing half (``static_alpha=0.0``) and the mixing half
 (alpha 0.5 as a tensor), one warm-up step, then steps chained on the returned state.
 
-For each engine (``flat``, ``direct``) and half: the time of each step (CUDA events
+For each engine (``--conv_engine``, any of ``ops.core.CONV_ENGINES``; ``flat`` and
+``direct`` by default) and half: the time of each step (CUDA events
 around it; median), the peak device memory of a step, and a torch.profiler breakdown of
 one more step's device time by kernel group, with its kernel count and the host's launch
 calls.  The idle share is 1 - that device time /
@@ -62,6 +64,7 @@ import torch
 from saragan_tpu_torch._device import resolve_device
 from saragan_tpu_torch.config import Config
 from saragan_tpu_torch.models import get_architecture
+from saragan_tpu_torch.ops.core import CONV_ENGINES
 from saragan_tpu_torch.tools.profile_serving import BENCH_CFG
 from saragan_tpu_torch.train.step import init_train_state, make_train_step
 
@@ -321,6 +324,9 @@ def main(argv=None):
                    help="probes per process over phases, levers and doubling batches")
     p.add_argument("--phases", type=int, nargs="+", default=[7, 8])
     p.add_argument("--max_batch", type=int, default=32)
+    p.add_argument("--conv_engine", nargs="+", default=["flat", "direct"],
+                   choices=CONV_ENGINES,
+                   help="the engines to trace, in turn (the JAX package's SARAGAN_CONV3D)")
     args = p.parse_args(argv)
     dev = resolve_device(None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -346,7 +352,7 @@ def main(argv=None):
                              architecture=args.architecture)
     report = dict(card=card, architecture=args.architecture, phase=args.phase,
                   batch=args.batch, compute_dtype=args.compute_dtype, engines={})
-    for engine in ("flat", "direct"):
+    for engine in args.conv_engine:
         report["engines"][engine] = measure(cfg, args.phase, args.batch, engine, args.steps, dev)
         print(json.dumps({engine: report["engines"][engine]}), flush=True)
     out.mkdir(exist_ok=True)

@@ -48,6 +48,7 @@ from typing import Optional
 import numpy as np
 
 from saragan_tpu_torch.config import Config
+from saragan_tpu_torch.ops.core import Engine
 from saragan_tpu_torch.train.summaries import grid_to_uint8, image_grid, png_bytes
 
 
@@ -282,7 +283,7 @@ class GeneratorService:
                         max_samples: Optional[int] = None,
                         batch_sizes: Optional[list] = None,
                         fetch_dtype: Optional[str] = None, n_devices: int = 1,
-                        device=None, conv_engine: str = "direct"):
+                        device=None, conv_engine: Engine = "direct"):
         from saragan_tpu_torch._device import resolve_device
         from saragan_tpu_torch.tools.generate import _load_generator_params, make_keyed_sampler
 
@@ -318,7 +319,7 @@ class GeneratorService:
             "serve_devices": n_devices,
             "device": str(dev),
             "devices": [str(d) for d in devices],
-            "conv_engine": conv_engine,
+            "conv_engine": conv_engine if isinstance(conv_engine, str) else vars(conv_engine),
             "num_params": int(sum(v.numel() for v in g_params.values())),
         }
         return cls({size: make_run(size) for size in sizes}, None, info,

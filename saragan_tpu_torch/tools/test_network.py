@@ -7,9 +7,10 @@ Usage:
     python -m saragan_tpu_torch.tools.test_network pgan --phase 3 \
         --start_shape '(1, 4, 4, 4)' --latent_dim 64 --network_size xs [--device cpu]
 
-Without ``--device`` it runs on the CUDA device (and raises without one).  The conv
-engine is resolved as the trainer resolves it (``config.resolve_conv_engine``): the
-hand-written kernels (``flat``) on the card, cuDNN (``direct``) on the CPU.
+Without ``--device`` it runs on the CUDA device (and raises without one).  The op
+formulation is resolved as the trainer resolves it (``config.resolve_ops``): without
+``--conv_engine`` the hand-written kernels (``flat``) on the card, cuDNN (``direct``) on
+the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import time
 import torch
 
 from saragan_tpu_torch._device import resolve_device
-from saragan_tpu_torch.config import Config, parse_tuple, resolve_conv_engine
+from saragan_tpu_torch.config import CONV_ENGINES, Config, parse_tuple, resolve_ops
 from saragan_tpu_torch.core import param_count
 from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.ops.core import LayerNoise
@@ -38,7 +39,7 @@ def run_smoke_test(architecture: str, phase: int, cfg, batch_size: int = 2,
     parameter counts, build / first-step / step seconds, losses, device bytes in use)
     plus the device and the conv engine (``cfg.conv_engine``, resolved for the device)."""
     dev = resolve_device(device)
-    engine = resolve_conv_engine(cfg.conv_engine, dev.type, cfg.single_chip_big_volume)
+    engine = resolve_ops(cfg, dev.type)
     arch = get_architecture(architecture)
     t0 = time.perf_counter()
     state, (g_opt, d_opt) = init_train_state(arch, torch.Generator().manual_seed(0),
@@ -87,7 +88,7 @@ def run_smoke_test(architecture: str, phase: int, cfg, batch_size: int = 2,
         "disc_loss": float(metrics.disc_loss),
         "device_bytes_in_use": mem,
         "device": str(dev),
-        "conv_engine": engine,
+        "conv_engine": engine.conv,
     }
     if verbose:
         print(f"Generator output shape: {report['generator_output_shape']}")
@@ -111,6 +112,8 @@ def main(argv=None) -> dict:
     p.add_argument("--batch_size", type=int, default=2)
     p.add_argument("--loss_fn", default="wgan", choices=["wgan", "logistic"])
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--conv_engine", default="unset", choices=list(CONV_ENGINES),
+                   help="the 3-D conv formulation; unset: as the trainer resolves it")
     args = p.parse_args(argv)
 
     start = parse_tuple(args.start_shape)
@@ -130,6 +133,7 @@ def main(argv=None) -> dict:
         noise_stddev=0.0,
         g_lr=1e-3,
         d_lr=1e-3,
+        conv_engine=args.conv_engine,
     ).finalize()
     return run_smoke_test(args.architecture, args.phase, cfg, args.batch_size,
                           device=args.device)

@@ -68,7 +68,7 @@ from saragan_tpu_torch._device import resolve_device
 from saragan_tpu_torch.core import Params, filter_params
 from saragan_tpu_torch.models.common import offload_taps, recompute
 from saragan_tpu_torch.models.style_ops import StyleMix
-from saragan_tpu_torch.ops.core import refresh_spectral_u
+from saragan_tpu_torch.ops.core import Engine, refresh_spectral_u
 from saragan_tpu_torch.optim.accumulate import grad_accumulate, split_microbatches
 from saragan_tpu_torch.optim.ema import ema_init, ema_update
 from saragan_tpu_torch.optim.factory import Optimizer, make_optimizers_from_config
@@ -211,7 +211,7 @@ def space_of(arch, cfg, phase: int, mesh):
     return mesh
 
 
-def model_fns(arch, cfg, phase: int, alpha, conv_engine: str,
+def model_fns(arch, cfg, phase: int, alpha, conv_engine: Engine,
               draws: Optional[losses.Draws] = None, mesh=None, space=None):
     """(gen_fn, disc_fn, gp_disc_fn) of one step at `alpha` (a number or a 0-dim
     tensor), wrapped as the memory levers of `cfg` ask; gp_disc_fn is None where the
@@ -259,7 +259,7 @@ def _lever_scope(cfg, record: List):
 
 
 def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
-                  static_alpha: Optional[float] = None, *, conv_engine: str = "direct",
+                  static_alpha: Optional[float] = None, *, conv_engine: Engine = "direct",
                   mesh=None):
     """The gradient half of the simultaneous train step for one (micro-)batch:
     ``grads(g_params, d_params, real, draws, alpha) -> ((g_grads, d_grads), LossOutput)``
@@ -297,7 +297,7 @@ def make_grads_fn(arch, cfg, phase: int, apply_gp: bool = True,
 
 
 def _alternate_grads_fns(arch, cfg, phase: int, apply_gp: bool,
-                         static_alpha: Optional[float], conv_engine: str, parked: List,
+                         static_alpha: Optional[float], conv_engine: Engine, parked: List,
                          mesh=None):
     """The two gradient halves of the ``alternate`` strategy for one (micro-)batch:
     ``d_grads(g_params, d_params, real, draws, alpha) -> (grads, (disc_loss, gp_loss))``
@@ -356,7 +356,7 @@ def micro_draws(draws, num_micro: int) -> Sequence[losses.Draws]:
 def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: Optimizer,
                     frozen_names: FrozenSet[str] = frozenset(), freeze: bool = False,
                     apply_gp: bool = True, grad_histograms: bool = False,
-                    static_alpha: Optional[float] = None, *, conv_engine: str = "direct",
+                    static_alpha: Optional[float] = None, *, conv_engine: Engine = "direct",
                     mesh=None):
     """The train step for one phase:
     ``step(state, real, rng, alpha, g_lr, d_lr, draws=None) -> (state, StepMetrics)``.
@@ -373,9 +373,9 @@ def make_train_step(arch, cfg, phase: int, g_optimizer: Optimizer, d_optimizer: 
     skip the phase-transition branches, which contribute exactly 0 in the stabilizing
     half of a phase (their parameters get zero gradients, as in the reference).
     Otherwise alpha goes in as a 0-dim tensor and the branches always run, as the
-    reference's traced alpha does.  `conv_engine` is "direct" (cuDNN) or "flat" (the
-    hand-written kernels).  Under ``remat_offload`` ``step.parked_bytes`` is what the
-    last step parked in host memory.
+    reference's traced alpha does.  `conv_engine`: the op formulation, an
+    ``ops.core.Ops`` or an engine name (``ops.core.CONV_ENGINES``).  Under
+    ``remat_offload`` ``step.parked_bytes`` is what the last step parked in host memory.
 
     `mesh` (a ``parallel.Mesh``): data parallelism.  `real` is then this rank's rows of
     the global batch (rank-major), and the draws, drawn or given, are the global batch's,

@@ -102,7 +102,7 @@ import torch
 
 from saragan_tpu_torch import losses
 from saragan_tpu_torch._device import resolve_device
-from saragan_tpu_torch.config import Config, resolve_conv_engine
+from saragan_tpu_torch.config import Config, resolve_ops
 from saragan_tpu_torch.data import NumpyPathDataset, Prefetcher, get_numpy_dataset, normalize_numpy
 from saragan_tpu_torch.data.native import NativeBatchPrefetcher
 from saragan_tpu_torch.models import get_architecture
@@ -229,12 +229,12 @@ class Trainer:
         self.cfg = cfg
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
-        # the run's engine, resolved for the device where unset: what the steps, the
-        # events and a resumed run (which resolves the same way) see.  Held here, not
-        # written into the caller's config, so that another Trainer built from the same
-        # config resolves its own
-        self.conv_engine = resolve_conv_engine(cfg.conv_engine, self.device.type,
-                                               cfg.single_chip_big_volume)
+        # the run's op formulation, its engine resolved for the device where unset: what
+        # the steps, the events and a resumed run (which resolves the same way) see.  Held
+        # here, not written into the caller's config, so that another Trainer built from
+        # the same config resolves its own
+        self.ops = resolve_ops(cfg, self.device.type)
+        self.conv_engine = self.ops.conv
         self.arch = get_architecture(cfg.architecture)
         self.dataset_factory = dataset_factory
         self.draws_fn = draws_fn
@@ -257,7 +257,10 @@ class Trainer:
                 self._auto_resume_note = (f"auto_resume: continuing from {ar.continue_path} "
                                           f"at phase {ar.starting_phase}")
         self.writer = summ.SummaryWriter(self.logdir if self.verbose else None)
-        self.writer.text("config/conv_engine", self.conv_engine, 0)
+        for tag, value in (("conv_engine", self.ops.conv), ("conv_wgrad", self.ops.wgrad),
+                           ("pool", self.ops.pool), ("stats_dtype", self.ops.stats),
+                           ("s2d_max_cin", self.ops.s2d_max_cin)):
+            self.writer.text(f"config/{tag}", str(value), 0)
         self.last_fid: Optional[float] = None
         self.last_img_s: float = 0.0
         self.state: Optional[TrainState] = None
@@ -396,7 +399,7 @@ class Trainer:
             draws = losses.draw_inputs(gen, real.shape[0], cfg.latent_dim, real.shape[1:],
                                        dtype, real.device, noise_stddev=cfg.noise_stddev,
                                        style_phase=style_phase(arch, phase))
-            gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, self.conv_engine,
+            gen_fn, disc_fn, gp_disc_fn = model_fns(arch, cfg, phase, a, self.ops,
                                                     draws)
             with _train_numerics():
                 out = losses.forward_simultaneous(
@@ -419,7 +422,7 @@ class Trainer:
             with torch.inference_mode(), _train_numerics():
                 out = arch.generator(g_params, z.to(self.device, dtype),
                                      torch.tensor(float(alpha)), phase=phase, cfg=cfg,
-                                     conv_engine=self.conv_engine, train=False,
+                                     conv_engine=self.ops, train=False,
                                      noise=LayerNoise(generator_seed(generator)))
             return out.float().cpu().numpy()
 
@@ -462,7 +465,9 @@ class Trainer:
             return self.last_fid
         if self._auto_resume_note:
             self._log(self._auto_resume_note)
-        self._log(f"Conv engine: {self.conv_engine} on {self.device}")
+        o = self.ops
+        self._log(f"Conv engine: {o.conv} on {self.device} (wgrad {o.wgrad}, pool {o.pool}, "
+                  f"stats {o.stats}, s2d_max_cin {o.s2d_max_cin})")
         start_train = time.time()
         global_step = 0
 
@@ -546,7 +551,7 @@ class Trainer:
 
         frozen = (self._prev_phase_names(phase, {**state.g_params, **state.d_params})
                   if cfg.mixing_nimg > 0 else frozenset())
-        engine = self.conv_engine
+        engine = self.ops
         lazy_k = max(1, int(cfg.lazy_gp))
         steps = {}
 

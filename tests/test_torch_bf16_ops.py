@@ -79,7 +79,7 @@ def test_dense_bf16_bit_equal():
 @pytest.mark.parametrize("c,f", [(1, 16), (16, 8)], ids=["c1", "skinny"])
 def test_conv3d_1x1_mulsum_bf16_bit_equal(c, f):
     x, w = _bf16((2, c, 4, 8, 8), 7), _bf16((1, 1, 1, c, f), 8, scale=0.3)
-    _assert_bit_equal(ops._conv3d_1x1(_port(x), _port(w)),
+    _assert_bit_equal(ops.conv_1x1(_port(x), _port(w)),
                       jops._conv3d_shifted_gemm(jnp.asarray(x), jnp.asarray(w)))
 
 
@@ -87,7 +87,7 @@ def test_conv3d_1x1_gemm_bf16_one_rounding():
     """C > 32: the channel GEMM accumulates in f32 and rounds once; tolerance: one bf16
     ulp (2^-7 relative at most) for a different f32 summation order."""
     x, w = _bf16((2, 64, 2, 4, 4), 9), _bf16((1, 1, 1, 64, 40), 10, scale=0.3)
-    ours = ops._conv3d_1x1(_port(x), _port(w))
+    ours = ops.conv_1x1(_port(x), _port(w))
     ref = np.asarray(jops._conv3d_shifted_gemm(jnp.asarray(x, jnp.float32),
                                                jnp.asarray(w, jnp.float32)))
     ref = ref.astype(ml_dtypes.bfloat16).astype(np.float32)

@@ -3,8 +3,8 @@ CUDA-core conv through each register tile, the bf16 tensor-core convs, on ragged
 misaligned and small shapes, the wgrad's two stagers through its 16- and 32-output tiles,
 the f32 wgrad, the fused op's forward and backward kernels at C from 1 to 512 and N = 1,
 a sample alone against its slot in a batch, misaligned views and one launch per call;
-the standalone #3, through both routes, and #5 too), the conv's derivative algebra
-against cuDNN's double backward in f32 and bf16, one train step under ``flat``, each
+#3 through both routes and behind ``Conv3dC`` under ``flat_v2``, and the standalone #5),
+the conv's derivative algebra against cuDNN's double backward in f32 and bf16, one train step under ``flat``, each
 other family's f32 gradients under ``flat`` against ``direct``, a two-step CLI
 trainer run, every optimizer's update against the CPU's, a two-trial HPO study of the
 flagship configuration on the kernels, and the tools: an artifact exported and served on
@@ -21,6 +21,7 @@ neither JAX nor the JAX package, so it runs on a machine that has only PyTorch:
 
 import math
 import time
+from collections import Counter
 
 import pytest
 import torch
@@ -439,6 +440,36 @@ def test_gp_pattern_in_bf16_through_the_tensor_cores_matches_cudnn(cuda):
     assert all(now > before for now, before in zip(_tc_launches(), routes))
     assert ours.dtype == torch.bfloat16
     assert _rel_err(ours, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_conv3d_c_under_flat_v2_matches_its_plain_version(cuda, dtype, limit):
+    """``Conv3dC`` under ``flat_v2`` (kernel #3 for forward and dgrad, the library's
+    wgrad) on the card against the same algebra on the CPU, where #3 is its plain
+    version: forward and dgrad within `limit` of max|CPU|, #3 launched for both roles and
+    #1 never."""
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 16, 4, 8, 8, generator=g).to(dtype)
+    w = (torch.randn(3, 3, 3, 16, 24, generator=g) * 0.05).to(dtype)
+    dy = torch.randn(2, 24, 4, 8, 8, generator=g).to(dtype)
+    algebra = ("flat_v2", "library", "f32")
+
+    def run(device):
+        xt = x.to(device).requires_grad_(True)
+        y = conv3d_c(xt, w.to(device), algebra)
+        (dx,) = torch.autograd.grad(y, xt, dy.to(device))
+        return y.detach().cpu().float(), dx.cpu().float()
+
+    ref = run("cpu")
+    before = Counter(role for role, *_ in cf.conv3d_flat_v2_cuda.by_shape.elements())
+    v1 = cf.conv3d_flat_cuda.launches
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        ours = run(cuda)
+    after = Counter(role for role, *_ in cf.conv3d_flat_v2_cuda.by_shape.elements())
+    assert after["forward"] > before["forward"] and after["dgrad"] > before["dgrad"]
+    assert cf.conv3d_flat_cuda.launches == v1
+    for a, b in zip(ours, ref):
+        assert (a - b).abs().max() <= limit * b.abs().max()
 
 
 def test_fused_backward_matches_plain_autograd(cuda):

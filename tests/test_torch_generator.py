@@ -70,10 +70,13 @@ def test_generator_matches_jax(phase3_params, monkeypatch, transitions, fusion, 
 
 
 def test_unknown_conv_engine_raises(phase3_params):
+    # "s2d" is an engine of the port since the op formulations became options; "winograd"
+    # is none
     with pytest.raises(ValueError, match="conv engine"):
         get_architecture("pgan").generator(params_from_numpy(phase3_params, "cpu"),
                                            torch.zeros(1, 16), 0.0, phase=3,
-                                           cfg=Config(**PHASE3).finalize(), conv_engine="s2d")
+                                           cfg=Config(**PHASE3).finalize(),
+                                           conv_engine="winograd")
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,8 @@ print(" ".join(names))
 """
 
 # the trainer slice's, the metrics slice's, the model families', the HPO slice's, the
-# input layer's and the data-parallel slice's modules, which the hook must reach
+# input layer's, the data-parallel slice's and the op formulations' modules, which the
+# hook must reach
 REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             "saragan_tpu_torch.optim.factory", "saragan_tpu_torch.hpo",
             *(f"saragan_tpu_torch.hpo.{m}" for m in ("engine", "harness", "suggestions")),
@@ -51,7 +52,8 @@ REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             "saragan_tpu_torch.data.native", "saragan_tpu_torch.data.imagenet",
             "saragan_tpu_torch.ops._build", "saragan_tpu_torch.parallel",
             *(f"saragan_tpu_torch.parallel.{m}" for m in ("mesh", "multihost", "halo")),
-            "saragan_tpu_torch.tools.profile_parallel"}
+            "saragan_tpu_torch.tools.profile_parallel", "saragan_tpu_torch.utils",
+            "saragan_tpu_torch.ops.conv3d_gemm", "saragan_tpu_torch.ops.conv3d_s2d"}
 
 
 def test_port_imports_with_jax_and_reference_blocked():

@@ -62,6 +62,11 @@ FAMILY_CFG = dict(start_shape="(1, 1, 4, 4)", final_shape="(1, 8, 32, 32)", late
                   network_size="xxs", loss_fn="wgan", gp_weight=10.0, adam_beta1=0.0,
                   adam_beta2=0.9, noise_stddev=0.0, g_lr=1e-3, d_lr=1e-3, fused_grads=True,
                   batched_passes=True, starting_phase=FAMILY_PHASE, ending_phase=FAMILY_PHASE)
+# the conv engines of the sharded step (pgan at the families' phase 3, data 1 x space 2, f64
+# activations), each against the port's one-process step under the same engine: their
+# ``ops.core.Ops`` fields (s2d folding every input, so that it reaches the 256- and
+# 64-channel layers of 'xxs')
+ENGINE_CASES = {"s2d": dict(conv="s2d", s2d_max_cin=256), "gemm_custom": dict(conv="gemm_custom")}
 # the memory levers under the sharded step, each against the sharded plain step of the
 # same configuration: (architecture, compute dtype, the levers' Config fields); the
 # single_chip_big_volume preset (unfused transitions, no stacked passes) against itself
@@ -138,7 +143,8 @@ def _worker(outdir):
                   _space_k5_step, _space_families_dp2] if world == 4 else
                  [_broadcast, _synchronized_trial, _batch_sharded, _halo, _halo_grads,
                   _harness, _interrupt, _cli, _cli_space, _shared_logdir, _pgan_step,
-                  _surfgan_step, _pgan_accum_step, _surfgan_accum_step, _space_families])
+                  _surfgan_step, _pgan_accum_step, _surfgan_accum_step, _space_families,
+                  _space_engines])
     for fn in scenarios:
         results[fn.__name__.strip("_")] = fn(mesh, outdir)
         mark(fn.__name__.strip("_"))
@@ -276,9 +282,9 @@ def _halo_grads(mesh, outdir):
     return out
 
 
-def _dp_step(mesh, outdir, arch_name, tag, layout=None, f64=False):
+def _dp_step(mesh, outdir, arch_name, tag, layout=None, f64=False, engine="direct"):
     """The step of case `tag` on this rank's rows (and slab, on a `layout` of the world),
-    with `f64` activations under ``direct`` (f32 parameters and state), and on rank 0
+    with `f64` activations under `engine` (f32 parameters and state), and on rank 0
     under accumulation or a f32 layout the port's one-process step on the global batch."""
     import dataclasses
 
@@ -327,7 +333,7 @@ def _dp_step(mesh, outdir, arch_name, tag, layout=None, f64=False):
 
     if f64:
         new, m = run(mesh, torch.from_numpy(inp["real"]),
-                     dataclasses.replace(cfg, compute_dtype="float64"), "direct", torch.float64)
+                     dataclasses.replace(cfg, compute_dtype="float64"), engine, torch.float64)
     else:
         new, m = run(mesh, torch.from_numpy(inp["real"]))
     out = {"state": train_state_to_numpy(new),
@@ -374,6 +380,15 @@ def _space_families(mesh, outdir):
     ``test_space_sharded_families_match_jax_one_device_step``)."""
     return {arch: _dp_step(mesh, outdir, arch, f"family_{arch}", (1, 2, 1), True)
             for arch in SPACE_FAMILIES}
+
+
+def _space_engines(mesh, outdir):
+    """pgan at data 1 x space 2 with f64 activations under each engine of
+    ``ENGINE_CASES`` (``test_space_sharded_engines_match_the_one_process_step``)."""
+    from saragan_tpu_torch.ops.core import Ops
+
+    return {name: _dp_step(mesh, outdir, "pgan", "family_pgan", (1, 2, 1), True, Ops(**kw))
+            for name, kw in ENGINE_CASES.items()}
 
 
 def _space_families_dp2(mesh, outdir):
@@ -866,11 +881,12 @@ def _jax_family_step(arch, jcfg, state, opts, real, key):
 _FAMILY_ONE = {}
 
 
-def _port_family_f64(outdir, arch):
+def _port_family_f64(outdir, arch, engine=None):
     """The port's one-process step of a ``SPACE_FAMILIES`` case with f64 activations
-    (``direct``, f32 parameters and state) on its global batch, from the inputs the ranks
-    read (computed once for both fixtures)."""
-    if arch not in _FAMILY_ONE:
+    (under the ``Ops`` fields `engine`, ``direct`` by default; f32 parameters and state) on
+    its global batch, from the inputs the ranks read (computed once for both fixtures)."""
+    key = arch if engine is None else (arch, tuple(sorted(engine.items())))
+    if key not in _FAMILY_ONE:
         import dataclasses
 
         import torch
@@ -879,7 +895,7 @@ def _port_family_f64(outdir, arch):
         from saragan_tpu_torch.config import Config
         from saragan_tpu_torch.convert import train_state_from_numpy, train_state_to_numpy
         from saragan_tpu_torch.models import get_architecture
-        from saragan_tpu_torch.ops.core import NoiseByName
+        from saragan_tpu_torch.ops.core import NoiseByName, Ops
         from saragan_tpu_torch.optim.factory import make_optimizers_from_config
         from saragan_tpu_torch.train.step import make_train_step
 
@@ -893,11 +909,12 @@ def _port_family_f64(outdir, arch):
         draws = losses.Draws(**t, noise=None if noise is None else NoiseByName(
             {k: torch.from_numpy(v).double() for k, v in noise.items()}))
         step = make_train_step(get_architecture(arch), cfg, FAMILY_PHASE,
-                               *make_optimizers_from_config(cfg), conv_engine="direct")
+                               *make_optimizers_from_config(cfg),
+                               conv_engine=Ops(**(engine or {})))
         new, _ = step(train_state_from_numpy(inp["state"], "cpu"),
                       torch.from_numpy(inp["real"]), None, ALPHA, 1e-3, 1e-3, draws=draws)
-        _FAMILY_ONE[arch] = train_state_to_numpy(new)
-    return _FAMILY_ONE[arch]
+        _FAMILY_ONE[key] = train_state_to_numpy(new)
+    return _FAMILY_ONE[key]
 
 
 def _jax_one_device_step(jcfg, layout, state, opts, real, key):
@@ -971,9 +988,13 @@ def two_ranks(tmp_path_factory):
                             for arch in SPACE_FAMILIES}
                 one = {arch: pool.submit(_port_family_f64, outdir, arch)
                        for arch in SPACE_FAMILIES}
+                _write_family_inputs(outdir, "pgan")
+                engines = {name: pool.submit(_port_family_f64, outdir, "pgan", kw)
+                           for name, kw in ENGINE_CASES.items()}
                 refs = {"steps": {tag: f.result() for tag, f in steps.items()},
                         "families": {arch: f.result() for arch, f in families.items()},
-                        "family_one": {arch: f.result() for arch, f in one.items()}}
+                        "family_one": {arch: f.result() for arch, f in one.items()},
+                        "engines_one": {name: f.result() for name, f in engines.items()}}
             refs["halo"] = _jax_halo(2)  # after the steps: it switches on x64 globally
             refs["grads"] = _jax_halo_grads(2)
             ids = []
@@ -1364,6 +1385,31 @@ def test_space_sharded_families_match_jax_one_device_step(two_ranks, arch):
     sum).  The ranks bit-equal."""
     results, refs = two_ranks
     _assert_space_family(results, refs, arch, "space_families")
+
+
+@pytest.mark.parametrize("name", list(ENGINE_CASES))
+def test_space_sharded_engines_match_the_one_process_step(two_ranks, name):
+    """pgan's step at data 1 x space 2 (phase 3 of 1 x 4^2 -> 4 x 16^2, f64 activations)
+    under ``s2d`` and ``gemm_custom``: every halo conv the engine's SAME conv of the
+    extended slab, cropped (``s2d`` folds the 4-slice extended slabs of resolution 3 and
+    gives the odd 3-slice ones of resolution 2 to the direct conv).  Against the port's
+    one-process step under the same engine: gradients (Adam's mu at beta1 0) within
+    ``F64_GRAD_LIMIT`` of each network's largest, the ranks bit-equal."""
+    from saragan_tpu_torch.tools.profile_parallel import F64_GRAD_LIMIT
+
+    results, refs = two_ranks
+    ours = [r["space_engines"][name]["state"] for r in results]
+    for part in ("g_params", "d_params", "ema"):
+        for k, v in ours[0][part].items():
+            np.testing.assert_array_equal(v, ours[1][part][k], err_msg=k)
+    want = refs["engines_one"][name]
+    for net in ("g", "d"):
+        w = want[f"{net}_opt"]["mu"]
+        top = max(np.abs(g).max() for g in w.values())
+        assert top > 0, net
+        for k, g in w.items():
+            np.testing.assert_allclose(ours[0][f"{net}_opt"]["mu"][k], g, rtol=0,
+                                       atol=F64_GRAD_LIMIT * top, err_msg=f"{name} {k}")
 
 
 @pytest.mark.parametrize("arch", SPACE_FAMILIES_DP)

@@ -226,9 +226,11 @@ def test_frozen_histogram_step_matches_reference(monkeypatch):
 def test_trainer_config_fields_keep_the_reference_names_and_defaults():
     ref = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     ours = {f.name: f.default for f in dataclasses.fields(Config)}
-    assert set(ours) - set(ref) == {"conv_engine"}
+    # the op formulation's fields, the reference's SARAGAN_* environment variables
+    formulation = {"conv_engine", "conv_wgrad", "pool", "stats_dtype", "s2d_max_cin"}
+    assert set(ours) - set(ref) == formulation
     for name, default in ours.items():
-        if name != "conv_engine":
+        if name not in formulation:
             assert default == ref[name], name
     c, r = Config(mixing_nimg=100, stabilizing_nimg=60, compute_dtype="bfloat16",
                   base_batch_size=64, max_global_batch_size=8).finalize(), JaxConfig(
@@ -291,6 +293,27 @@ def test_trainer_resolves_an_unset_engine_on_the_cpu_and_again_on_resume(tmp_pat
 def test_an_explicit_engine_wins(tmp_path, engine):
     cfg = _cli_config(tmp_path, "--conv_engine", engine)
     assert Trainer(cfg, device="cpu", verbose=False).conv_engine == engine
+
+
+def test_the_op_formulation_flags_reach_the_trainer_and_its_events(tmp_path):
+    """The JAX package's SARAGAN_* choices as CLI flags: the trainer holds them as one
+    ``Ops`` value and writes each to events.jsonl."""
+    from saragan_tpu_torch.ops.core import Ops
+
+    cfg = _cli_config(tmp_path, "--conv_engine", "gemm_custom", "--conv_wgrad", "einsum",
+                      "--pool", "window", "--stats_dtype", "compute", "--s2d_max_cin", "8")
+    trainer = Trainer(cfg, device="cpu", prefetch=False)
+    trainer.writer.close()
+    assert trainer.ops == Ops("gemm_custom", "einsum", "window", "compute", 8)
+    assert trainer.conv_engine == "gemm_custom"
+    with open(tmp_path / "run" / "events.jsonl") as f:
+        events = {e["tag"]: e["text"] for e in map(json.loads, f) if "text" in e}
+    assert {k: events[f"config/{k}"] for k in ("conv_engine", "conv_wgrad", "pool",
+                                                "stats_dtype", "s2d_max_cin")} == dict(
+        conv_engine="gemm_custom", conv_wgrad="einsum", pool="window", stats_dtype="compute",
+        s2d_max_cin="8")
+    with pytest.raises(ValueError, match="pool"):
+        dataclasses.replace(cfg, pool="max").finalize()
 
 
 def test_a_trainer_leaves_an_unset_engine_unset_for_the_next_trainer(tmp_path, monkeypatch):
