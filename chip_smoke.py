@@ -231,6 +231,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    phases (bf16 forward, f32 and bf16 backward) as phase 6, with the same limits, a
    sample alone bit-equal to its slot, bit-identical reruns, each shape's three times
    and bound;
+16b. the quality-evidence drivers (``--only evidence``, ``saragan_tpu_torch.scripts``)
+   on toy budgets (``--smoke``), phases 1 -> 2 on the card: the flagship schedule, the
+   cubic schedule, the 2-D path, the five other families at phase 1 and a two-trial TPE
+   study in process (counts set to 0 just before, read just after: #1 forward and dgrad,
+   #2 and #4 and its backward launched, the convs through the tensor-core route only, no
+   plain version), each exiting 0 with finite end-of-phase readings; the quality gates run
+   on their smoke trajectories (verdicts printed, not enforced on a toy budget); then the
+   preemption receipt (``--smoke``: 16³ at phase 1 alone, batch 16, 64 + 64 images), which
+   runs the CLI in subprocesses: the uninterrupted run, SIGTERM in phase 1 (exit 75, one
+   resume point), the requeue with --auto_resume, parameters and EMA bit-equal (the seed
+   band, whose --smoke runs the flagship smoke above again in a subprocess, is left to the
+   CPU tests);
+   #1, #1' and #2 against their plain versions (bf16) at every conv shape of the in-process
+   runs, weighted by their launches there, and #4 forward and backward at the flagship
+   smoke generator's shapes as phase 6 holds them (the kernels line's ``[evidence]`` rows);
+   the drivers' logs go to chiprun_out/evidence/;
 17. data parallelism (``--only parallel``) on the one card, which gives no scaling number
    (NCCL refuses two ranks on one device, so two ranks run over gloo, their collectives
    through host memory):
@@ -267,7 +283,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the ranks bit-equal after one and after 3 more steps, #1 (forward and dgrad), #2 and
    #4 launched on each rank's slab in that step (counts set to 0 just before, read just
    after; printed per rank, no plain version), the ms per step per rank and the
-   exchanges' share of an instrumented step; then four ranks at phase 4, depth and height
+   exchanges' share of an instrumented step; then four ranks at phase 3, depth and height
    each split over two (space 2 x space2 2), f32 only, the same limits; then
    the CLI with ``--horovod
    --num_space_shards 2`` from phase 5 to 6 on two ranks: both exit 0, model_6.npz's
@@ -276,17 +292,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    their bounds and TFLOP/s count the work of the cropped output, not the 2 radius
    slices per exchanged axis that a halo conv's extended slab computes and drops);
    (e) the memory levers under spatial sharding (``--only parallel_space_levers``):
-   ``tools.profile_parallel --single_chip_big_volume --bf16_only --lever_check 6`` on two
-   gloo ranks: first the phase-6 sharded step under remat and under remat_offload bit-equal
+   ``tools.profile_parallel --single_chip_big_volume --bf16_only --lever_check 5`` on two
+   gloo ranks: first the phase-5 sharded step under remat and under remat_offload bit-equal
    to the sharded plain step (f32 and bf16, every rank), then the phase-8 batch-2 preset step
    (128 x 512^2, C = 8 at the top) with depth 64 + 64, bf16, against the one-process preset
    step (``compare_states(space=True)``, the bf16 margin against the one-process f32 step),
    the ranks bit-equal, the ms, peak and parked MiB and #1 / #1' / #2 / #4 launches per
    rank; then #1, #1' and #2 at every 512^2 shape of rank 0's slabs and #4 at the slab's
    two 64 x 512^2 layers (the kernels line's ``[space,phase8]`` rows);
-   (f) the other families sharded (``--only parallel_space_families``): surfgan at phase 6
-   (depth 16 + 16, f32 with the f64 witness and bf16) and pgan2, pgandeep, stylegan and
-   stylegan2 at phase 4 (depth 4 + 4, f32 with the witness) against one process at the
+   (f) the other families sharded (``--only parallel_space_families``): surfgan at phase 5
+   (depth 8 + 8, f32 with the f64 witness and bf16) and pgan2, pgandeep, stylegan and
+   stylegan2 at phase 3 (depth 2 + 2, f32 with the witness) against one process at the
    limits of (d), ms per rank, the exchanges' share and launches per rank (#4 is pgan's
    alone); #1, #1' and #2 at every conv shape of surfgan's bf16 slabs (the
    ``[space,surfgan]`` rows); (e) and (f) print their seconds;
@@ -295,7 +311,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 Each phase prints its seconds.  Details go to chiprun_out/chip_smoke.json.
 ``python3 chip_smoke.py --only engines`` builds and runs phase 10b alone, ``--only
 big_volume`` phase 12, ``--only families`` phase 13, ``--only hpo`` phase 14, ``--only tools`` phase 15, ``--only two_d``
-phase 16, ``--only parallel`` phase 17, ``--only parallel_space`` its part (d),
+phase 16, ``--only evidence`` phase 16b, ``--only parallel`` phase 17, ``--only
+parallel_space`` its part (d),
 ``--only parallel_space_levers`` (e) and ``--only parallel_space_families`` (f) (each
 without the result lines), for working on it.  ``--only parallel_cards``, on a machine with two or more cards, runs phase 17 (b) with
 one rank on each card over NCCL (its NVLink collectives and halo exchange) and
@@ -355,6 +372,8 @@ from saragan_tpu_torch.tools.profile_training import (HALVES, PHASE8_FINAL_SHAPE
                                                        profile_one_step, real_batch,
                                                        run_steps)
 from saragan_tpu_torch.tools.serve import GeneratorService, make_server
+from saragan_tpu_torch.scripts import _evidence as gates
+from saragan_tpu_torch.scripts.convergence_run_flagship import flagship_config
 from saragan_tpu_torch.train import checkpoint as ckpt
 from saragan_tpu_torch.train.step import init_train_state, make_grads_fn, make_train_step
 
@@ -2947,6 +2966,112 @@ def two_d_entries(report, entries):
              "saragan_tpu/ops/pallas_kernels.py:123", train_bwd, launches["fused_grad"], None,
              per_step, None)]
 
+# the evidence phase: the quality-evidence drivers' --smoke runs on the card (phases 1 -> 2,
+# toy budgets), the in-process ones first: (name, module, arguments, trajectory file)
+EVIDENCE_IN_PROCESS = (
+    ("flagship", "convergence_run_flagship", ["2"], "trajectory_p1-2.json"),
+    ("cubic", "convergence_run", ["2"], "trajectory.json"),
+    ("2d", "convergence_run_2d", ["2"], "trajectory_2d.json"),
+    ("families", "family_chip_smoke", [], None),
+    ("hpo", "hpo_chip_demo", ["2"], None),
+)
+
+
+def _evidence_driver(module: str, argv, log: Path) -> float:
+    """``saragan_tpu_torch.scripts.<module>.main(argv)`` in process, its output to `log`;
+    it must return 0.  Returns its seconds."""
+    import importlib
+
+    mod = importlib.import_module(f"saragan_tpu_torch.scripts.{module}")
+    t0 = time.perf_counter()
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        rc = mod.main([str(a) for a in argv])
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"evidence: {module} {argv} exited {rc}; see {log}")
+    return seconds
+
+
+def evidence(detail):
+    """The evidence phase (the module's phase 16b).  Returns (report, launches of the
+    in-process runs, (the conv kernels' entries at their shapes, #4's entries))."""
+    logs = OUT_DIR / "evidence"
+    logs.mkdir(parents=True, exist_ok=True)
+    report = dict(seconds={}, gates={})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        zero_counts()
+        for name, module, args, _ in EVIDENCE_IN_PROCESS:
+            report["seconds"][name] = _evidence_driver(
+                module, [tmp / name, *args, "--smoke"], logs / f"{name}.log")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        shapes = (Counter(cf.conv3d_flat_cuda.by_shape),
+                  Counter(cf.conv3d_flat_wgrad_cuda.by_shape))
+        check(launches["plain"] == 0, f"evidence: {launches['plain']} plain-version calls")
+        for k in ("forward", "dgrad", "wgrad", "fused", "fused_grad"):
+            check(launches[k] > 0, f"evidence: kernel {k} not launched ({launches})")
+        check(launches["conv_simt"] == launches["wgrad_simt"] == 0
+              and launches["conv_tc"] == launches["forward"] + launches["dgrad"],
+              f"evidence (bf16): routes {launches}")
+        # the gates on the smoke trajectories: reported, not enforced on a toy budget
+        for name, _, _, traj in EVIDENCE_IN_PROCESS[:3]:
+            t = json.loads((tmp / name / traj).read_text())["trajectory"]
+            two_d = name == "2d"
+            smoke = gates.smoke_gate(t, gates.LAST_SUFFIXES_2D if two_d
+                                     else gates.LAST_SUFFIXES)
+            check(smoke.ok, f"evidence: {name} smoke gate {smoke.failures}")
+            gate = (gates.caps_gate_2d(t) if two_d
+                    else gates.band_gate(t, require_final_improved=name == "cubic"))
+            report["gates"][name] = dict(gate=gate.gate, ok=gate.ok, summary=gate.summary())
+            print(f"evidence {name}: {report['seconds'][name]:.1f} s; {gate.summary()}",
+                  flush=True)
+        fam = json.loads((tmp / "families" / "family_smoke.json").read_text())
+        report["families"] = {r["arch"]: [r["first_moment_err"], r["last_moment_err"]]
+                              for r in fam}
+        check(all(r["losses_finite"] for r in fam), "evidence: a family's losses not finite")
+        print(f"evidence families: {report['seconds']['families']:.1f} s; moment errors "
+              f"{report['families']}; hpo: {report['seconds']['hpo']:.1f} s", flush=True)
+        # the driver that runs subprocesses: the preemption receipt at its smoke budget
+        report["seconds"]["preemption_receipt"] = _evidence_driver(
+            "preemption_receipt", [tmp / "receipt", "--smoke"], logs / "preemption_receipt.log")
+        report["receipt"] = (tmp / "receipt" / "receipt.txt").read_text()
+        print(f"evidence: preemption receipt {report['seconds']['preemption_receipt']:.1f} s: "
+              f"{report['receipt'].strip().splitlines()[-1]}", flush=True)
+    convs = check_train_convs(*shapes, 1, detail, (torch.bfloat16,))
+    # #4 at the flagship smoke generator's shapes, phases 1 and 2 at their batches
+    cfg = flagship_config("", "", 1, 2, 42, True, 0.0, 1.0)
+    fused = check_train_fused([s for p in (1, 2) for s in serving_shapes(
+        cfg, p, cfg.batch_size_for_phase(p))[0]], detail)
+    report["launches"] = launches
+    return report, launches, (convs, fused)
+
+
+def evidence_entries(kernels, launches):
+    """The kernels line's rows of the evidence drivers' path."""
+    convs, (fused, fused_grad) = kernels
+    per = ("the evidence drivers' in-process --smoke runs on the card (flagship, cubic, 2-D, "
+           "families, a 2-trial study): the sum over every conv shape they launched, each "
+           "weighted by its launches there")
+    per_fused = ("one generator forward of the flagship smoke at phase 1 (batch 8) and one at "
+                 "phase 2 (batch 4): the sum over their fused shapes; launches counted over "
+                 "the in-process --smoke runs")
+    return (
+        ("fused_bias_act_pixelnorm[evidence,bf16]", "cuda", FUSED_SOURCE,
+         "saragan_tpu/ops/pallas_kernels.py:112", fused, launches["fused"], None, per_fused,
+         None),
+        ("fused_bias_act_pixelnorm_grad[evidence,bf16]", "cuda", FUSED_SOURCE,
+         "saragan_tpu/ops/pallas_kernels.py:123", fused_grad, launches["fused_grad"], None,
+         per_fused, None),
+        ("conv3d_flat[forward,bf16,evidence]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
+         "saragan_tpu/ops/pallas_conv.py:124", convs[("forward", "bfloat16")],
+         launches["forward"], "library_ms", per, None),
+        ("conv3d_flat[dgrad,bf16,evidence]", "cuda", "saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
+         "saragan_tpu/ops/core.py:386", convs[("dgrad", "bfloat16")], launches["dgrad"],
+         "library_ms", per, None),
+        ("conv3d_wgrad[bf16,evidence]", "cuda", "saragan_tpu_torch/csrc/conv3d_wgrad_tc.cu",
+         "saragan_tpu/ops/pallas_conv.py:183", convs[("wgrad", "bfloat16")],
+         launches["wgrad"], "library_ms", per, None))
+
 
 # the parallel phase: data parallelism on the one card.  NCCL refuses two ranks on one
 # device, so the two-rank runs use gloo (its collectives through host memory); one card
@@ -3174,11 +3299,18 @@ def parallel_serving(cards: int = 1):
                                                  fused=counts["fused"]))
 
 
-# the four-rank (space 2 x space2 2) run's phase: 5 until the script neared its time limit
-SPACE_PHASE4 = 4
-# (f): pgan2, pgandeep, stylegan and stylegan2 sharded at 8 x 32^2 (phase 5, 16 x 64^2,
-# until the engines phase needed the time)
-SPACE_FAMILY_PHASE = 4
+# the four-rank (space 2 x space2 2) run's phase: 5 until the script neared its time limit,
+# 4 until the evidence phase needed the time
+SPACE_PHASE4 = 3
+# (f): pgan2, pgandeep, stylegan and stylegan2 sharded at 4 x 16^2 (phase 5, 16 x 64^2,
+# until the engines phase needed the time; phase 4, 8 x 32^2, until the evidence phase did)
+SPACE_FAMILY_PHASE = 3
+# (e): the remat / remat_offload lever check's phase (6, the flagship's 32 x 128^2, until the
+# resume pair came back beside the evidence phase)
+LEVER_PHASE = 5
+# (f): surfgan sharded at 16 x 64^2 (phase 6, the flagship's 32 x 128^2, until the evidence
+# phase needed the time)
+SPACE_SURFGAN_PHASE = 5
 
 
 def _space_tool(world: int, out: Path, *extra, device=("--device", "cuda:0"), timeout=400):
@@ -3274,7 +3406,7 @@ def parallel_space_levers(detail):
     ranks sharing the card, bf16, against the one-process preset step from the same state
     and draws (``compare_states(space=True)``: the bf16 margin against the one-process f32
     step); ms, peak and parked MiB and the kernels' launches per rank; the ranks bit-equal;
-    first, the phase-6 sharded step under remat and under remat_offload bit-equal to the
+    first, the phase-5 sharded step under remat and under remat_offload bit-equal to the
     sharded plain step, f32 and bf16.  Then #1, #1' and #2 at every 512^2 conv shape of
     rank 0's slabs and #4 at the slab's two 64 x 512^2 layers.  Returns (report, kernel
     entries, launches)."""
@@ -3282,7 +3414,7 @@ def parallel_space_levers(detail):
     rep, tool_s = _space_tool(2, OUT_DIR / "profile_parallel_space_levers.json", "--space", "2",
                               "--phase", str(BIG_PHASE), "--batch", str(BIG_BATCH),
                               "--single_chip_big_volume", "--bf16_only", "--lever_check",
-                              str(PHASE), timeout=600)
+                              str(LEVER_PHASE), timeout=600)
     check(rep["layout"] == [1, 2, 1] and rep["levers"] == ["single_chip_big_volume"],
           f"parallel (e): layout {rep['layout']}, levers {rep['levers']}")
     _space_checked(rep["steps"], "phase 8 preset, data 1 x space 2")
@@ -3293,7 +3425,7 @@ def parallel_space_levers(detail):
         check(c["bit_equal_all_ranks"] and c["ranks_equal"] and min(c["parked_mib_by_rank"]) > 0,
               f"parallel (e): phase-{c['phase']} {c['dtype']} levers not bit-equal: {c}")
     print(f"parallel (e): phase {BIG_PHASE} preset step, depth 64 + 64: {_space_memory_line(r)} "
-          f"(one process, PR 9: peak 9.2 GiB, 7166 MiB parked); levers at phase {PHASE} "
+          f"(one process: peak 9.2 GiB, 7166 MiB parked); levers at phase {LEVER_PHASE} "
           f"bit-equal: {[(c['dtype'], c['bit_equal']) for c in rep['lever_check']]}",
           flush=True)
     conv_shapes, wgrad_shapes, crops = _tool_shapes(r, lambda xs: tuple(xs[3:]) ==
@@ -3310,17 +3442,17 @@ def parallel_space_levers(detail):
 
 
 def parallel_space_families(detail):
-    """(f) surfgan at phase 6 (the flagship's widths, 32 x 128^2, batch 8) with each
-    volume's depth split 16 + 16 over two gloo ranks, f32 and bf16, and pgan2, pgandeep,
-    stylegan and stylegan2 at phase 4 (8 x 32^2, depth 4 + 4), f32, each against the
+    """(f) surfgan at phase 5 (the flagship's widths, 16 x 64^2, batch 8) with each
+    volume's depth split 8 + 8 over two gloo ranks, f32 and bf16, and pgan2, pgandeep,
+    stylegan and stylegan2 at phase 3 (4 x 16^2, depth 2 + 2), f32, each against the
     one-process step within ``compare_states(space=True)``'s limits (f32 with the f64
     witness); ms per rank, the exchanges' share and launches per rank.  Then #1, #1' and
     #2 at every conv shape of surfgan's bf16 slabs.  Returns (report, kernel entries,
     launches)."""
     t0 = time.perf_counter()
     sg, sg_s = _space_tool(2, OUT_DIR / "profile_parallel_space_surfgan.json", "--space", "2",
-                           "--phase", str(PHASE), "--architecture", FAMILY)
-    _space_checked(sg["steps"], f"{FAMILY} phase {PHASE}, data 1 x space 2")
+                           "--phase", str(SPACE_SURFGAN_PHASE), "--architecture", FAMILY)
+    _space_checked(sg["steps"], f"{FAMILY} phase {SPACE_SURFGAN_PHASE}, data 1 x space 2")
     others, others_s = _space_tool(2, OUT_DIR / "profile_parallel_space_families.json",
                                    "--space", "2", "--phase", str(SPACE_FAMILY_PHASE),
                                    "--architecture", ",".join(OTHER_FAMILIES), "--f32_only")
@@ -3380,7 +3512,7 @@ def parallel_entries(entry, launches, space_convs, space_launches):
 def space_slice_entries(levers, fams):
     """The kernels line's rows of parts (e) and (f) (either may be None): #1, #1' and #2 on
     the phase-8 preset step's slabs and #4 forward and backward there, and #1, #1' and #2
-    on surfgan's phase-6 slabs, each with rank 0's launches of its part's main-path step."""
+    on surfgan's phase-5 slabs, each with rank 0's launches of its part's main-path step."""
     tc_fwd, tc_wgrad = ("saragan_tpu_torch/csrc/conv3d_fwd_tc.cu",
                         "saragan_tpu_torch/csrc/conv3d_wgrad_tc.cu")
 
@@ -3413,8 +3545,10 @@ def space_slice_entries(levers, fams):
                   None, per, 1)]
     if fams is not None:
         convs, launches = fams
-        per = (f"one phase-{PHASE} batch-{BATCH} bf16 {FAMILY} step under flat with each "
-               f"volume's depth split 16 + 16 over two gloo ranks on one card: rank 0's "
+        depth = 2 ** (SPACE_SURFGAN_PHASE - 1) // 2
+        per = (f"one phase-{SPACE_SURFGAN_PHASE} batch-{BATCH} bf16 {FAMILY} step under flat "
+               f"with each volume's depth split {depth} + {depth} over two gloo ranks on one "
+               f"card: rank 0's "
                f"launches at every conv shape of its extended slabs (sum over them; bound and "
                f"operations for the cropped outputs); launches counted over that one step "
                f"on rank 0")
@@ -3773,6 +3907,18 @@ def main(argv=None) -> int:
         print("2-D kernels: " + json.dumps(rows), flush=True)
         return 0
 
+    if args.only == "evidence":  # this phase alone, for working on it: no result line
+        detail = []
+        report, launches, kernels = evidence(detail)
+        phase_done("evidence")
+        rows = [kernel_row(*r) for r in evidence_entries(kernels, launches)]
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_evidence.json").write_text(json.dumps(dict(
+            card=card, evidence=report, kernels=rows, shapes=detail, seconds=seconds),
+            indent=1, default=str))
+        print("evidence kernels: " + json.dumps(rows), flush=True)
+        return 0
+
     if args.only == "parallel":  # this phase alone, for working on it: no result line
         par_detail = []
         par, par_rows, slice_rows = parallel(detail=par_detail)
@@ -3942,6 +4088,11 @@ def main(argv=None) -> int:
     two_d_report, two_d_kernels = two_d(detail)
     phase_done("two_d")
 
+    # the quality-evidence drivers' smoke runs: flagship, cubic, 2-D, families, HPO in
+    # process, the preemption receipt in subprocesses, the gates
+    evidence_report, ev_launches, ev_kernels = evidence(detail)
+    phase_done("evidence")
+
     # data parallelism on the one card: the DP step over NCCL at world size 1, two gloo
     # ranks (the DP step, the halo conv, the CLI 5 -> 6), the row-split sampler
     par_report, par_rows, slice_rows = parallel(trained["flat"][1]["mixing"]["per_step"], detail)
@@ -4002,6 +4153,7 @@ def main(argv=None) -> int:
     kernels += [kernel_row(*r) for r in big_volume_entries(big_kernels, big_launches)]
     kernels += [kernel_row(*r) for r in family_entries(fam_convs, fam_launches)]
     kernels += [kernel_row(*r) for r in two_d_entries(two_d_report, two_d_kernels)]
+    kernels += [kernel_row(*r) for r in evidence_entries(ev_kernels, ev_launches)]
     kernels += [kernel_row(*r) for r in parallel_entries(*par_rows)]
     kernels += [kernel_row(*r) for r in space_slice_entries(*slice_rows)]
     f32_train = {f"{kind}[f32]": {x: e[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -4015,7 +4167,7 @@ def main(argv=None) -> int:
         engines_f32=engines_f32, engines=engines_report, v2_serving=v2_serving,
         trainer=trainer, bitwise_resume=resume, metrics=metrics,
         big_volume=big, families=fam, hpo=hpo_report, tools=tools_report, two_d=two_d_report,
-        parallel=par_report, seconds=seconds),
+        evidence=evidence_report, parallel=par_report, seconds=seconds),
         indent=1, default=str))
     print(f"serving: " + json.dumps({e: served[e][1] for e in served}), flush=True)
     print("training: " + json.dumps({e: {h: dict(step_ms=r["step_ms"], peak_mib=r["peak_mib"])
@@ -4062,6 +4214,9 @@ def main(argv=None) -> int:
         phases={p: {k: v for k, v in r.items() if not k.endswith("_all")}
                 for p, r in two_d_report["trainer"]["phases"].items()},
         serve_forward_ms=two_d_report["serve"]["forward_ms"])), flush=True)
+    print("evidence: " + json.dumps(dict(
+        seconds=evidence_report["seconds"], launches=ev_launches,
+        gates={n: g["ok"] for n, g in evidence_report["gates"].items()})), flush=True)
     tool = par_report["two_ranks"]["tool"]
     print("parallel: " + json.dumps(dict(
         nccl_world_one=dict(dp_step_ms=par_report["nccl_world_one"]["dp_step_ms"],
@@ -4087,7 +4242,7 @@ def _parse(argv):
 
     p = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
     p.add_argument("--only", choices=["engines", "big_volume", "families", "hpo", "tools",
-                                       "two_d", "parallel", "parallel_space", "parallel_space_levers",
+                                       "two_d", "evidence", "parallel", "parallel_space", "parallel_space_levers",
                                        "parallel_space_families", "parallel_cards"],
                    default=None,
                    help="build, then run this phase alone (no result line)")

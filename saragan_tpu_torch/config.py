@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import json
 import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
@@ -78,6 +79,12 @@ def parse_tuple(value) -> Tuple[int, ...]:
     if isinstance(value, (tuple, list)):
         return tuple(int(v) for v in value)
     return tuple(ast.literal_eval(str(value)))
+
+
+def load_spec(path: str, key: str) -> list:
+    """kernel_spec / filter_spec from a JSON file (the reference's main.py:225-232)."""
+    with open(path) as f:
+        return json.load(f)[key]
 
 
 def num_phases_from_shapes(start_shape, final_shape) -> int:

@@ -103,6 +103,13 @@ def zeros_initializer() -> Callable:
     return init
 
 
+def ones_initializer() -> Callable:
+    def init(gen, shape, dtype):
+        return torch.ones(shape, dtype=dtype)
+
+    return init
+
+
 def filter_params(params: Params, prefix: str) -> Params:
     """All parameters whose name starts with `prefix` (a scope path)."""
     pre = prefix if prefix.endswith("/") else prefix + "/"

@@ -139,11 +139,12 @@ def _catchable() -> tuple:
     return (MemoryError, torch.cuda.OutOfMemoryError)
 
 
-def default_objective(trial, cfg: Config, device=None, mesh=None):
+def default_objective(trial, cfg: Config, device=None, mesh=None, extractor=None):
     """objective(trial, cfg) -> FID (or (FID, train_time)): one full multi-phase
     training run on `device` (CUDA unless named), or data-parallel over `mesh` (a
     ``parallel.Mesh``, on its device; rank 0's trial is the real one).  ``cfg.horovod``
-    needs the mesh (``cli.main`` joins the process group before ``run``)."""
+    needs the mesh (``cli.main`` joins the process group before ``run``).  `extractor`:
+    the FID's feature extractor (None: ``make_metrics_callback``'s default)."""
     from saragan_tpu_torch.hpo.suggestions import optuna_override_undefined
     from saragan_tpu_torch.metrics.save_metrics import make_metrics_callback
     from saragan_tpu_torch.parallel import synchronized_trial
@@ -174,8 +175,9 @@ def default_objective(trial, cfg: Config, device=None, mesh=None):
     def run_once(run_cfg, run_trial):
         # resolved before training: compute_FID without Inception weights fails here
         # (UncalibratedFIDError) unless allow_uncalibrated_fid
-        metrics_cb = (make_metrics_callback(run_cfg, device=device) if run_cfg.calc_metrics
-                      else None)
+        named = {} if extractor is None else {"extractor": extractor}
+        metrics_cb = (make_metrics_callback(run_cfg, device=device, **named)
+                      if run_cfg.calc_metrics else None)
         parallel = {} if mesh is None else {"mesh": mesh}
         trainer = Trainer(run_cfg, metrics_callback=metrics_cb, trial=run_trial,
                           verbose=(worker_id(mesh) == 0 or run_cfg.optuna_distributed),

@@ -628,6 +628,18 @@ def from_rgb(scope: Scope, x: torch.Tensor, filters_out: int, activation: str, p
     return act(x, activation, param=param)
 
 
+def alpha_update(alpha, mixing_nimg: int, starting_alpha: float, batch_size: int,
+                 global_size: int) -> torch.Tensor:
+    """One mixing-phase alpha step: linear decay 1 -> 0.  ``num_steps`` floors at 1, so a
+    mixing budget below one global batch fades in a single step (the trainer's schedule
+    keeps the same floor)."""
+    alpha = torch.as_tensor(alpha)
+    if mixing_nimg == 0:
+        return torch.zeros_like(alpha)
+    num_steps = max(1, mixing_nimg // (batch_size * global_size))
+    return torch.clamp(alpha - starting_alpha / num_steps, min=0.0)
+
+
 def get_kernel(x_shape: Sequence[int], desired_k_shape: Sequence[int]) -> list:
     """Shrink a desired kernel to the largest odd kernel fitting x."""
     if len(x_shape) != len(desired_k_shape):

@@ -32,12 +32,12 @@ from saragan_tpu.train import init_train_state as jax_init_train_state
 from saragan_tpu.train import make_train_step as jax_make_train_step
 from saragan_tpu_torch import losses
 from saragan_tpu_torch.config import Config
-from saragan_tpu_torch.convert import (params_from_numpy, train_state_from_numpy,
-                                       train_state_to_numpy)
+from saragan_tpu_torch.convert import (opt_state_from_optax, params_from_numpy,
+                                       train_state_from_numpy, train_state_to_numpy)
 from saragan_tpu_torch.models import get_architecture
 from saragan_tpu_torch.models.style_ops import StyleMix
 from saragan_tpu_torch.ops import conv3d_flat as cf
-from saragan_tpu_torch.ops.core import NoiseByName
+from saragan_tpu_torch.ops.core import LayerNoise, NoiseByName
 from saragan_tpu_torch.optim.factory import make_optimizers_from_config
 from saragan_tpu_torch.train.step import init_train_state, make_train_step
 
@@ -190,14 +190,19 @@ def test_init_names_and_shapes_match_jax(jax_params, arch):
 # ---------------------------------------------------------------------------
 
 
-def _tree(state):
-    def opt(o):
+def _tree(state, opts=None):
+    """The reference's TrainState in the port's numpy form; `opts` (the port's (G, D)
+    optimizers) maps optax's state trees of another optimizer than Adam."""
+    def opt(o, optimizer):
+        if optimizer is not None:
+            return opt_state_from_optax(optimizer, o)
         return {"count": np.asarray(o.count), "mu": {k: np.asarray(v) for k, v in o.mu.items()},
                 "nu": {k: np.asarray(v) for k, v in o.nu.items()}}
 
+    go, do = opts or (None, None)
     return {"g_params": {k: np.asarray(v) for k, v in state.g_params.items()},
             "d_params": {k: np.asarray(v) for k, v in state.d_params.items()},
-            "g_opt": opt(state.g_opt), "d_opt": opt(state.d_opt),
+            "g_opt": opt(state.g_opt, go), "d_opt": opt(state.d_opt, do),
             "ema": {k: np.asarray(v) for k, v in state.ema.items()}}
 
 
@@ -306,6 +311,113 @@ def test_train_step_matches_jax(arch):
     if arch in STYLE:
         avg = ours["g_params"]["generator/d_z_avg"]
         assert np.abs(avg).max() > 0 and np.all(ours["g_opt"]["mu"]["generator/d_z_avg"] == 0)
+
+
+EMA_STEPS = 3
+
+
+def run_steps(arch, steps=EMA_STEPS, **kw):
+    """`steps` steps of the reference and of the port from one converted state, step i
+    with its own real batch, key and alpha 0.25 (i + 1), the reference's draws fed to the
+    port; each step's losses held as ``test_train_step_matches_jax`` holds them.  Returns
+    (reference state after the last step, the port's states after each step)."""
+    jcfg, cfg = configs(arch, **kw)
+    phase = phase_of(arch)
+    state, (jgo, jdo) = jax_init_train_state(jax_arch(arch), jax.random.PRNGKey(0),
+                                             phase=phase, cfg=jcfg)
+    jstep = jax.jit(jax_make_train_step(jax_arch(arch), jcfg, phase, jgo, jdo))
+    go, do = make_optimizers_from_config(cfg)
+    tstate = train_state_from_numpy(_tree(state, (go, do)), "cpu")
+    step = make_train_step(get_architecture(arch), cfg, phase, go, do, conv_engine="flat")
+    history = []
+    for i in range(steps):
+        alpha = 0.25 * (i + 1)
+        real = np.random.default_rng(10 + i).normal(
+            size=cfg.current_shape(phase, N)).astype(np.float32)
+        key = jax.random.PRNGKey(20 + i)
+        state, jm = jstep(state, jnp.asarray(real), key, alpha, 1e-3, 1e-3)
+        draws = step_draws(arch, cfg, phase, key, N, jnp.float32, real.shape[1:])
+        tstate, m = step(tstate, torch.from_numpy(real), None, alpha, 1e-3, 1e-3, draws=draws)
+        for name in ("gen_loss", "disc_loss", "gp_loss"):
+            np.testing.assert_allclose(np32(getattr(m, name)), np.asarray(getattr(jm, name)),
+                                       rtol=1e-4, atol=1e-6, err_msg=f"step {i} {name}")
+        history.append(train_state_to_numpy(tstate))
+    return state, history
+
+
+@pytest.mark.parametrize("arch", sorted(STYLE))
+def test_style_ema_after_steps_matches_jax(arch):
+    """The style families' EMA shadow after 3 steps from one converted state, against the
+    reference's.  ``ema_beta`` 0.5, so each step moves the shadow by half of the live
+    weights' move and an entry the port failed to average (a mapping-net weight, the
+    w-average buffer ``d_z_avg``) would stand half a step off.  Momentum, not Adam: Adam
+    moves an entry whose gradient is rounding noise (stylegan's biases before instance
+    norm) by +-lr, and over three steps stylegan's two trajectories part by more than
+    rounding; with Momentum every move is lr * g, so the weights and the shadow stay within
+    the pgan trajectory's limits (rtol 1e-3, atol 1e-6), the w-average (moved by
+    ``refresh_state``, not by the optimizer) within rtol 1e-4; stylegan's biases whose
+    exact gradient is 0 (``ZERO_GRADIENT``) move by lr times rounding noise, so they are
+    held within atol 1e-5, a hundredth of lr.  Then the port's shadow
+    against its own recurrence from the step before, 0.5 shadow' + 0.5 live."""
+    beta = 0.5
+    kw = dict(ema_beta=beta, optimizer="Momentum")
+    jstate, history = run_steps(arch, **kw)
+    opts = make_optimizers_from_config(configs(arch, **kw)[1])
+    ours, ref = history[-1], _tree(jstate, opts)
+    avg = "generator/d_z_avg"
+    for part in ("g_params", "ema"):
+        np.testing.assert_allclose(ours[part][avg], ref[part][avg], rtol=1e-4, atol=1e-7,
+                                   err_msg=part)
+    assert np.abs(ours["ema"][avg] - ours["g_params"][avg]).max() > 0
+    zero = re.compile(ZERO_GRADIENT) if arch == "stylegan" else None
+    for part in ("g_params", "d_params", "ema"):
+        assert ours[part].keys() == ref[part].keys()
+        for k, v in ref[part].items():
+            atol = 1e-5 if zero is not None and zero.search(k) else 1e-6
+            np.testing.assert_allclose(ours[part][k], v, rtol=1e-3, atol=atol, err_msg=k)
+    # the recurrence, from the port's state one step before
+    prev = history[-2]["ema"]
+    live = {**ours["g_params"], **ours["d_params"]}
+    assert ours["ema"].keys() == live.keys() == prev.keys()
+    for k, v in ours["ema"].items():
+        np.testing.assert_allclose(v, beta * prev[k] + (1 - beta) * live[k], rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+
+
+def moment_err(vols) -> float:
+    """The family driver's gate reading: |mean| + |std - 1| of the samples."""
+    vols = np.asarray(vols, np.float64)
+    return abs(vols.mean()) + abs(vols.std() - 1.0)
+
+
+@pytest.mark.parametrize("arch", sorted(STYLE))
+def test_initial_moment_error_spread_matches_jax(arch):
+    """The family driver's first reading is the initial generator's moment error.  Over
+    six init seeds of each package (each from its own generator: JAX keys, torch seeds)
+    the two spreads agree: the means within two standard errors of their difference.
+    So a seed whose first reading already lies near the data's moments, where the gate
+    (first live reading against the last EMA readings) is weakest, is as likely in the
+    port as in the reference.  Sampling mode (noise, no mixing) at alpha 0, 16 samples of
+    the small config."""
+    jcfg, cfg = configs(arch)
+    phase, n = phase_of(arch), 16
+    z = np.random.default_rng(3).normal(size=(n, cfg.latent_dim)).astype(np.float32)
+    ja, ta = jax_arch(arch), get_architecture(arch)
+    jax_sample = jax.jit(lambda p, k: ja.generator(p, jnp.asarray(z), 0.0, phase=phase,
+                                                   cfg=jcfg, rng=k, train=False))
+    jax_errs, port_errs = [], []
+    for seed in range(6):
+        jp = ja.init(jax.random.PRNGKey(seed), phase=phase, cfg=jcfg)
+        jax_errs.append(moment_err(jax_sample(jp, jax.random.PRNGKey(100 + seed))))
+        tp = ta.init(torch.Generator().manual_seed(seed), phase=phase, cfg=cfg, device="cpu")
+        with torch.no_grad():
+            port_errs.append(moment_err(np32(ta.generator(
+                tp, torch.from_numpy(z), 0.0, phase=phase, cfg=cfg, conv_engine="flat",
+                train=False, noise=LayerNoise(100 + seed)))))
+    j, p = np.asarray(jax_errs), np.asarray(port_errs)
+    se = np.sqrt(j.var(ddof=1) / j.size + p.var(ddof=1) / p.size)
+    print(f"{arch} initial moment errors: JAX {np.round(j, 4)}, port {np.round(p, 4)}")
+    assert abs(j.mean() - p.mean()) <= 2 * se, (jax_errs, port_errs)
 
 
 def _assert_grads_close(ours, ref, rtol, rel_atol):

@@ -37,8 +37,8 @@ print(" ".join(names))
 """
 
 # the trainer slice's, the metrics slice's, the model families', the HPO slice's, the
-# input layer's, the data-parallel slice's and the op formulations' modules, which the
-# hook must reach
+# input layer's, the data-parallel slice's, the op formulations' and the quality-evidence
+# drivers' modules, which the hook must reach
 REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             "saragan_tpu_torch.optim.factory", "saragan_tpu_torch.hpo",
             *(f"saragan_tpu_torch.hpo.{m}" for m in ("engine", "harness", "suggestions")),
@@ -53,7 +53,12 @@ REQUIRED = {"saragan_tpu_torch.cli", "saragan_tpu_torch.__main__",
             "saragan_tpu_torch.ops._build", "saragan_tpu_torch.parallel",
             *(f"saragan_tpu_torch.parallel.{m}" for m in ("mesh", "multihost", "halo")),
             "saragan_tpu_torch.tools.profile_parallel", "saragan_tpu_torch.utils",
-            "saragan_tpu_torch.ops.conv3d_gemm", "saragan_tpu_torch.ops.conv3d_s2d"}
+            "saragan_tpu_torch.ops.conv3d_gemm", "saragan_tpu_torch.ops.conv3d_s2d",
+            "saragan_tpu_torch.scripts",
+            *(f"saragan_tpu_torch.scripts.{m}"
+              for m in ("_evidence", "convergence_run", "convergence_run_2d",
+                        "convergence_run_flagship", "family_chip_smoke", "hpo_chip_demo",
+                        "preemption_receipt", "seed_band"))}
 
 
 def test_port_imports_with_jax_and_reference_blocked():
